@@ -24,6 +24,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# per-kernel flags: these kernels follow their plain PyTorch versions
+# operation by operation, so nvcc must not contract a*b+c into an FMA that
+# eager PyTorch does not do (it could flip the remap geometry's case tests)
+EXTRA_FLAGS = {"evp_subcycle": ("-fmad=false",),
+               "remap_gsh": ("-fmad=false",),
+               "remap_k12": ("-fmad=false",)}
 NVCC_TIMEOUT_S = 600
 
 
@@ -39,7 +45,8 @@ class Library:
 
 
 _loaded: dict[str, Library] = {}
-_lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
+_guard = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -53,13 +60,17 @@ def _nvcc() -> str:
 
 
 def load(name: str) -> Library:
-    """Build ``csrc/<name>.cu`` if needed and load it (once per process)."""
-    with _lock:
+    """Build ``csrc/<name>.cu`` if needed and load it (once per process).
+    Concurrent calls for different names build in parallel."""
+    with _guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
         src = CSRC / f"{name}.cu"
         deps = [src] + sorted(CSRC.glob("*.cuh"))
-        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+        digest = hashlib.sha256(" ".join(flags).encode())
         for dep in deps:
             digest.update(dep.read_bytes())
         so = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
@@ -70,7 +81,7 @@ def load(name: str) -> Library:
         else:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
             t0 = time.perf_counter()
             res = subprocess.run(cmd, capture_output=True, text=True,
                                  timeout=NVCC_TIMEOUT_S)
@@ -87,3 +98,13 @@ def load(name: str) -> Library:
                       seconds=seconds, log=log)
         _loaded[name] = out
         return out
+
+
+def load_all(names) -> dict[str, Library]:
+    """Build and load several kernels at once, one nvcc each, all started
+    together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(load, names)))

@@ -1,5 +1,7 @@
-"""Seeded inputs and the kernel-versus-plain comparison of the Newton
-temperature solve, shared by ``chip_smoke.py`` and the GPU tests.
+"""Seeded inputs and the kernel-versus-plain comparisons of the port's
+CUDA kernels, shared by ``chip_smoke.py`` and the GPU tests: the Newton
+temperature solve first, the dynamics kernels (EVP, remap GSH and K12)
+at the end of the module.
 
 The inputs follow the JAX package's own kernel test
 (``tests/test_thermo.py::test_pallas_thermo_matches_jnp``): ice only in
@@ -115,3 +117,123 @@ def compare(kern: dict, plain: dict, has_ice, dtype) -> dict:
         if bad or not finite:
             report["ok"] = False
     return report
+
+
+# ---------------------------------------------------------------------------
+# the dynamics kernels: evp_subcycle, remap_gsh (ga_gsh), remap_k12
+# ---------------------------------------------------------------------------
+#
+# Tolerances, fixed before the first run on the card.  The three kernels are
+# built with -fmad=false and follow their plain versions operation by
+# operation, so they should agree to the last bit or nearly; what may differ:
+#
+# * EVP: the plain version's 4-corner sums (`.sum(0)`) may be reduced in
+#   another order, and 120 subcycles carry any last-bit difference:
+#   |k - p| <= rtol * (|p| + max|p|), rtol 1e-4 (f32) / 1e-10 (f64).
+# * GSH: PyTorch's CUDA division by a Python scalar multiplies by its
+#   reciprocal (the triangle centroids' / 3), so the quadrature points may
+#   differ in the last bit: rtol 1e-5 (f32) / 1e-12 (f64).  An edge may
+#   select another geometric case where a case test compares a value
+#   within roundoff of zero; at most 0.1% of edges (f32) or 0.01% (f64) may
+#   differ, and only GSH values within two cells of such an edge (the
+#   90 planes at 25 cells per flipped edge) may exceed the tolerance.
+# * K12: same operations in the same order on the same GSH:
+#   rtol 1e-5 (f32) / 1e-12 (f64).
+
+EVP_RTOL = {torch.float32: 1.0e-4, torch.float64: 1.0e-10}
+GSH_RTOL = {torch.float32: 1.0e-5, torch.float64: 1.0e-12}
+GSH_MAX_FLIP_SHARE = {torch.float32: 1.0e-3, torch.float64: 1.0e-4}
+K12_RTOL = {torch.float32: 1.0e-5, torch.float64: 1.0e-12}
+
+
+def compare_fields(kern: dict, plain: dict, rtol: float) -> dict:
+    """Per output: max |k - p|, max relative to (|p| + max|p|), the number
+    of elements beyond ``rtol * (|p| + max|p|)`` and finiteness."""
+    out = {}
+    for k, b in plain.items():
+        a = kern[k]
+        diff = (a - b).abs()
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        den = (b.abs() + scale).clamp(min=torch.finfo(b.dtype).tiny)
+        out[k] = dict(max_abs=float(diff.max()) if b.numel() else 0.0,
+                      max_rel=float((diff / den).max()) if b.numel() else 0.0,
+                      n_bad=int((diff > rtol * (b.abs() + scale)).sum()),
+                      finite=bool(torch.isfinite(a).all()))
+    return out
+
+
+def fields_ok(report: dict, allowed_bad: int = 0) -> bool:
+    return (all(v["finite"] for v in report.values())
+            and sum(v["n_bad"] for v in report.values()) <= allowed_bad)
+
+
+def evp_inputs(grid, seed: int, *, dtype):
+    """Arguments of `evp_subcycle` after `p` and `grid`: ice in two polar
+    bands (the middle rows carry no ice, so whole warps are gated off),
+    the masked-zero invariant, random forcing, on the grid's device."""
+    ny, nx = grid.ny, grid.nx
+    device = grid.tmask.device
+    rng = np.random.RandomState(seed)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    def r(lo, hi, shape=(ny, nx)):
+        return rng.uniform(lo, hi, shape)
+
+    row = np.arange(ny)[:, None] * np.ones((1, nx))
+    band = (row < ny // 4) | (row >= ny - ny // 5)
+    icet = band & (rng.rand(ny, nx) > 0.3)
+    iceu = icet & (rng.rand(ny, nx) > 0.1)
+    arrays = (r(0.0, 2.0e4) * icet, icet, iceu, r(0.5, 1.0),
+              r(-0.2, 0.2), r(-0.2, 0.2), r(-0.2, 0.2), r(-0.2, 0.2),
+              r(-0.2, 0.2) * iceu, r(-0.2, 0.2) * iceu, r(1.0, 60.0),
+              r(-2.0, 2.0), r(-0.3, 0.3) * iceu,
+              r(-0.3, 0.3) * iceu, r(-1e3, 1e3, (4, ny, nx)) * icet,
+              r(-1e3, 1e3, (4, ny, nx)) * icet,
+              r(-1e3, 1e3, (4, ny, nx)) * icet)
+    return tuple(torch.as_tensor(a, device=device) if a.dtype == bool
+                 else t(a) for a in arrays)
+
+
+EVP_OUTPUTS = ("uvel", "vvel", "stressp", "stressm", "stress12", "strintx",
+               "strinty", "strocnx", "strocny", "div_sum", "delta_sum",
+               "ten_sum", "shr_sum", "prs_sig")
+
+
+def evp_named(out) -> dict:
+    """The result tuple of `evp_subcycle` as a dict over EVP_OUTPUTS."""
+    named = dict(zip(EVP_OUTPUTS[:5], out[:5]))
+    named.update(zip(EVP_OUTPUTS[5:9], out[6:]))
+    named.update(out[5])
+    return named
+
+
+def remap_inputs(grid, seed: int, ncat: int, meta, *, dtype):
+    """(dx, dy, afac, mm_ext, tm_ext): departure displacements of a random
+    velocity field of up to 1 m/s over a one-hour step, and an
+    extended category batch (open water in row 0) with ice in two polar
+    bands and a random tracer stack."""
+    ny, nx = grid.ny, grid.nx
+    device = grid.tmask.device
+    rng = np.random.RandomState(seed)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    u = t(rng.uniform(-1.0, 1.0, (ny, nx))) * grid.umask
+    v = t(rng.uniform(-1.0, 1.0, (ny, nx))) * grid.umask
+    dx = -3600.0 * u / grid.dxu
+    dy = -3600.0 * v / grid.dyu
+    row = np.arange(ny)[:, None] * np.ones((1, nx))
+    band = (row < ny // 4) | (row >= ny - ny // 5)
+    aicen = rng.uniform(0.0, 0.2, (ncat, ny, nx)) * band \
+        * (rng.rand(ncat, ny, nx) > 0.2)
+    mm = np.concatenate([np.maximum(1.0 - aicen.sum(0), 0.0)[None], aicen])
+    tm = rng.uniform(-2.0, 3.0, (ncat, len(meta), ny, nx)) \
+        * (aicen[:, None] > 0)
+    tm[:, :2] = np.abs(tm[:, :2])
+    tm = np.concatenate([np.zeros_like(tm[:1]), tm])
+    return dx, dy, grid.dxu * grid.dyu, t(mm), t(tm)

@@ -1,13 +1,14 @@
-"""The model: one time step composing the column physics.
+"""The model: one time step composing the column physics and dynamics.
 
 Port of :mod:`cice4_tpu.model` (``source/ice_step_mod.F90`` +
-``drivers/cice4/CICE_RunMod.F90 ice_step:164-242``) for the
-thermodynamic slice: CCSM3 radiation, the Monin-Obukhov boundary layer,
-the Newton column thermodynamics (the therm_newton kernel on the GPU),
-linear ITD, new ice, lateral melt, ridging at zero convergence, cleanup,
-the slab ocean and the in-step conservation guards.  Dynamics
-(``kdyn=1``, ROADMAP queue 1 item 1) and transport (``advection`` other
-than ``"none"``, items 2 and 4) raise ``NotImplementedError``.
+``CICE_RunMod.F90 ice_step:164-242``) for the default
+gx1 step: CCSM3 radiation, the Monin-Obukhov boundary layer, the Newton
+column thermodynamics (the therm_newton kernel on the GPU), linear ITD,
+new ice, lateral melt, EVP dynamics (the evp_subcycle kernel),
+incremental remapping (the remap_gsh and remap_k12 kernels), ridging,
+cleanup, the slab ocean and the in-step conservation guards.  Dynamics
+may be off (``kdyn=0``) and transport may be ``"none"``; the options
+not ported yet raise ``NotImplementedError`` naming their ROADMAP item.
 
 Categories are an explicit leading ``ncat`` axis where the JAX package
 vmaps.  Radiation runs at the start of the step from the current
@@ -26,8 +27,10 @@ from cice4_tpu_torch.grid import GRID_FIELDS, Grid, make_grid
 from cice4_tpu_torch.ops import itd as itd_ops
 from cice4_tpu_torch.ops import mechred, therm_itd
 from cice4_tpu_torch.ops.atmo import atmo_boundary_layer
+from cice4_tpu_torch.ops.evp import evp, principal_stress
 from cice4_tpu_torch.ops.ocean import ocean_mixed_layer
 from cice4_tpu_torch.ops.orbital import compute_coszen
+from cice4_tpu_torch.ops.remap import transport_remap
 from cice4_tpu_torch.ops.shortwave import shortwave_ccsm3
 from cice4_tpu_torch.ops.therm_vertical import (frzmlt_bottom_lateral,
                                                 make_thermo_params,
@@ -36,14 +39,25 @@ from cice4_tpu_torch.state import State, freezing_temperature, make_itd_params
 
 
 def _check_supported(cfg: Config):
-    if cfg.dynamics.kdyn != 0:
+    if cfg.dynamics.kdyn not in (0, 1):
+        raise ValueError(f"unknown kdyn {cfg.dynamics.kdyn}")
+    if cfg.dynamics.kdyn == 1 and cfg.domain.ns_boundary_type == "cyclic":
         raise NotImplementedError(
-            "kdyn=1 (EVP dynamics) is not ported yet (ROADMAP queue 1 "
-            "item 1); use dynamics.kdyn=0")
-    if cfg.transport.advection != "none":
+            "EVP on an NS-cyclic grid is not ported yet (ROADMAP queue 2 "
+            "item 7)")
+    tr = cfg.transport
+    if tr.advection == "upwind":
         raise NotImplementedError(
-            f"advection={cfg.transport.advection!r} is not ported yet "
-            "(ROADMAP queue 1 items 2 and 4); use transport.advection='none'")
+            "advection='upwind' is not ported yet (ROADMAP queue 1 item 4)")
+    if tr.advection not in ("none", "remap"):
+        raise ValueError(f"unknown advection {tr.advection!r}")
+    if tr.advection == "remap":
+        for name in ("l_dp_midpt", "l_fixed_area", "conservation_check",
+                     "monotonicity_check"):
+            if getattr(tr, name):
+                raise NotImplementedError(
+                    f"transport.{name}=True is not ported yet (ROADMAP "
+                    "queue 1 item 4)")
     if cfg.radiation.shortwave != "default":
         raise NotImplementedError(
             "dEdd shortwave is not ported yet (ROADMAP queue 1 item 4)")
@@ -231,18 +245,32 @@ def _step_therm2(model: Model, state: State, grid: Grid, fluxes,
 
 def _step_dynamics(model: Model, state: State, grid: Grid, f: Forcing,
                    fluxes, dt):
-    """The kdyn=0 / advection='none' branch of
-    ``ice_step_mod.F90 step_dynamics:538-745``: no EVP, no transport,
-    ridging at zero convergence, cleanup."""
+    """EVP + transport + ridging
+    (``ice_step_mod.F90 step_dynamics:538-745``)."""
     cfg, itd = model.cfg, model.itd
-    z = torch.zeros_like(state.sst)
-    dyn_diag = dict(rdg_conv=z, rdg_shear=z, divu=z, shear=z,
-                    strength=z, prs_sig=z)
+    agg = itd_ops.aggregate(state, grid.tmask)
+
+    if cfg.dynamics.kdyn == 1:
+        state, dyn_diag = evp(
+            state, grid, cfg.dynamics, dt,
+            agg["aice"], agg["vice"], agg["vsno"],
+            state.aicen, state.vicen, agg["aice0"],
+            f.uocn, f.vocn, f.ss_tltx, f.ss_tlty,
+            fluxes["strairxT"], fluxes["strairyT"])
+    else:
+        z = torch.zeros_like(agg["aice"])
+        dyn_diag = dict(rdg_conv=z, rdg_shear=z, divu=z, shear=z,
+                        strength=z, prs_sig=z)
+
+    aice0_adv = None
+    if cfg.transport.advection == "remap":
+        state, aice0_adv = transport_remap(
+            state, grid, dt, cfg.transport.integral_order)
 
     state, rdg = mechred.ridge_ice(state, itd, cfg.dynamics, dt,
                                    dyn_diag["rdg_conv"],
                                    dyn_diag["rdg_shear"], grid.tmask,
-                                   aice0=None, guards=cfg.run.guards)
+                                   aice0=aice0_adv, guards=cfg.run.guards)
     if "_guard" in rdg:
         fluxes["_guards"]["ridging: area sum != 1"] = rdg.pop("_guard")
     fluxes["fresh"] = fluxes["fresh"] + rdg["fresh"]
@@ -258,6 +286,18 @@ def _step_dynamics(model: Model, state: State, grid: Grid, f: Forcing,
 
     for k in ("divu", "shear", "strength", "prs_sig"):
         fluxes[k] = dyn_diag[k]
+    for k in ("strintx", "strinty", "strocnx", "strocny",
+              "strtltx", "strtlty", "strcorx", "strcory"):
+        if k in dyn_diag:
+            fluxes[k] = dyn_diag[k]
+
+    # principal stresses sig1/sig2 + stress trace for history
+    # (``principal_stress``, ice_dyn_evp.F90:1558-1609)
+    if cfg.dynamics.kdyn == 1:
+        fluxes["sig1"], fluxes["sig2"] = principal_stress(
+            state.stressp[0], state.stressm[0], state.stress12[0],
+            dyn_diag["prs_sig"])
+        fluxes["trsig"] = 0.25 * state.stressp.sum(0)
     return state, fluxes
 
 

@@ -1,10 +1,11 @@
-"""The ridging ITD functions shared by ridging and ice strength.
+"""Ice strength and the ridging ITD functions it shares with ridging.
 
-Port of `ridge_itd` from :mod:`cice4_tpu.ops.mechred_strength`
-(``source/ice_mechred.F90:773-1081``): participation + ridged-ice ITD
+Port of :mod:`cice4_tpu.ops.mechred_strength`: `ridge_itd`
+(participation + ridged-ice ITD, ``source/ice_mechred.F90:773-1081``)
 for both participation (`krdg_partic` 0/1) and redistribution
-(`krdg_redist` 0/1) options.  `ice_strength` waits for the EVP slice
-(ROADMAP queue 1 item 1).
+(`krdg_redist` 0/1) options, and `ice_strength` (``:1869-2036``) for
+both the Hibler (1979) (`kstrength=0`) and Rothrock (1975)
+(`kstrength=1`) formulations.
 """
 
 from __future__ import annotations
@@ -87,3 +88,27 @@ def ridge_itd_full(dyn: DynamicsConfig, aicen, vicen, aice0):
     aksum = apartic0 + (apartic * (1.0 - 1.0 / krdg)).sum(0)
     return dict(apartic0=apartic0, apartic=apartic, hrmin=hrmin,
                 hrmax=hrmax, hrexp=hrexp, krdg=krdg, aksum=aksum, hi=hi)
+
+
+def ice_strength(dyn: DynamicsConfig, aice, vice, aice0, aicen, vicen,
+                 icetmask):
+    """Ice strength P (N/m) (``ice_mechred.F90 ice_strength:1869-2036``)."""
+    if dyn.kstrength == 1:  # Rothrock 1975 potential-energy strength
+        r = ridge_itd_full(dyn, aicen, vicen, aice0)
+        apartic, krdg = r["apartic"], r["krdg"]
+        hi = r["hi"]
+        active = (aicen > cn.puny) & (apartic > 0.0)
+        if dyn.krdg_redist == 0:
+            hrmin, hrmax = r["hrmin"], r["hrmax"]
+            h2rdg = (1.0 / 3.0) * (hrmax**3 - hrmin**3) \
+                / torch.clamp(hrmax - hrmin, min=cn.puny)
+        else:
+            hrmin, hrexp = r["hrmin"], r["hrexp"]
+            h2rdg = hrmin * hrmin + 2.0 * hrmin * hrexp + 2.0 * hrexp * hrexp
+        dh2rdg = -hi * hi + h2rdg / krdg
+        strength = torch.where(active, apartic * dh2rdg, 0.0).sum(0)
+        strength = dyn.Cf * dyn.Cp * strength \
+            / torch.clamp(r["aksum"], min=cn.puny)
+    else:  # Hibler 1979
+        strength = dyn.Pstar * vice * torch.exp(-dyn.Cstar * (1.0 - aice))
+    return torch.where(icetmask, strength, 0.0)

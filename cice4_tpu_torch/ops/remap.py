@@ -1,0 +1,552 @@
+"""Incremental remapping transport (Dukowicz & Baumgardner 2000;
+Lipscomb & Hunke 2004).
+
+Port of the GA branch of :mod:`cice4_tpu.ops.remap` (``source/
+ice_transport_remap.F90`` and the reference's ``transport_remap:
+179-663``): second-order, monotone (van-Leer-limited linear
+reconstruction), conservative.
+
+Every edge of the grid carries a dense set of up to 6 departure
+triangles (`_edge_geometry`).  Their monomial moments, scattered to the
+9 donor offsets and back-shifted, form the category-independent GSH
+tensor (`_geom_accumulators` + `_shift_by`): kernel ``remap_gsh`` on
+the card (:func:`cice4_tpu_torch.ops.remap_cuda.ga_gsh`).  Each
+category's van-Leer reconstruction is then contracted against GSH into
+the flux divergences (`remap_cuda._construct_vmem` +
+`_flux_divergence_ga`): kernel ``remap_k12`` on the card
+(:func:`cice4_tpu_torch.ops.remap_cuda.k12_divergence`).
+
+As in the reference, all local geometry is computed on the *scaled*
+grid (cell = unit square); physical areas enter only through the corner
+area factors dxu*dyu and the final 1/tarea.
+
+Not ported (ROADMAP queue 1 item 4): the departure-point midpoint
+correction (``l_dp_midpt``), the fixed-area mode (``l_fixed_area``), the
+conservation and monotonicity checks, the legacy non-GA path and the
+K1/K2 path; each raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cice4_tpu_torch import constants as cn
+from cice4_tpu_torch.constants import FieldLoc, FieldType
+from cice4_tpu_torch.grid import Grid
+from cice4_tpu_torch.ops.itd import TRACER_DEPEND
+from cice4_tpu_torch.state import State
+
+NGROUPS = 6
+
+# neighbor-position codes for flux cells
+TL, BL, TR, BR, TC, BC = 0, 1, 2, 3, 4, 5
+
+# which positions each triangle group can flux into (static)
+GROUP_POSITIONS = ((TL, BL), (TR, BR), (TL, BL, TR, BR),
+                   (TC, BC), (TC, BC), (TC, BC))
+
+# (ishift, jshift) per position, per edge (ice_transport_remap.F90:1990-2030)
+SHIFTS = {
+    "north": {TL: (-1, 1), BL: (-1, 0), TR: (1, 1), BR: (1, 0),
+              TC: (0, 1), BC: (0, 0)},
+    "east": {TL: (1, 1), BL: (0, 1), TR: (1, -1), BR: (0, -1),
+             TC: (1, 0), BC: (0, 0)},
+}
+
+# all 9 donor offsets a flux divergence can draw from
+ALL_OFFSETS = tuple((di, dj) for dj in (1, 0, -1) for di in (-1, 0, 1))
+
+# bits of the per-edge case code `_edge_geometry` returns: the 8 corner
+# cases, then the index (1-12) of the centre case that was selected last
+_CORNER_CASES = ("c_tl", "c_bl", "c_tl1", "c_tl2",
+                 "c_tr", "c_br", "c_tr1", "c_tr2")
+CENTER_CASE_SHIFT = len(_CORNER_CASES)
+
+
+def _shift_by(sh, f, off):
+    """Composite masked shift by offset (di, dj), x then y:
+    ``out(c) = f(c + off)``."""
+    di, dj = off
+    if di == 1:
+        f = sh.e(f)
+    elif di == -1:
+        f = sh.w(f)
+    if dj == 1:
+        f = sh.n(f)
+    elif dj == -1:
+        f = sh.s(f)
+    return f
+
+
+def _edge_geometry(edge, afac, dx, dy, sh):
+    """Departure-triangle geometry for all edges of one direction
+    (``locate_triangles:1763-3146``, 0-based groups), free-area mode.
+
+    dx/dy: scaled departure displacements at U corners (= -dt*u/dxu).
+    Returns per group g: verts[g] = ((x1,x2,x3), (y1,y2,y3)) in
+    flux-cell coordinates, pos[g] (int code), triarea[g] (signed
+    physical area), and `case`, an int code of the geometric cases
+    selected at each edge (bit k for corner case k of `_CORNER_CASES`,
+    then the index of the last centre case that applied).  All tensors
+    (ny, nx), indexed by the cell whose north/east edge this is.
+    """
+    kw = dict(loc=FieldLoc.NE_CORNER, ftype=FieldType.VECTOR)
+    zero = torch.zeros_like(dx)
+
+    if edge == "north":
+        dxl = sh.w(dx, **kw)
+        dyl = sh.w(dy, **kw)
+        xdl = -0.5 + dxl
+        ydl = dyl
+        xdr = 0.5 + dx
+        ydr = dy
+        afl = sh.w(afac)
+        afr = afac
+    else:  # east edge; rotate trajectory by pi/2
+        xdl = -0.5 - dy
+        ydl = dx
+        xdr = 0.5 - sh.s(dy, **kw)
+        ydr = sh.s(dx, **kw)
+        afl = afac
+        afr = sh.s(afac)
+    afc = 0.5 * (afl + afr)
+
+    xcl, ycl = -0.5, 0.0
+    xcr, ycr = 0.5, 0.0
+
+    xdm = 0.5 * (xdr + xdl)
+    ydm = 0.5 * (ydr + ydl)
+
+    dxseg = torch.where(torch.abs(xdm - xdl) > 0.0, xdm - xdl, cn.puny)
+    yil = (xcl * (ydm - ydl) + xdm * ydl - xdl * ydm) / dxseg
+    dxseg = torch.where(torch.abs(xdr - xdm) > 0.0, xdr - xdm, cn.puny)
+    yir = (xcr * (ydr - ydm) - xdm * ydr + xdr * ydm) / dxseg
+
+    md = (ydr - ydl) / torch.where(torch.abs(xdr - xdl) > 0.0,
+                                   xdr - xdl, cn.puny)
+    xic = torch.where(torch.abs(md) > cn.puny,
+                      xdl - ydl / torch.where(md != 0.0, md, 1.0), 0.0)
+    yic = zero
+    xil = torch.full_like(dx, xcl)
+    xir = torch.full_like(dx, xcr)
+
+    def tri(x1, y1, x2, y2, x3, y3):
+        return (x1, y1, x2, y2, x3, y3)
+
+    ZTRI = tri(zero, zero, zero, zero, zero, zero)
+    iZ = torch.full_like(dx, BC, dtype=torch.int32)
+
+    verts = [ZTRI] * NGROUPS
+    pos = [iZ] * NGROUPS
+    fac = [zero] * NGROUPS
+
+    def sel_tri(cond, newtri, newpos, newfac, g):
+        verts[g] = tuple(torch.where(cond, nv, ov)
+                         for nv, ov in zip(newtri, verts[g]))
+        pos[g] = torch.where(cond, newpos, pos[g])
+        fac[g] = torch.where(cond, newfac, fac[g])
+
+    CL = torch.full_like(dx, xcl)
+    CR = torch.full_like(dx, xcr)
+    Z = zero
+
+    # ---- left corner triangles (groups 0 and 2) ---------------------------
+    left = xdl < xcl
+    c_tl = left & (yil > 0.0) & (ydl >= 0.0)
+    c_bl = left & (yil < 0.0) & (ydl < 0.0)
+    c_tl1 = left & (yil < 0.0) & (ydl >= 0.0)
+    c_tl2 = left & (yil > 0.0) & (ydl < 0.0)
+
+    sel_tri(c_tl, tri(CL, Z, xil, yil, xdl, ydl), TL, -afl, 0)
+    sel_tri(c_bl, tri(CL, Z, xdl, ydl, xil, yil), BL, afl, 0)
+    sel_tri(c_tl1, tri(CL, Z, xdl, ydl, xic, yic), TL, afl, 0)
+    sel_tri(c_tl1, tri(CL, Z, xic, yic, xil, yil), BL, afl, 2)
+    sel_tri(c_tl2, tri(CL, Z, xil, yil, xic, yic), TL, -afl, 2)
+    sel_tri(c_tl2, tri(CL, Z, xic, yic, xdl, ydl), BL, -afl, 0)
+
+    # ---- right corner triangles (groups 1 and 2) --------------------------
+    right = xdr >= xcr
+    c_tr = right & (yir > 0.0) & (ydr >= 0.0)
+    c_br = right & (yir < 0.0) & (ydr < 0.0)
+    c_tr1 = right & (yir < 0.0) & (ydr >= 0.0)
+    c_tr2 = right & (yir > 0.0) & (ydr < 0.0)
+
+    sel_tri(c_tr, tri(CR, Z, xdr, ydr, xir, yir), TR, -afr, 1)
+    sel_tri(c_br, tri(CR, Z, xir, yir, xdr, ydr), BR, afr, 1)
+    sel_tri(c_tr1, tri(CR, Z, xic, yic, xdr, ydr), TR, afr, 1)
+    sel_tri(c_tr1, tri(CR, Z, xir, yir, xic, yic), BR, afr, 2)
+    sel_tri(c_tr2, tri(CR, Z, xic, yic, xir, yir), TR, -afr, 2)
+    sel_tri(c_tr2, tri(CR, Z, xdr, ydr, xic, yic), BR, -afr, 1)
+
+    # ---- redefine DL/DR to the edge intersections if beyond corners -------
+    xdl2 = torch.where(left, xil, xdl)
+    ydl2 = torch.where(left, yil, ydl)
+    xdr2 = torch.where(right, xir, xdr)
+    ydr2 = torch.where(right, yir, ydr)
+    icl = xic
+    icr = xic
+
+    # ---- center triangles (groups 3, 4, 5) --------------------------------
+    dlp = ydl2 >= 0.0
+    drp = ydr2 >= 0.0
+    dmp = ydm >= 0.0
+    icp = xic >= 0.0
+
+    DL = (xdl2, ydl2)
+    DR = (xdr2, ydr2)
+    DM = (xdm, ydm)
+    ICL = (icl, yic)
+    ICR = (icr, yic)
+    CLt = (CL, Z)
+    CRt = (CR, Z)
+
+    def T(a, b, c):
+        return tri(a[0], a[1], b[0], b[1], c[0], c[1])
+
+    cases = [
+        # (condition, [(tri, pos, fac) for groups 3,4,5])
+        (dlp & drp & dmp,
+         [(T(CLt, CRt, DL), TC, -afc), (T(CRt, DR, DL), TC, -afc),
+          (T(DL, DR, DM), TC, -afc)]),
+        (dlp & drp & ~dmp,
+         [(T(CLt, ICL, DL), TC, -afc), (T(CRt, DR, ICR), TC, -afc),
+          (T(ICR, ICL, DM), BC, afc)]),
+        (~dlp & ~drp & ~dmp,
+         [(T(CLt, DL, CRt), BC, afc), (T(CRt, DL, DR), BC, afc),
+          (T(DL, DM, DR), BC, afc)]),
+        (~dlp & ~drp & dmp,
+         [(T(CLt, DL, ICL), BC, afc), (T(CRt, ICR, DR), BC, afc),
+          (T(ICL, ICR, DM), TC, -afc)]),
+        (dlp & ~drp & icp & dmp,
+         [(T(CLt, ICR, DL), TC, -afc), (T(CRt, ICR, DR), BC, afr),
+          (T(DL, ICR, DM), TC, -afc)]),
+        (dlp & ~drp & icp & ~dmp,
+         [(T(CLt, ICL, DL), TC, -afc), (T(CRt, ICR, DR), BC, afr),
+          (T(ICR, ICL, DM), BC, afc)]),
+        (dlp & ~drp & ~icp & ~dmp,
+         [(T(CLt, ICL, DL), TC, -afl), (T(CRt, ICL, DR), BC, afc),
+          (T(DR, ICL, DM), BC, afc)]),
+        (dlp & ~drp & ~icp & dmp,
+         [(T(CLt, ICL, DL), TC, -afl), (T(CRt, ICR, DR), BC, afc),
+          (T(ICL, ICR, DM), TC, -afc)]),
+        (~dlp & drp & ~icp & dmp,
+         [(T(CLt, DL, ICL), BC, afl), (T(CRt, DR, ICL), TC, -afc),
+          (T(ICL, DR, DM), TC, -afc)]),
+        (~dlp & drp & ~icp & ~dmp,
+         [(T(CLt, DL, ICL), BC, afl), (T(CRt, DR, ICR), TC, -afc),
+          (T(ICR, ICL, DM), BC, afc)]),
+        (~dlp & drp & icp & ~dmp,
+         [(T(CLt, DL, ICR), BC, afc), (T(CRt, DR, ICR), TC, -afr),
+          (T(ICR, DL, DM), BC, afc)]),
+        (~dlp & drp & icp & dmp,
+         [(T(CLt, DL, ICL), BC, afc), (T(CRt, DR, ICR), TC, -afr),
+          (T(ICL, ICR, DM), TC, -afc)]),
+    ]
+    case = torch.zeros_like(iZ)
+    for bit, c in enumerate((c_tl, c_bl, c_tl1, c_tl2,
+                             c_tr, c_br, c_tr1, c_tr2)):
+        case = case | (c.to(torch.int32) << bit)
+    center = torch.zeros_like(iZ)
+    for idx, (cond, tris) in enumerate(cases):
+        for k, (tv, tp, tf) in enumerate(tris):
+            sel_tri(cond, tv, tp, tf, 3 + k)
+        center = torch.where(cond, idx + 1, center)
+    case = case | (center << CENTER_CASE_SHIFT)
+
+    # ---- triangle areas ----------------------------------------------------
+    triarea = []
+    for g in range(NGROUPS):
+        x1, y1, x2, y2, x3, y3 = verts[g]
+        a = 0.5 * ((x2 - x1) * (y3 - y1) - (y2 - y1) * (x3 - x1)) * fac[g]
+        a = torch.where(torch.abs(a) < cn.eps16 * afc, 0.0, a)
+        triarea.append(a)
+
+    # ---- transform vertices to flux-cell coordinates ----------------------
+    ish = {p: SHIFTS[edge][p][0] for p in range(6)}
+    jsh = {p: SHIFTS[edge][p][1] for p in range(6)}
+    local = []
+    for g in range(NGROUPS):
+        x1, y1, x2, y2, x3, y3 = verts[g]
+        isg = sum(torch.where(pos[g] == p, ish[p], 0) for p in range(6))
+        jsg = sum(torch.where(pos[g] == p, jsh[p], 0) for p in range(6))
+        if edge == "north":
+            lx = tuple(x - isg for x in (x1, x2, x3))
+            ly = tuple(y + 0.5 - jsg for y in (y1, y2, y3))
+        else:
+            lx = tuple(y + 0.5 - isg for y in (y1, y2, y3))
+            ly = tuple(-x - jsg for x in (x1, x2, x3))
+        local.append((lx, ly))
+
+    return dict(verts=local, pos=pos, triarea=triarea, case=case)
+
+
+def _quad_points(lx, ly, order):
+    """Quadrature points + weights from triangle vertices
+    (``triangle_coordinates:3155-3297``)."""
+    x0 = (lx[0] + lx[1] + lx[2]) / 3.0
+    y0 = (ly[0] + ly[1] + ly[2]) / 3.0
+    if order == 1:
+        return [(x0, y0, 1.0)]
+    if order == 2:
+        return [(0.5 * lx[k] + 0.5 * x0, 0.5 * ly[k] + 0.5 * y0, 1.0 / 3.0)
+                for k in range(3)]
+    if order != 3:
+        raise ValueError(f"integral_order must be 1, 2 or 3, not {order}")
+    # cubic 4-point
+    pts = [(x0, y0, -0.5625)]
+    for k in range(3):
+        pts.append((0.4 * lx[k] + 0.6 * x0, 0.4 * ly[k] + 0.6 * y0,
+                    0.52083333333333333))
+    return pts
+
+
+def _tracer_meta(tracer_names, nilyr, nslyr):
+    """Static transported-tracer table (``init_transport:81-170``):
+    (name, tracer_type, parent_row), ordered type-1 first: hi, hs, Tsfc,
+    area tracers | volume/snow tracers, qice layers (depend on hi), qsno
+    layers (depend on hs)."""
+    meta = [("hi", 1, -1), ("hs", 1, -1), ("Tsfc", 1, -1)]
+    for name in tracer_names:
+        if TRACER_DEPEND[name] == 0:
+            meta.append((name, 1, -1))
+    for name in tracer_names:
+        dep = TRACER_DEPEND[name]
+        if dep != 0:
+            meta.append((name, 2, 0 if dep == 1 else 1))
+    for k in range(nilyr):
+        meta.append((f"qi{k}", 2, 0))
+    for k in range(nslyr):
+        meta.append((f"qs{k}", 2, 1))
+    return meta
+
+
+def _n_type1(meta):
+    """Length of the type-1 prefix (meta is ordered type-1 first)."""
+    n1 = sum(1 for (_n, tt, _p) in meta if tt == 1)
+    if not (all(tt == 1 for (_n, tt, _p) in meta[:n1])
+            and all(tt == 2 for (_n, tt, _p) in meta[n1:])):
+        raise ValueError("tracer meta must be ordered type-1 first")
+    return n1
+
+
+def _geom_moments(edge, afac, dx, dy, order, sh):
+    """Category-independent quadrature moments per donor position
+    (``transport_integrals:3307-3632``, factored): the pure geometric
+    moments ``sum_tri area*w*x^a y^b`` of the 10 monomials up to cubic.
+
+    Returns {pos: [S1, Sx, Sy, Sxx, Sxy, Syy, Sxxx, Sxxy, Sxyy, Syyy]}.
+    """
+    geom = _edge_geometry(edge, afac, dx, dy, sh)
+    used = sorted({p for ps in GROUP_POSITIONS for p in ps})
+    G = {p: [0.0] * 10 for p in used}
+    for g in range(NGROUPS):
+        lx, ly = geom["verts"][g]
+        pos = geom["pos"][g]
+        area = geom["triarea"][g]
+        mono = [0.0] * 10
+        for (px, py, w) in _quad_points(lx, ly, order):
+            pxx, pxy, pyy = px * px, px * py, py * py
+            for k, v in enumerate((w, w * px, w * py, w * pxx, w * pxy,
+                                   w * pyy, w * pxx * px, w * pxx * py,
+                                   w * pxy * py, w * pyy * py)):
+                mono[k] = mono[k] + v
+        for p in GROUP_POSITIONS[g]:
+            ag = torch.where(pos == p, area, 0.0)
+            acc = G[p]
+            for k in range(10):
+                acc[k] = acc[k] + ag * mono[k]
+    return G
+
+
+def _geom_accumulators(afac, dx, dy, order, sh):
+    """Category-independent divergence accumulators in geometric space:
+    GA[off][k] for the 10 monomial moments, such that for any donor
+    polynomial field f with monomial coefficients U_k,
+    ``divergence(c) = sum_off sum_k GA_k[off](c) * U_k(c + off)``."""
+    GA = {off: [0.0] * 10 for off in ALL_OFFSETS}
+    for edge in ("east", "north"):
+        G = _geom_moments(edge, afac, dx, dy, order, sh)
+        back, bo = (sh.w, (-1, 0)) if edge == "east" else (sh.s, (0, -1))
+        for p, g10 in G.items():
+            d = SHIFTS[edge][p]
+            g2 = (d[0] + bo[0], d[1] + bo[1])
+            for k in range(10):
+                GA[d][k] = GA[d][k] + g10[k]
+                GA[g2][k] = GA[g2][k] - back(g10[k])
+    return GA
+
+
+def _flux_divergence_ga(GSH, mc, mx, my, tc, tx, ty, meta, sh):
+    """GA-factored flux divergence of a batch of categories.
+
+    ``div(c) = sum_off S_off( sum_k GSH_k[off] * U_k )(c)`` where GSH
+    are the back-shifted, category-independent geometric divergence
+    accumulators and U_k the monomial coefficients of the donor-cell
+    product polynomial (m*t for type-1 tracers, m*t_parent*t for
+    type-2).  mc/mx/my: (..., ny, nx); tc/tx/ty: (..., T, ny, nx);
+    GSH[off]: 10 planes (ny, nx).  Returns (div, divt).
+    """
+    T = len(meta)
+    n1 = _n_type1(meta)
+    par2 = [meta[k][2] for k in range(n1, T)]
+    mc1, mx1, my1 = (a.unsqueeze(-3) for a in (mc, mx, my))
+    c1_, x1_, y1_ = tc[..., :n1, :, :], tx[..., :n1, :, :], ty[..., :n1, :, :]
+    if par2:
+        pc, px_, py_ = (s[..., par2, :, :] for s in (tc, tx, ty))
+        c2, x2, y2 = tc[..., n1:, :, :], tx[..., n1:, :, :], ty[..., n1:, :, :]
+        mpc, mpx, mpy = mc1 * pc, mc1 * px_, mc1 * py_
+        xpc, xpx, xpy = mx1 * pc, mx1 * px_, mx1 * py_
+        ypc, ypx, ypy = my1 * pc, my1 * px_, my1 * py_
+
+    div = 0.0
+    divt = 0.0
+    for off in ALL_OFFSETS:
+        g0, g1, g2, g3, g4, g5, g6, g7, g8, g9 = GSH[off]
+        p_mass = g0 * mc + g1 * mx + g2 * my
+        div = div + _shift_by(sh, p_mass, off)
+        if not T:
+            continue
+        p1 = (g0 * (mc1 * c1_) + g1 * (mc1 * x1_ + mx1 * c1_)
+              + g2 * (mc1 * y1_ + my1 * c1_) + g3 * (mx1 * x1_)
+              + g4 * (mx1 * y1_ + my1 * x1_) + g5 * (my1 * y1_))
+        if par2:
+            p2 = (g0 * (mpc * c2)
+                  + g1 * (xpc * c2 + mpx * c2 + mpc * x2)
+                  + g2 * (ypc * c2 + mpy * c2 + mpc * y2)
+                  + g3 * (xpx * c2 + xpc * x2 + mpx * x2)
+                  + g4 * (xpy * c2 + ypx * c2 + xpc * y2
+                          + ypc * x2 + mpx * y2 + mpy * x2)
+                  + g5 * (ypy * c2 + ypc * y2 + mpy * y2)
+                  + g6 * (xpx * x2)
+                  + g7 * (xpx * y2 + xpy * x2 + ypx * x2)
+                  + g8 * (xpy * y2 + ypx * y2 + ypy * x2)
+                  + g9 * (ypy * y2))
+            p = torch.cat([p1, p2], dim=-3)
+        else:
+            p = p1
+        divt = divt + _shift_by(sh, p, off)
+    if not T:
+        divt = torch.zeros(mc.shape[:-2] + (0,) + mc.shape[-2:],
+                           dtype=mc.dtype, device=mc.device)
+    return div, divt
+
+
+def _update_category(mm, tm, div, divt, tmask_land, tarear, meta):
+    """``update_fields:3642-3868`` for a batch of categories given the
+    flux divergences: new mass/tracers + the unclamped mid-transport
+    fields.  mm, div: (ncat, ny, nx); tm, divt: (ncat, T, ny, nx)."""
+    n1 = _n_type1(meta)
+    par2 = [meta[k][2] for k in range(n1, len(meta))]
+
+    def pick(s):
+        return s[:, par2]
+
+    mmT = mm.unsqueeze(1)
+    mtold1 = mmT * tm[:, :n1]
+    mtold2 = mmT * tm[:, n1:] * pick(tm)
+    mtold = torch.cat([mtold1, mtold2], dim=1)
+
+    div = div * tarear
+    mm_mid = mm - div
+    mm_new = torch.clamp(mm_mid, min=0.0)
+    mm_new = torch.where(tmask_land, mm_new, 0.0)
+    pos_m = (mm_new > 0.0).unsqueeze(1)
+    safe = torch.clamp(mm_new, min=cn.puny).unsqueeze(1)
+
+    divt = divt * tarear
+    mt = mtold - divt
+    t1 = torch.where(pos_m, mt / safe, 0.0)
+    # type-2: divide by (mm * parent); parents (hi, hs) are nonnegative
+    pv = pick(t1)
+    t2 = torch.where(pos_m & (pv > 0.0),
+                     mt[:, n1:] / torch.clamp(mm_new.unsqueeze(1) * pv,
+                                              min=cn.puny), 0.0)
+    tm_new = torch.cat([t1[:, :n1], t2], dim=1)
+    return mm_new, tm_new, (mm_mid, mt)
+
+
+def transport_remap(state: State, grid: Grid, dt,
+                    integral_order: int = 2, dp_midpt: bool = False,
+                    fixed_area: bool = False,
+                    conservation_check: bool = False,
+                    monotonicity_check: bool = False):
+    """Incremental-remapping advection of the ice state (the GA branch
+    of ``cice4_tpu.ops.remap.transport_remap``).
+
+    Returns (state, aice0): the advected open-water fraction feeds the
+    ridging opening/closing rates.
+    """
+    from cice4_tpu_torch.ops.remap_cuda import ga_gsh, k12_divergence
+
+    for flag, name in ((dp_midpt, "l_dp_midpt"), (fixed_area, "l_fixed_area"),
+                       (conservation_check, "conservation_check"),
+                       (monotonicity_check, "monotonicity_check")):
+        if flag:
+            raise NotImplementedError(
+                f"transport.{name}=True is not ported yet (ROADMAP queue 1 "
+                "item 4)")
+    bc = grid.bc
+    nilyr = state.eicen.shape[1]
+    nslyr = state.esnon.shape[1]
+    tracer_names = list(state.trcrn.keys())
+    meta = _tracer_meta(tracer_names, nilyr, nslyr)
+
+    # scaled departure displacements at U corners (departure_points)
+    dx = -dt * state.uvel / grid.dxu
+    dy = -dt * state.vvel / grid.dyu
+    afac = grid.dxu * grid.dyu
+
+    # --- state_to_tracers (":847-1003") ------------------------------------
+    aice0 = torch.clamp(1.0 - state.aicen.sum(0), min=0.0)
+    has = state.aicen > cn.puny
+    a_s = torch.clamp(state.aicen, min=cn.puny)
+    v_s = torch.clamp(state.vicen, min=cn.puny)
+    vs_s = torch.clamp(state.vsnon, min=cn.puny)
+    hi = torch.where(has, state.vicen / a_s, 0.0)
+    hs = torch.where(has, state.vsnon / a_s, 0.0)
+
+    src = {"hi": hi, "hs": hs, "Tsfc": torch.where(has, state.tsfcn, 0.0)}
+    for name in tracer_names:
+        src[name] = torch.where(has, state.trcrn[name], 0.0)
+    for k in range(nilyr):
+        src[f"qi{k}"] = torch.where(has, state.eicen[:, k] / v_s, 0.0)
+    for k in range(nslyr):
+        qs = state.esnon[:, k] / vs_s + cn.rhos * cn.Lfresh
+        src[f"qs{k}"] = torch.where(has & (hs > cn.puny), qs, 0.0)
+    tm = torch.stack([src[name] for (name, _t, _p) in meta],
+                     dim=1)               # (ncat, T, ny, nx)
+
+    # K0: category-independent back-shifted geometry accumulators; K12:
+    # reconstruction + contraction of open water (row 0, mass only) and
+    # every category
+    gsh = ga_gsh(dx, dy, afac, bc, integral_order)
+    mm_ext = torch.cat([aice0[None], state.aicen], dim=0)
+    tm_ext = torch.cat([torch.zeros_like(tm[:1]), tm], dim=0)
+    div_ext, divt_ext = k12_divergence(gsh, grid.hm, mm_ext, tm_ext, meta,
+                                       bc)
+    mm_new, tm_new, _mid = _update_category(
+        state.aicen, tm, div_ext[1:], divt_ext[1:], grid.tmask,
+        grid.tarear, meta)
+
+    aice0_mid = aice0 - div_ext[0] * grid.tarear
+    aice0_new = torch.where(grid.tmask, torch.clamp(aice0_mid, min=0.0), 0.0)
+
+    # --- tracers_to_state (":1012-1137") -----------------------------------
+    a = mm_new
+    pos_m = a > 0.0
+    row = {name: i for i, (name, _t, _p) in enumerate(meta)}
+    hi_n = torch.clamp(tm_new[:, row["hi"]], min=0.0)
+    hs_n = torch.clamp(tm_new[:, row["hs"]], min=0.0)
+    tsfcn = torch.where(pos_m, tm_new[:, row["Tsfc"]], cn.Tocnfrz)
+    trcrn = {name: tm_new[:, row[name]] for name in tracer_names}
+    eicen = torch.stack(
+        [torch.clamp(tm_new[:, row[f"qi{k}"]], max=0.0) * a * hi_n
+         for k in range(nilyr)], dim=1)
+    esnon = torch.stack(
+        [torch.clamp(tm_new[:, row[f"qs{k}"]] - cn.rhos * cn.Lfresh, max=0.0)
+         * a * hs_n for k in range(nslyr)], dim=1)
+
+    state = state.replace(aicen=a, vicen=a * hi_n, vsnon=a * hs_n,
+                          tsfcn=tsfcn, eicen=eicen, esnon=esnon,
+                          trcrn=trcrn)
+    return state, aice0_new

@@ -1,0 +1,335 @@
+"""The two remap kernels and their plain versions.
+
+* ``ga_gsh`` (kernel ``csrc/remap_gsh.cu``, replaces the TPU kernel K0,
+  ``cice4_tpu/ops/remap_pallas.py::_ga_kernel``): departure-triangle
+  geometry of every east and north edge, the 10 monomial moments of each
+  triangle by quadrature, the +/- scatter to the 9 donor offsets and the
+  back-shift by -offset: GSH (9, 10, ny, nx) in `remap.ALL_OFFSETS`
+  order.  Plain version :func:`ga_gsh_plain` (`remap._geom_accumulators`
+  plus the back-shift).
+* ``k12_divergence`` (kernel ``csrc/remap_k12.cu``, replaces K12,
+  ``remap_pallas.py::_k12_kernel``): van-Leer-limited reconstruction of
+  mass and tracers (:func:`_construct_vmem`) contracted against GSH into
+  the flux divergences of all ncat+1 category rows (row 0 is open water,
+  mass only).  Plain version :func:`k12_plain` (`_construct_vmem` plus
+  `remap._flux_divergence_ga`).
+
+Each wrapper launches its kernel for CUDA tensors (or raises) and runs
+the plain version for CPU tensors; ``<wrapper>.launches`` counts its
+kernel launches.  Boundaries: cyclic, open or closed on both axes; the
+tripole fold raises (ROADMAP queue 2 item 5).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from cice4_tpu_torch import constants as cn
+from cice4_tpu_torch.ops.remap import (ALL_OFFSETS, _flux_divergence_ga,
+                                       _geom_accumulators, _n_type1,
+                                       _shift_by)
+from cice4_tpu_torch.parallel.halo import Nbr
+
+AXES = ((1, 0), (-1, 0), (0, 1), (0, -1))
+DIAGS = ((1, 1), (-1, 1), (1, -1), (-1, -1))
+
+_BC_CODE = {"cyclic": 0, "open": 1, "closed": 1}
+
+
+def _check_bc(bc):
+    for edge in (bc.ew, bc.ns):
+        if edge in ("tripole", "tripoleT"):
+            raise NotImplementedError(
+                "remap on a tripole grid is not ported yet (ROADMAP queue 2 "
+                "item 5)")
+        if edge not in _BC_CODE:
+            raise ValueError(f"unknown boundary {edge!r}")
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _grad_stream(sh, phi, phimask, cnx, cny, sval, smask):
+    """Van-Leer limited gradient (``limited_gradient:1392-1556`` with
+    unit cell widths), neighbour planes produced one offset at a time by
+    `sval`/`smask` (port of `remap_pallas._grad_stream`)."""
+    def nb(off):
+        m = smask(off)
+        return m * sval(off) + (1.0 - m) * phi
+
+    phi_e, phi_w, phi_n, phi_s = (nb(off) for off in AXES)
+
+    gx = 0.5 * (phi_e - phi_w)
+    gy = 0.5 * (phi_n - phi_s)
+
+    pmn = torch.minimum(torch.minimum(phi_e, phi_w),
+                        torch.minimum(phi_n, phi_s))
+    pmx = torch.maximum(torch.maximum(phi_e, phi_w),
+                        torch.maximum(phi_n, phi_s))
+    pmn = torch.minimum(pmn, phi)
+    pmx = torch.maximum(pmx, phi)
+    for off in DIAGS:
+        v = nb(off)
+        pmn = torch.minimum(pmn, v)
+        pmx = torch.maximum(pmx, v)
+    pmn = pmn - phi
+    pmx = pmx - phi
+
+    w1 = (0.5 - cnx) * gx + (0.5 - cny) * gy
+    w2 = (0.5 - cnx) * gx - (0.5 + cny) * gy
+    w3 = -(0.5 + cnx) * gx - (0.5 + cny) * gy
+    w4 = (0.5 - cny) * gy - (0.5 + cnx) * gx
+
+    qmn = torch.minimum(torch.minimum(w1, w2), torch.minimum(w3, w4))
+    qmx = torch.maximum(torch.maximum(w1, w2), torch.maximum(w3, w4))
+
+    # the guarded divisions keep NaN out of the branch not taken
+    wa = torch.where(torch.abs(qmn) > 0.0,
+                     torch.clamp(pmn / torch.where(qmn != 0.0, qmn, 1.0),
+                                 min=0.0), 1.0)
+    wb = torch.where(torch.abs(qmx) > 0.0,
+                     torch.clamp(pmx / torch.where(qmx != 0.0, qmx, 1.0),
+                                 min=0.0), 1.0)
+    lim = torch.clamp(torch.minimum(wa, wb), max=1.0) * phimask
+    return lim * gx, lim * gy
+
+
+def _construct_vmem(mm, hm_real, tm, meta, sh):
+    """Reconstruction of a batch of categories (``construct_fields:
+    1069-1382``; port of `remap_pallas._construct_vmem`, the form K12
+    runs): mm (C, ny, nx), hm_real (ny, nx), tm (C, T, ny, nx) ordered
+    type-1 first.  Returns (mc, mx, my, tc, tx, ty)."""
+    n1 = _n_type1(meta)
+    T = len(meta)
+    par2 = [meta[k][2] for k in range(n1, T)]
+
+    def shift(f, off):
+        return _shift_by(sh, f, off)
+
+    mmask = (mm > cn.puny).to(mm.dtype)
+    zero = torch.zeros_like(mm)
+    mx, my = _grad_stream(sh, mm, hm_real, zero, zero,
+                          lambda off: shift(mm, off),
+                          lambda off: shift(hm_real, off))
+    mc = mm
+    safe_mm = torch.clamp(mm, min=cn.puny)
+    mxav = torch.where(mmask > 0, mx / (12.0 * safe_mm), 0.0)
+    myav = torch.where(mmask > 0, my / (12.0 * safe_mm), 0.0)
+
+    def mmask_sh(off):
+        return (shift(mm, off) > cn.puny).to(mm.dtype).unsqueeze(-3)
+
+    def c(a):  # a per-category plane against the tracer axis
+        return a.unsqueeze(-3)
+
+    # type-1 tracers
+    tm1 = tm[..., :n1, :, :]
+    tx1, ty1 = _grad_stream(sh, tm1, c(mmask), c(mxav), c(myav),
+                            lambda off: shift(tm1, off), mmask_sh)
+    tc1 = tm1 - tx1 * c(mxav) - ty1 * c(myav)
+
+    w2 = c(mc) * tx1 + c(mx) * tc1
+    w3 = c(mc) * ty1 + c(my) * tc1
+    denom = c(mm) * tm1
+    good = (c(mmask) > 0) & (torch.abs(tm1) > cn.puny)
+    safe_den = torch.where(torch.abs(denom) > cn.puny, denom, 1.0)
+    mtxav1 = torch.where(good, w2 / (12.0 * safe_den), 0.0)
+    mtyav1 = torch.where(good, w3 / (12.0 * safe_den), 0.0)
+
+    if not par2:
+        return mc, mx, my, tc1, tx1, ty1
+    tm2 = tm[..., n1:, :, :]
+    tmask1 = (torch.abs(tm1) > 0.0).to(mm.dtype) * c(mmask)
+
+    def pick(s):
+        return s[..., par2, :, :]
+
+    pmask = pick(tmask1)
+    parstack = pick(tm1)
+    pmx_, pmy_ = pick(mtxav1), pick(mtyav1)
+    tx2, ty2 = _grad_stream(
+        sh, tm2, pmask, pmx_, pmy_,
+        lambda off: shift(tm2, off),
+        lambda off: ((torch.abs(shift(parstack, off)) > 0.0).to(mm.dtype)
+                     * mmask_sh(off)))
+    tc2 = tm2 - tx2 * pmx_ - ty2 * pmy_
+    return (mc, mx, my, torch.cat([tc1, tc2], dim=-3),
+            torch.cat([tx1, tx2], dim=-3), torch.cat([ty1, ty2], dim=-3))
+
+
+def ga_gsh_plain(dx, dy, afac, bc, order=2):
+    """GSH (9, 10, ny, nx): `remap._geom_accumulators` followed by the
+    back-shift of each offset's planes by -offset."""
+    sh = Nbr(bc)
+    GA = _geom_accumulators(afac, dx, dy, order, sh)
+    zero = torch.zeros_like(afac)
+    return torch.stack([
+        _shift_by(sh, torch.stack([GA[off][k] + zero for k in range(10)]),
+                  (-off[0], -off[1]))
+        for off in ALL_OFFSETS])
+
+
+def k12_plain(gsh, hm, mm_ext, tm_ext, meta, bc):
+    """(div (C, ny, nx), divt (C, T, ny, nx)) of the C = ncat+1 category
+    rows: `_construct_vmem` plus `remap._flux_divergence_ga`."""
+    sh = Nbr(bc)
+    GSH = {off: [gsh[o, k] for k in range(10)]
+           for o, off in enumerate(ALL_OFFSETS)}
+    mc, mx, my, tc, tx, ty = _construct_vmem(mm_ext, hm, tm_ext, list(meta),
+                                             sh)
+    return _flux_divergence_ga(GSH, mc, mx, my, tc, tx, ty, meta, sh)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+_VOIDP, _INT = ctypes.c_void_p, ctypes.c_int
+# the tracer table the kernel is built for (remap_k12.cu kMaxT, kMaxT1)
+K12_MAX_T, K12_MAX_T1 = 32, 8
+
+
+def _fn(lib_name, sym, dtype, argtypes):
+    from cice4_tpu_torch import cuda_build
+
+    lib = cuda_build.load(lib_name).lib
+    fn = getattr(lib, f"{sym}_{'f32' if dtype == torch.float32 else 'f64'}")
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _plane(x, device, dtype, shape):
+    if x.device != device or x.dtype != dtype:
+        raise TypeError(f"remap kernel input on {x.device} as {x.dtype}; "
+                        f"expected {device} as {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"remap kernel input of shape {tuple(x.shape)}; "
+                         f"expected {tuple(shape)}")
+    return x.contiguous()
+
+
+def _stream(device):
+    with torch.cuda.device(device):
+        return torch.cuda.current_stream(device).cuda_stream
+
+
+def _ga_gsh_cuda(dx, dy, afac, bc, order, case_codes=None):
+    _check_bc(bc)
+    if order not in (1, 2, 3):
+        raise ValueError(f"integral_order must be 1, 2 or 3, not {order}")
+    dtype, device = dx.dtype, dx.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"remap_gsh takes float32 or float64, not {dtype}")
+    ny, nx = dx.shape
+    dx, dy, afac = (_plane(a, device, dtype, (ny, nx)) for a in (dx, dy, afac))
+    # per-edge moment planes (east/north x 6 positions x 10 monomials),
+    # then the gathered GSH
+    planes = torch.empty((2, 6, 10, ny, nx), dtype=dtype, device=device)
+    gsh = torch.empty((9, 10, ny, nx), dtype=dtype, device=device)
+    codes = 0
+    if case_codes is not None:
+        if (case_codes.shape != (2, ny, nx) or case_codes.dtype != torch.int32
+                or case_codes.device != device):
+            raise ValueError("case_codes must be int32 (2, ny, nx) on the "
+                             "inputs' device")
+        codes = case_codes.data_ptr()
+    fn = _fn("remap_gsh", "remap_gsh", dtype,
+             [_VOIDP] * 6 + [_INT] * 5 + [_VOIDP])
+    rc = fn(dx.data_ptr(), dy.data_ptr(), afac.data_ptr(), planes.data_ptr(),
+            gsh.data_ptr(), codes, ny, nx, _BC_CODE[bc.ew], _BC_CODE[bc.ns],
+            order, _stream(device))
+    if rc != 0:
+        raise RuntimeError(f"remap_gsh launch failed: cudaError {rc}")
+    ga_gsh.launches += 1
+    return gsh
+
+
+def ga_gsh(dx, dy, afac, bc, order=2):
+    """Back-shifted GA divergence accumulators GSH (9, 10, ny, nx) from
+    the scaled departure displacements dx, dy and the corner area factor
+    afac (all (ny, nx) at U points).  Kernel ``remap_gsh`` on CUDA
+    tensors, :func:`ga_gsh_plain` on CPU tensors."""
+    if dx.device.type == "cuda":
+        return _ga_gsh_cuda(dx, dy, afac, bc, order)
+    if dx.device.type == "cpu":
+        return ga_gsh_plain(dx, dy, afac, bc, order)
+    raise NotImplementedError(f"ga_gsh has no path for device {dx.device}")
+
+
+ga_gsh.launches = 0
+
+
+def edge_cases_plain(dx, dy, afac, bc):
+    """The case code of every east and north edge (`remap._edge_geometry`
+    ``case``), int32 (2, ny, nx): what ``remap_gsh`` writes when asked."""
+    from cice4_tpu_torch.ops.remap import _edge_geometry
+
+    sh = Nbr(bc)
+    return torch.stack([_edge_geometry(edge, afac, dx, dy, sh)["case"]
+                        for edge in ("east", "north")])
+
+
+def edge_cases_cuda(dx, dy, afac, bc, order=2):
+    """(GSH, case codes (2, ny, nx)) from one ``remap_gsh`` launch: the
+    comparison of the kernel's geometric case selection with
+    :func:`edge_cases_plain`.  Counts as a launch of `ga_gsh`."""
+    codes = torch.empty((2,) + tuple(dx.shape), dtype=torch.int32,
+                        device=dx.device)
+    gsh = _ga_gsh_cuda(dx, dy, afac, bc, order, case_codes=codes)
+    return gsh, codes
+
+
+def _k12_cuda(gsh, hm, mm_ext, tm_ext, meta, bc):
+    _check_bc(bc)
+    dtype, device = hm.dtype, hm.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"remap_k12 takes float32 or float64, not {dtype}")
+    C, T = tm_ext.shape[:2]
+    ny, nx = hm.shape
+    n1 = _n_type1(meta)
+    if len(meta) != T or T > K12_MAX_T or n1 > K12_MAX_T1:
+        raise NotImplementedError(
+            f"remap_k12 takes at most {K12_MAX_T} tracers of which "
+            f"{K12_MAX_T1} of type 1; got {T} ({n1}), meta of {len(meta)}")
+    par = [max(p, 0) for (_n, _t, p) in meta]
+    if any(p >= n1 for p in par):
+        raise ValueError("a type-2 tracer's parent must be a type-1 row")
+    gsh = _plane(gsh, device, dtype, (9, 10, ny, nx))
+    hm = _plane(hm, device, dtype, (ny, nx))
+    mm_ext = _plane(mm_ext, device, dtype, (C, ny, nx))
+    tm_ext = _plane(tm_ext, device, dtype, (C, T, ny, nx))
+    # the reconstruction (mc, mx, my, tc[T], tx[T], ty[T]) per row
+    recon = torch.empty((C, 3 + 3 * T, ny, nx), dtype=dtype, device=device)
+    div = torch.empty((C, ny, nx), dtype=dtype, device=device)
+    divt = torch.empty((C, T, ny, nx), dtype=dtype, device=device)
+    par_arr = (ctypes.c_int * max(T, 1))(*(par or [0]))
+    fn = _fn("remap_k12", "remap_k12", dtype,
+             [_VOIDP] * 7 + [_INT] * 7 + [_VOIDP] * 2)
+    rc = fn(gsh.data_ptr(), hm.data_ptr(), mm_ext.data_ptr(),
+            tm_ext.data_ptr(), recon.data_ptr(), div.data_ptr(),
+            divt.data_ptr(), C, T, n1, ny, nx, _BC_CODE[bc.ew],
+            _BC_CODE[bc.ns], ctypes.addressof(par_arr), _stream(device))
+    if rc != 0:
+        raise RuntimeError(f"remap_k12 launch failed: cudaError {rc}")
+    k12_divergence.launches += 1
+    return div, divt
+
+
+def k12_divergence(gsh, hm, mm_ext, tm_ext, meta, bc):
+    """(div_ext (C, ny, nx), divt_ext (C, T, ny, nx)) of the extended
+    category batch (row 0 open water) against GSH.  Kernel ``remap_k12``
+    on CUDA tensors, :func:`k12_plain` on CPU tensors."""
+    if hm.device.type == "cuda":
+        return _k12_cuda(gsh, hm, mm_ext, tm_ext, meta, bc)
+    if hm.device.type == "cpu":
+        return k12_plain(gsh, hm, mm_ext, tm_ext, meta, bc)
+    raise NotImplementedError(
+        f"k12_divergence has no path for device {hm.device}")
+
+
+k12_divergence.launches = 0

@@ -104,3 +104,29 @@ def nbr_se(f, bc, loc=FieldLoc.CENTER, ftype=FieldType.SCALAR):
 
 def nbr_sw(f, bc, loc=FieldLoc.CENTER, ftype=FieldType.SCALAR):
     return nbr_s(nbr_w(f, bc, loc, ftype), bc, loc, ftype)
+
+
+class Nbr:
+    """The shifts of one boundary condition as methods: the interface the
+    EVP and remap operators are written against (port of the JAX
+    package's `evp.JnpNbr` and `remap.JnpShift`)."""
+
+    __slots__ = ("bc",)
+
+    def __init__(self, bc: BoundaryConditions):
+        self.bc = bc
+
+    def e(self, f, loc=FieldLoc.CENTER, ftype=FieldType.SCALAR):
+        return nbr_e(f, self.bc, loc, ftype)
+
+    def w(self, f, loc=FieldLoc.CENTER, ftype=FieldType.SCALAR):
+        return nbr_w(f, self.bc, loc, ftype)
+
+    def n(self, f, loc=FieldLoc.CENTER, ftype=FieldType.SCALAR):
+        return nbr_n(f, self.bc, loc, ftype)
+
+    def s(self, f, loc=FieldLoc.CENTER, ftype=FieldType.SCALAR):
+        return nbr_s(f, self.bc, loc, ftype)
+
+    def ne(self, f, loc=FieldLoc.CENTER, ftype=FieldType.SCALAR):
+        return nbr_ne(f, self.bc, loc, ftype)

@@ -83,7 +83,9 @@ def test_port_imports_no_jax():
         import sys
         import cice4_tpu_torch.model, cice4_tpu_torch.convert
         import cice4_tpu_torch.io.forcing_data, cice4_tpu_torch.guards
-        import cice4_tpu_torch.cuda_build
+        import cice4_tpu_torch.cuda_build, cice4_tpu_torch.kernel_check
+        import cice4_tpu_torch.ops.evp_cuda, cice4_tpu_torch.ops.remap_cuda
+        import chip_smoke
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "cice4_tpu."))
                or m == "cice4_tpu"]

@@ -19,7 +19,7 @@ from cice4_tpu_torch.state import make_itd_params
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the therm_newton kernel runs only "
+        pytest.skip("needs a CUDA device: the port's CUDA kernels run only "
                     "on the card")
     return torch.device("cuda")
 
@@ -61,3 +61,126 @@ def test_therm_newton_on_a_plane_and_rejects_bad_input(cuda_device):
     p2 = tv.ThermoParams(**{**vars(p), "nilyr": 3})
     with pytest.raises(NotImplementedError):
         tv.temperature_changes(p2, 3600.0, *args)
+
+
+# ---------------------------------------------------------------------------
+# the dynamics kernels: evp_subcycle, remap_gsh, remap_k12
+# ---------------------------------------------------------------------------
+
+DYN_CASES = [((64, 128), ("cyclic", "closed")),
+             ((116, 100), ("closed", "open")), ((7, 33), ("cyclic", "open"))]
+
+
+def _dyn_grid(shape, bcs, device, dtype):
+    from cice4_tpu_torch.grid import make_grid
+
+    cfg = gx1_config().with_values(**{
+        "grid.kmt_file": "", "domain.ny_global": shape[0],
+        "domain.nx_global": shape[1], "domain.ew_boundary_type": bcs[0],
+        "domain.ns_boundary_type": bcs[1]})
+    return make_grid(cfg, device=device, dtype=dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,bcs", DYN_CASES)
+@pytest.mark.parametrize("damping,sinw", [(False, 0.0), (True, 0.3)])
+def test_evp_subcycle_matches_plain(cuda_device, dtype, shape, bcs, damping,
+                                    sinw):
+    """Ice-free bands are gated off in the kernel; the result is the plain
+    version's all the same."""
+    from cice4_tpu_torch.config import DynamicsConfig
+    from cice4_tpu_torch.ops import evp as evp_ops
+    from cice4_tpu_torch.ops import evp_cuda
+
+    grid = _dyn_grid(shape, bcs, cuda_device, dtype)
+    p = evp_ops.make_evp_params(
+        DynamicsConfig(ndte=40, evp_damping=damping, sinw=sinw), 3600.0)
+    args = kernel_check.evp_inputs(grid, seed=4, dtype=dtype)
+    before = evp_cuda.evp_subcycle.launches
+    kern = kernel_check.evp_named(evp_cuda.evp_subcycle(p, grid, *args))
+    assert evp_cuda.evp_subcycle.launches == before + 1
+    plain = kernel_check.evp_named(evp_ops._evp_subcycle_plain(p, grid,
+                                                               *args))
+    torch.cuda.synchronize()
+    report = kernel_check.compare_fields(kern, plain,
+                                         kernel_check.EVP_RTOL[dtype])
+    assert kernel_check.fields_ok(report), report
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,bcs", DYN_CASES)
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_remap_gsh_matches_plain(cuda_device, dtype, shape, bcs, order):
+    from cice4_tpu_torch.ops import remap_cuda
+    from cice4_tpu_torch.ops.remap import _tracer_meta
+
+    grid = _dyn_grid(shape, bcs, cuda_device, dtype)
+    dx, dy, afac, _, _ = kernel_check.remap_inputs(
+        grid, seed=6, ncat=5, meta=_tracer_meta([], 4, 1), dtype=dtype)
+    before = remap_cuda.ga_gsh.launches
+    gsh = remap_cuda.ga_gsh(dx, dy, afac, grid.bc, order)
+    assert remap_cuda.ga_gsh.launches == before + 1
+    _, codes = remap_cuda.edge_cases_cuda(dx, dy, afac, grid.bc, order)
+    plain = remap_cuda.ga_gsh_plain(dx, dy, afac, grid.bc, order)
+    codes_plain = remap_cuda.edge_cases_plain(dx, dy, afac, grid.bc)
+    torch.cuda.synchronize()
+    flips = int((codes != codes_plain).sum())
+    assert flips <= kernel_check.GSH_MAX_FLIP_SHARE[dtype] * codes.numel()
+    report = kernel_check.compare_fields({"gsh": gsh}, {"gsh": plain},
+                                         kernel_check.GSH_RTOL[dtype])
+    assert kernel_check.fields_ok(report, allowed_bad=90 * 25 * flips), \
+        report
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,bcs", DYN_CASES)
+def test_remap_k12_matches_plain(cuda_device, dtype, shape, bcs):
+    from cice4_tpu_torch.ops import remap_cuda
+    from cice4_tpu_torch.ops.remap import _tracer_meta
+
+    grid = _dyn_grid(shape, bcs, cuda_device, dtype)
+    meta = _tracer_meta(["iage"], 4, 1)
+    dx, dy, afac, mm, tm = kernel_check.remap_inputs(
+        grid, seed=8, ncat=5, meta=meta, dtype=dtype)
+    gsh = remap_cuda.ga_gsh_plain(dx, dy, afac, grid.bc, 2)
+    before = remap_cuda.k12_divergence.launches
+    div, divt = remap_cuda.k12_divergence(gsh, grid.hm, mm, tm, meta, grid.bc)
+    assert remap_cuda.k12_divergence.launches == before + 1
+    div_p, divt_p = remap_cuda.k12_plain(gsh, grid.hm, mm, tm, meta, grid.bc)
+    torch.cuda.synchronize()
+    report = kernel_check.compare_fields({"div": div, "divt": divt},
+                                         {"div": div_p, "divt": divt_p},
+                                         kernel_check.K12_RTOL[dtype])
+    assert kernel_check.fields_ok(report), report
+
+
+@pytest.mark.gpu
+def test_default_step_launches_every_kernel(cuda_device):
+    """Two default steps at 24x32 on the card: each of the four kernels
+    once per step, finite state, moving ice."""
+    from cice4_tpu_torch.io.forcing_data import AnalyticForcing
+    from cice4_tpu_torch.model import Model
+    from cice4_tpu_torch.ops import evp_cuda, remap_cuda
+    from cice4_tpu_torch.state import init_state
+
+    cfg = gx1_config().with_values(**{"grid.kmt_file": "",
+                                      "domain.ny_global": 24,
+                                      "domain.nx_global": 32})
+    model = Model.create(cfg, device=cuda_device, dtype=torch.float32)
+    state = init_state(cfg, model.grid, model.itd, device=cuda_device,
+                       dtype=torch.float32)
+    forcing = AnalyticForcing(cfg, model.grid, device=cuda_device,
+                              dtype=torch.float32)
+    wrappers = (tv.temperature_changes, evp_cuda.evp_subcycle,
+                remap_cuda.ga_gsh, remap_cuda.k12_divergence)
+    before = [w.launches for w in wrappers]
+    for n in range(2):
+        yday = 80.0 + n / 24.0
+        state, _ = model(state, forcing(yday, 0.0), yday, 0.0)
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [2] * 4
+    assert bool(torch.isfinite(state.aicen).all())
+    assert 0.0 < float(state.uvel.abs().max()) < 2.0

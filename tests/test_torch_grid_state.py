@@ -155,22 +155,34 @@ def test_default_forcing_equal():
 
 
 @pytest.mark.parametrize("ew,ns", [("cyclic", "closed"), ("closed", "open"),
-                                   ("cyclic", "cyclic")])
+                                   ("cyclic", "cyclic"), ("open", "open")])
 @pytest.mark.parametrize("fn", ["nbr_e", "nbr_w", "nbr_n", "nbr_s",
                                 "nbr_ne", "nbr_nw", "nbr_se", "nbr_sw"])
-def test_halo_neighbours_equal(fn, ew, ns):
+@pytest.mark.parametrize("kind", ["center scalar", "corner vector"])
+def test_halo_neighbours_equal(fn, ew, ns, kind):
+    """Also with the NE-corner vector location the EVP and remap shifts
+    pass (it matters only for the tripole fold)."""
     f = np.random.RandomState(0).standard_normal((2, 5, 6))
+    kw_j, kw_t = {}, {}
+    if kind == "corner vector":
+        kw_j = dict(loc=jhalo.FieldLoc.NE_CORNER,
+                    ftype=jhalo.FieldType.VECTOR)
+        kw_t = dict(loc=thalo.FieldLoc.NE_CORNER,
+                    ftype=thalo.FieldType.VECTOR)
     out_j = getattr(jhalo, fn)(jnp.asarray(f),
-                               jhalo.BoundaryConditions(ew=ew, ns=ns))
+                               jhalo.BoundaryConditions(ew=ew, ns=ns), **kw_j)
     out_t = getattr(thalo, fn)(torch.from_numpy(f),
-                               thalo.BoundaryConditions(ew=ew, ns=ns))
+                               thalo.BoundaryConditions(ew=ew, ns=ns), **kw_t)
     np.testing.assert_array_equal(out_t.numpy(), np.asarray(out_j))
 
 
-def test_tripole_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        thalo.nbr_n(torch.zeros(3, 4),
-                    thalo.BoundaryConditions(ew="cyclic", ns="tripole"))
+@pytest.mark.parametrize("ns", ["tripole", "tripoleT"])
+def test_tripole_raises(ns):
+    for kw in ({}, dict(loc=thalo.FieldLoc.NE_CORNER,
+                        ftype=thalo.FieldType.VECTOR)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            thalo.nbr_n(torch.zeros(3, 4),
+                        thalo.BoundaryConditions(ew="cyclic", ns=ns), **kw)
 
 
 @pytest.mark.parametrize("name", ["to_ugrid", "to_tgrid"])
