@@ -2,43 +2,65 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the default gx1 step (``gx1_config()`` on
-the spherical lat-lon grid without a land-mask file: CCSM3 radiation,
-Newton column thermo, ITD, EVP dynamics with 120 subcycles, incremental
-remapping, ridging and cleanup, float32, 320x384, 5 categories, 4 ice +
-1 snow layers), and the earlier thermodynamics-only path
-(``dynamics.kdyn=0``, ``transport.advection="none"``), and checks the
-four hand-written kernels of the main path against their plain PyTorch
+Drives the port's paths and checks the seven hand-written kernels, one
+for each TPU kernel of the JAX package, against their plain PyTorch
 versions:
 
 * ``therm_newton`` (``csrc/therm_newton.cu``), the Newton temperature
   solve;
-* ``evp_subcycle`` (``csrc/evp_subcycle.cu``), the EVP subcycle loop;
-* ``remap_gsh`` (``csrc/remap_gsh.cu``), the remap geometry (GSH);
-* ``remap_k12`` (``csrc/remap_k12.cu``), the remap reconstruction and
-  contraction.
+* ``evp_subcycle`` (``csrc/evp_subcycle.cu``), the EVP subcycle loop on
+  grids closed or open north-south, and ``evp_wholegrid``, the same
+  kernel with its NS-cyclic wrap (the TPU's whole-grid kernel);
+* ``remap_gsh`` (``csrc/remap_gsh.cu``), the remap geometry, in GSH mode
+  (back-shifted) and in GA mode (the split route's K0);
+* ``remap_k12`` (``csrc/remap_k12.cu``), the reconstruction and
+  contraction of the default route;
+* ``remap_construct`` and ``remap_contract`` (``csrc/remap_k1k2.cu``),
+  K1 and K2 of the split route.
+
+The paths: the default gx1 step (``gx1_config()`` on the spherical
+lat-lon grid without a land-mask file, f32, 320x384, 5 categories, 4 ice
++ 1 snow layers, EVP with 120 subcycles, remap of order 2), the earlier
+thermodynamics-only path, and the doubly-periodic box (``Config()`` on
+the all-ocean 10 km grid, cyclic on both axes, 384x320, southern row at
+55N, analytic forcing, the rest at its defaults) run through the driver
+``IceModelRun`` on both remap routes and through the CLI.  On the box the
+grid masks the top row of U points, so no velocity crosses the NS seam:
+the EVP kernel's NS wrap reads only masked zeros there, and only the
+kernel-vs-plain checks of phase 3 hold that wrap against nonzero
+neighbours; remap's reconstruction does read across the seam.
 
 Phases, each of which ends the run with a non-zero exit on failure:
 
 1. device: a CUDA device must be present (there is no CPU fallback);
-2. build: compile the four kernels from the sources in the checkout, one
-   nvcc each, all started together;
+2. build: compile the kernel libraries from the sources in the
+   checkout, one nvcc each, all started together;
 3. kernels vs plain versions on the card, f32 and f64, with the
    tolerances of ``kernel_check``: therm_newton at (5, 384, 320) and
    (5, 116, 100); the dynamics kernels at 384x320 and 116x100 with
-   ice-free bands, EW cyclic and closed, NS closed and open;
-4. main path: 24 one-hour steps (one model day) with the analytic
-   forcing; each of the four kernels must launch once per step; no
-   conservation guard may fire; the state must be finite, 0 <= aice <= 1,
-   with ice north of 70N and south of 60S and 0 < max|u| < 2 m/s;
+   ice-free bands, EW cyclic and closed, NS closed, open and cyclic;
+4. gx1 main path: 24 one-hour steps with the analytic forcing; each of
+   the four kernels of the default route launches once per step; no
+   conservation guard fires; the state is finite, 0 <= aice <= 1, with
+   ice north of 70N and south of 60S and 0 < max|u| < 2 m/s;
 5. earlier path: 4 thermodynamics-only steps, therm_newton once per step
    and no dynamics kernel;
-6. small parity: a 24x32 f64 cut of the main path on the card must agree
-   with the CPU path (which the tier-1 tests hold against the JAX
-   package) after 3 steps;
-7. timing: ms/step and cell-steps/s of the main path, device time by
-   phase, and each kernel against its plain version at the inputs the
-   main path gives it, beside the least time the card could take.
+6. box path: ``IceModelRun`` 24 steps from day 80 with a daily history
+   stream, a daily restart and diagnostics every 24 steps: therm_newton,
+   evp_subcycle on the NS-cyclic grid, remap_gsh and remap_k12 once per
+   step; the history file is read back; a second run continues from the
+   restart and its step 25 equals the first run's bit for bit;
+7. split route: 4 box steps with ``CICE4_FORCE_PALLAS_REMAP=1``: K0 in GA
+   mode, K1 and K2 once per step and neither GSH mode nor K12; the state
+   agrees with the default route's within 1e-5 of each field's scale;
+8. CLI: ``python -m cice4_tpu_torch run`` on a 48x64 box, 2 steps;
+9. small parity: 24x32 f64 cuts of the gx1 path and of the box (with
+   the damped EVP, as the tier-1 tests run it) on the card agree with the
+   CPU path (which the tier-1 tests hold against the JAX package) after 3
+   steps;
+10. timing: ms/step and cell-steps/s of the gx1 and box paths, device
+    time by phase, and each kernel against its plain version at the
+    inputs its path gives it, beside the least time the card could take.
 
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -48,47 +70,85 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
+import numpy as np
 import torch
 
 NSTEPS = 24
 THERMO_STEPS = 4
+SPLIT_STEPS = 4
+CLI_STEPS = 2
 DT = 3600.0
 YDAY0 = 80.0
 MAIN = {"grid.kmt_file": ""}
 THERMO_ONLY = {"grid.kmt_file": "", "dynamics.kdyn": 0,
                "transport.advection": "none"}
 SMALL = {"domain.ny_global": 24, "domain.nx_global": 32}
+# the doubly-periodic box: Config() on the all-ocean uniform grid, cyclic
+# on both axes, 10 km cells from 55N, analytic forcing, the rest at its
+# defaults
+BOX = {"domain.ny_global": 384, "domain.nx_global": 320,
+       "domain.ew_boundary_type": "cyclic",
+       "domain.ns_boundary_type": "cyclic", "grid.grid_type": "column",
+       "grid.lat_origin": 55.0, "grid.dx_rect": 10.0e3,
+       "grid.dy_rect": 10.0e3, "forcing.atm_data_type": "analytic"}
+# the box cut for the card-vs-CPU parity, damped as in the tier-1 tests:
+# undamped, one ulp of vicen moves the first step's velocities by 18% of
+# their scale (tests/test_torch_box.py), so two implementations cannot agree
+BOX_SMALL = {"domain.ny_global": 24, "domain.nx_global": 32,
+             "grid.lat_origin": 69.0, "dynamics.evp_damping": True}
+BOX_CLI = {"domain.ny_global": 48, "domain.nx_global": 64,
+           "grid.lat_origin": 67.0}
 STEP_RTOL = 1.0e-9   # GPU f64 step vs CPU f64 step, relative to field max
+SPLIT_RTOL = 1.0e-5  # split vs default remap route, f32, to field max
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W; the
 # f32 and f64 rates outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
 
+# one entry per TPU kernel: (source of its Hopper kernel, the TPU kernel)
 KERNELS = {
     "therm_newton": ("cice4_tpu_torch/csrc/therm_newton.cu",
                      "cice4_tpu/ops/therm_vertical.py:632"),
     "evp_subcycle": ("cice4_tpu_torch/csrc/evp_subcycle.cu",
                      "cice4_tpu/ops/evp_pallas.py:210"),
+    "evp_wholegrid": ("cice4_tpu_torch/csrc/evp_subcycle.cu",
+                      "cice4_tpu/ops/evp_pallas.py:83"),
     "remap_gsh": ("cice4_tpu_torch/csrc/remap_gsh.cu",
                   "cice4_tpu/ops/remap_pallas.py:70"),
     "remap_k12": ("cice4_tpu_torch/csrc/remap_k12.cu",
                   "cice4_tpu/ops/remap_pallas.py:157"),
+    "remap_construct": ("cice4_tpu_torch/csrc/remap_k1k2.cu",
+                        "cice4_tpu/ops/remap_pallas.py:373"),
+    "remap_contract": ("cice4_tpu_torch/csrc/remap_k1k2.cu",
+                       "cice4_tpu/ops/remap_pallas.py:391"),
 }
+LIBRARIES = sorted({Path(src).stem for src, _ in KERNELS.values()})
+# the path whose run gives each kernel's launches and timing inputs
+PATH_OF = {"therm_newton": "gx1", "evp_subcycle": "gx1",
+           "evp_wholegrid": "box", "remap_gsh": "gx1", "remap_k12": "gx1",
+           "remap_construct": "split", "remap_contract": "split"}
 
 # Operations each kernel's function does, counted from the CUDA sources
 # (one per add, multiply, compare, min/max, division or square root):
 # Newton solve: an upper estimate per iteration of an icy cell;
 # EVP: per active T cell and subcycle (strain rates 84, relaxation 85,
 # str8 188), per active U point (momentum 43), the final pass over all
-# cells adds the 4 corner sums; GSH: per cell, both edges' geometry,
+# cells adds the 4 corner sums; GSH/GA: per cell, both edges' geometry,
 # areas, quadrature and moment sums plus the gather, by quadrature order;
-# K12: per (row, cell) the reconstruction of the mass (100), of each
-# type-1 (111) and type-2 (113) tracer, and per donor offset the mass
-# (6), type-1 (24) and type-2 (73) contraction terms.
+# K12 and K1: per (row, cell) the reconstruction of the mass (100), of
+# each type-1 (111) and type-2 (113) tracer; K12 and K2: per donor offset
+# the mass (6), type-1 (24) and type-2 (73) contraction terms, the open
+# water row (0) as mass only (its tracer divergence is discarded).  K2's
+# one polynomial per tracer does more for type-1 tracers and row 0; the
+# bound counts the work the function needs.
 OPS_NEWTON_ITER = 300
 OPS_EVP_STRESS, OPS_EVP_MOMENTUM, OPS_EVP_FINAL_SUMS = 357, 43, 12
 OPS_GSH_CELL = {1: 1204, 2: 1948, 3: 2248}
@@ -111,6 +171,11 @@ def card_line() -> str:
 def make_config(over, **more):
     from cice4_tpu_torch.config import gx1_config
     return gx1_config().with_values(**{**over, **more})
+
+
+def box_config(**more):
+    from cice4_tpu_torch.config import Config
+    return Config().with_values(**{**BOX, **more})
 
 
 def make_run(cfg, device, dtype):
@@ -150,7 +215,7 @@ def state_tensors(state):
             yield name, t
 
 
-def check_physical(model, state, moving):
+def check_physical(grid, state, moving, south=True):
     for name, t in state_tensors(state):
         if t.is_floating_point() and not bool(torch.isfinite(t).all()):
             raise AssertionError(f"state field {name} is not finite")
@@ -159,10 +224,10 @@ def check_physical(model, state, moving):
     # the area normalisation of cleanup leaves sums within roundoff of 1
     if amin < 0.0 or amax > 1.0 + 4 * torch.finfo(aice.dtype).eps:
         raise AssertionError(f"aice outside [0, 1]: [{amin}, {amax}]")
-    lat = torch.rad2deg(model.grid.tlat)
+    lat = torch.rad2deg(grid.tlat)
     n_north = int((aice[lat > 70.0] > 0).sum())
     n_south = int((aice[lat < -60.0] > 0).sum())
-    if n_north == 0 or n_south == 0:
+    if n_north == 0 or (south and n_south == 0):
         raise AssertionError(f"ice cells north of 70N: {n_north}, south "
                              f"of 60S: {n_south}")
     umax = float(torch.maximum(state.uvel.abs(), state.vvel.abs()).max())
@@ -171,34 +236,72 @@ def check_physical(model, state, moving):
     return amin, amax, n_north, n_south, umax
 
 
+def compare_states(a, b, rtol, what):
+    """Worst |a - b| over the state's fields relative to each field's
+    scale in `b`; integer and boolean fields must be equal."""
+    ref = dict(state_tensors(b))
+    worst = 0.0
+    for name, x in state_tensors(a):
+        y = ref[name]
+        if not x.is_floating_point():
+            if not torch.equal(x.cpu(), y.cpu()):
+                raise AssertionError(f"{what}: {name} differs")
+            continue
+        scale = max(float(y.abs().max()), 1e-300)
+        err = float((x.cpu() - y.cpu()).abs().max()) / scale
+        worst = max(worst, err)
+        if err > rtol:
+            raise AssertionError(f"{what}: {name} differs by {err:.3e} of "
+                                 f"its scale (limit {rtol})")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # launch counters
 # ---------------------------------------------------------------------------
 
 
-def wrappers():
-    """{kernel name: (module, name of its wrapper there, plain version)}.
-    Each wrapper holds its launch count in `.launches`."""
+def sites():
+    """{name: (module, name of its wrapper there, plain version)}: the
+    wrapper of each kernel, and of K0's GA mode (``remap_ga``)."""
     from cice4_tpu_torch.ops import evp as evp_ops
     from cice4_tpu_torch.ops import evp_cuda, remap_cuda
     from cice4_tpu_torch.ops import therm_vertical as tv
+    evp = (evp_cuda, "evp_subcycle", evp_ops._evp_subcycle_plain)
     return {"therm_newton": (tv, "temperature_changes",
                              tv._temperature_changes_core),
-            "evp_subcycle": (evp_cuda, "evp_subcycle",
-                             evp_ops._evp_subcycle_plain),
+            "evp_subcycle": evp, "evp_wholegrid": evp,
             "remap_gsh": (remap_cuda, "ga_gsh", remap_cuda.ga_gsh_plain),
+            "remap_ga": (remap_cuda, "ga_planes",
+                         remap_cuda.ga_planes_plain),
             "remap_k12": (remap_cuda, "k12_divergence",
-                          remap_cuda.k12_plain)}
+                          remap_cuda.k12_plain),
+            "remap_construct": (remap_cuda, "construct",
+                                remap_cuda.construct_plain),
+            "remap_contract": (remap_cuda, "contract",
+                               remap_cuda.contract_plain)}
+
+
+def counter_attr(name):
+    """The count each wrapper keeps: evp_subcycle counts every launch and,
+    apart, those on an NS-cyclic grid (the whole-grid kernel's)."""
+    return "ns_cyclic_launches" if name == "evp_wholegrid" else "launches"
 
 
 def reset_counts():
-    for mod, attr, _ in wrappers().values():
-        getattr(mod, attr).launches = 0
+    for name, (mod, attr, _) in sites().items():
+        setattr(getattr(mod, attr), counter_attr(name), 0)
 
 
 def read_counts():
-    return {k: getattr(mod, attr).launches
-            for k, (mod, attr, _) in wrappers().items()}
+    return {name: getattr(getattr(mod, attr), counter_attr(name))
+            for name, (mod, attr, _) in sites().items()}
+
+
+def expected(**per_step):
+    """Launch counts of a path: `per_step` kernels at the given counts,
+    every other kernel 0."""
+    return {name: per_step.get(name, 0) for name in sites()}
 
 
 # ---------------------------------------------------------------------------
@@ -241,10 +344,50 @@ def _log_fields(rep):
         log("    max|d|/rel/beyond tol: " + "; ".join(items[i:i + 4]))
 
 
+def _check_geometry(name, tag, dx, dy, afac, grid, dtype, emit_shifted):
+    """remap_gsh in one mode against its plain version, with the case
+    codes of every edge."""
+    from cice4_tpu_torch import kernel_check as kc
+    from cice4_tpu_torch.ops import remap_cuda
+
+    out, codes = remap_cuda.edge_cases_cuda(dx, dy, afac, grid.bc, 2,
+                                            emit_shifted=emit_shifted)
+    plain = (remap_cuda.ga_gsh_plain if emit_shifted
+             else remap_cuda.ga_planes_plain)(dx, dy, afac, grid.bc, 2)
+    codes_p = remap_cuda.edge_cases_plain(dx, dy, afac, grid.bc)
+    torch.cuda.synchronize()
+    flips = int((codes != codes_p).sum())
+    rep = kc.compare_fields({name: out}, {name: plain}, kc.GSH_RTOL[dtype])
+    ok = (flips <= kc.GSH_MAX_FLIP_SHARE[dtype] * codes.numel()
+          and kc.fields_ok(rep, allowed_bad=90 * 25 * flips))
+    log(f"  remap_gsh ({name} mode) {tag}: ok={ok}, edges {codes.numel()}, "
+        f"edges whose case differs {flips}, distinct cases "
+        f"{len(set(codes_p.flatten().tolist()))}")
+    _log_fields(rep)
+    if not ok:
+        raise AssertionError(f"remap_gsh ({name} mode) disagrees at {tag}")
+
+
+def _check_pair(name, tag, kern, plain, rtol):
+    from cice4_tpu_torch import kernel_check as kc
+
+    torch.cuda.synchronize()
+    rep = kc.compare_fields(kern, plain, rtol)
+    ok = kc.fields_ok(rep)
+    log(f"  {name} {tag}: ok={ok}")
+    _log_fields(rep)
+    if not ok:
+        raise AssertionError(f"{name} disagrees at {tag}")
+
+
 def check_dynamics_kernels(device):
-    """evp_subcycle, remap_gsh and remap_k12 against their plain versions,
-    f32 and f64, gx1 and a ragged shape, EW cyclic and closed, NS closed
-    and open."""
+    """The dynamics kernels against their plain versions, f32 and f64,
+    gx1 and a ragged shape, EW cyclic and closed, NS closed, open and
+    cyclic: evp_subcycle (the whole-grid kernel on NS-cyclic grids),
+    remap_gsh in GSH and GA mode, remap_k12, remap_construct (K1) and
+    remap_contract (K2).  The NS-cyclic cases run on the all-ocean box
+    grid, the others on the gx1 grid; the synthetic inputs put ice and
+    velocities on both sides of every seam."""
     from cice4_tpu_torch import kernel_check as kc
     from cice4_tpu_torch.config import DynamicsConfig
     from cice4_tpu_torch.grid import make_grid
@@ -255,61 +398,62 @@ def check_dynamics_kernels(device):
     meta = _tracer_meta(["iage"], 4, 1)
     p = evp_ops.make_evp_params(DynamicsConfig(), DT)
     for (ny, nx) in ((384, 320), (116, 100)):
-        for ew, ns in (("cyclic", "closed"), ("closed", "open")):
-            for dtype in (torch.float32, torch.float64):
-                cfg = make_config(MAIN, **{
-                    "domain.ny_global": ny, "domain.nx_global": nx,
+        for ew, ns in (("cyclic", "closed"), ("closed", "open"),
+                       ("cyclic", "cyclic"), ("closed", "cyclic")):
+            size = {"domain.ny_global": ny, "domain.nx_global": nx,
                     "domain.ew_boundary_type": ew,
-                    "domain.ns_boundary_type": ns})
+                    "domain.ns_boundary_type": ns}
+            cfg = box_config(**size) if ns == "cyclic" else \
+                make_config(MAIN, **size)
+            for dtype in (torch.float32, torch.float64):
                 grid = make_grid(cfg, device=device, dtype=dtype)
                 tag = f"{ny}x{nx} EW {ew} NS {ns} {str(dtype)[6:]}"
 
                 args = kc.evp_inputs(grid, seed=3, dtype=dtype)
+                before = evp_cuda.evp_subcycle.ns_cyclic_launches
                 kern = kc.evp_named(evp_cuda.evp_subcycle(p, grid, *args))
+                if evp_cuda.evp_subcycle.ns_cyclic_launches - before != \
+                        int(ns == "cyclic"):
+                    raise AssertionError("evp_subcycle's NS-cyclic count")
                 plain = kc.evp_named(evp_ops._evp_subcycle_plain(p, grid,
                                                                  *args))
-                torch.cuda.synchronize()
-                rep = kc.compare_fields(kern, plain, kc.EVP_RTOL[dtype])
-                ok = kc.fields_ok(rep)
-                log(f"  evp_subcycle {tag}: ok={ok}, icy T cells "
-                    f"{int(args[1].sum())}, U points {int(args[2].sum())}")
-                _log_fields(rep)
-                if not ok:
-                    raise AssertionError(f"evp_subcycle disagrees at {tag}")
+                name = "evp_wholegrid" if ns == "cyclic" else "evp_subcycle"
+                log(f"  {name}: icy T cells {int(args[1].sum())}, U points "
+                    f"{int(args[2].sum())}")
+                _check_pair(name, tag, kern, plain, kc.EVP_RTOL[dtype])
 
                 dx, dy, afac, mm, tm = kc.remap_inputs(grid, seed=5, ncat=5,
                                                        meta=meta, dtype=dtype)
-                gsh, codes = remap_cuda.edge_cases_cuda(dx, dy, afac,
-                                                        grid.bc, 2)
+                _check_geometry("GSH", tag, dx, dy, afac, grid, dtype, True)
+                _check_geometry("GA", tag, dx, dy, afac, grid, dtype, False)
                 gsh_p = remap_cuda.ga_gsh_plain(dx, dy, afac, grid.bc, 2)
-                codes_p = remap_cuda.edge_cases_plain(dx, dy, afac, grid.bc)
-                torch.cuda.synchronize()
-                flips = int((codes != codes_p).sum())
-                rep = kc.compare_fields({"gsh": gsh}, {"gsh": gsh_p},
-                                        kc.GSH_RTOL[dtype])
-                ok = (flips <= kc.GSH_MAX_FLIP_SHARE[dtype] * codes.numel()
-                      and kc.fields_ok(rep, allowed_bad=90 * 25 * flips))
-                log(f"  remap_gsh {tag}: ok={ok}, edges {codes.numel()}, "
-                    f"edges whose case differs {flips}, distinct cases "
-                    f"{len(set(codes_p.flatten().tolist()))}")
-                _log_fields(rep)
-                if not ok:
-                    raise AssertionError(f"remap_gsh disagrees at {tag}")
-
                 div, divt = remap_cuda.k12_divergence(gsh_p, grid.hm, mm, tm,
                                                       meta, grid.bc)
                 div_p, divt_p = remap_cuda.k12_plain(gsh_p, grid.hm, mm, tm,
                                                      meta, grid.bc)
-                torch.cuda.synchronize()
-                rep = kc.compare_fields({"div": div, "divt": divt},
-                                        {"div": div_p, "divt": divt_p},
-                                        kc.K12_RTOL[dtype])
-                ok = kc.fields_ok(rep)
-                log(f"  remap_k12 {tag}: ok={ok}, rows {mm.shape[0]}, "
-                    f"tracers {len(meta)}")
-                _log_fields(rep)
-                if not ok:
-                    raise AssertionError(f"remap_k12 disagrees at {tag}")
+                _check_pair("remap_k12", f"{tag}, rows {mm.shape[0]}, "
+                            f"tracers {len(meta)}",
+                            {"div": div, "divt": divt},
+                            {"div": div_p, "divt": divt_p},
+                            kc.K12_RTOL[dtype])
+
+                mass, trc = remap_cuda.construct(grid.hm, mm, tm, meta,
+                                                 grid.bc)
+                mass_p, trc_p = remap_cuda.construct_plain(grid.hm, mm, tm,
+                                                           meta, grid.bc)
+                _check_pair("remap_construct", tag,
+                            {"mass": mass, "trc": trc},
+                            {"mass": mass_p, "trc": trc_p}, kc.K1_RTOL[dtype])
+                ga_p = remap_cuda.ga_planes_plain(dx, dy, afac, grid.bc, 2)
+                par = remap_cuda.gather_parents(trc_p, meta)
+                div, divt = remap_cuda.contract(ga_p, mass_p, trc_p, par,
+                                                meta, grid.bc)
+                div_p, divt_p = remap_cuda.contract_plain(ga_p, mass_p, trc_p,
+                                                          par, meta, grid.bc)
+                _check_pair("remap_contract", tag,
+                            {"div": div, "divt": divt},
+                            {"div": div_p, "divt": divt_p},
+                            kc.K2_RTOL[dtype])
 
 
 # ---------------------------------------------------------------------------
@@ -329,7 +473,7 @@ def drive_path(name, cfg, device, nsteps, expect, moving):
     log(f"  {name}: launches {counts}; ridge iterations per step {ridge}")
     if counts != expect:
         raise AssertionError(f"{name}: launches {counts}, expected {expect}")
-    amin, amax, n_north, n_south, umax = check_physical(model, state,
+    amin, amax, n_north, n_south, umax = check_physical(model.grid, state,
                                                         moving)
     log(f"  guards clean; state finite; aice in [{amin:.3g}, {amax:.6g}]; "
         f"icy cells north of 70N {n_north}, south of 60S {n_south}; max "
@@ -339,29 +483,155 @@ def drive_path(name, cfg, device, nsteps, expect, moving):
     return model, state, forcing, ridge, fluxes
 
 
-def phase_small_parity(device):
-    """The main path at 24x32 in f64: the card (kernels) against the CPU
-    (plain versions), 3 steps."""
-    cfg = make_config(MAIN, **SMALL)
+def start_at(calendar, yday):
+    """Set a fresh calendar to 00:00 of day-of-year `yday`."""
+    calendar.time = (yday - 1.0) * 86400.0
+    calendar._recompute()
+
+
+def phase_box_driver(device, workdir):
+    """The box through the driver: 24 steps with history, restart and
+    diagnostics, then the resumed step 25 against the continued one.
+    Returns (run, launches of the 24 steps, ms per step of the driver's
+    "Step" timer)."""
+    from scipy.io import netcdf_file
+
+    from cice4_tpu_torch.driver import IceModelRun
+
+    cfg = box_config(**{"run.history_dir": str(workdir / "history"),
+                        "run.restart_dir": str(workdir / "restart"),
+                        "run.pointer_file": str(workdir / "restart" /
+                                                "ice.restart_file"),
+                        "run.histfreq": ("d",), "run.dumpfreq": "d",
+                        "run.diagfreq": NSTEPS})
+    lines = []
+    run = IceModelRun(cfg, dtype=torch.float32, device=device,
+                      log=lines.append)
+    run.initialize()
+    start_at(run.calendar, YDAY0)
+    diags = {}
+    reset_counts()
+    run.run(NSTEPS, on_diag=lambda n, d: diags.setdefault(n, d))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = expected(therm_newton=NSTEPS, evp_subcycle=NSTEPS,
+                    evp_wholegrid=NSTEPS, remap_gsh=NSTEPS,
+                    remap_k12=NSTEPS)
+    log(f"  box path (IceModelRun): launches {counts}")
+    if counts != want:
+        raise AssertionError(f"box path: launches {counts}, expected {want}")
+    for line in lines:
+        if not line.startswith(("wrote", "ran")):
+            continue
+        log("  driver: " + line)
+    table = [ln for ln in lines if ln.startswith("istep = ")]
+    if list(diags) != [NSTEPS] or len(table) != 1:
+        raise AssertionError(f"diagnostics at steps {list(diags)}")
+    for ln in table[0].splitlines():
+        log("    " + ln)
+    if not all(math.isfinite(v) for v in diags[NSTEPS].values()):
+        raise AssertionError("a diagnostic is not finite")
+    step_ms = 1e3 * run.timers.totals["Step"] / run.timers.counts["Step"]
+
+    hist = sorted((workdir / "history").glob("*.nc"))
+    if len(hist) != 1:
+        raise AssertionError(f"history files: {hist}")
+    with netcdf_file(str(hist[0]), "r", mmap=False) as nc:
+        names = sorted(nc.variables)
+        aice = nc.variables["aice"][:].copy()
+        tdays = float(nc.variables["time"][0])
+    if aice.shape != (1, run.grid.ny, run.grid.nx) or not (
+            np.isfinite(aice).all() and aice.min() >= 0.0
+            and aice.max() <= 1.0 + 1e-6):
+        raise AssertionError(f"history aice {aice.shape} out of range")
+    log(f"  history {hist[0].name}: {len(names)} variables, daily mean aice "
+        f"in [{aice.min():.4g}, {aice.max():.4g}], time {tdays} days")
+    restarts = sorted((workdir / "restart").glob("iced.*.npz"))
+    if len(restarts) != 1:
+        raise AssertionError(f"restart files: {restarts}")
+
+    amin, amax, n_north, _, umax = check_physical(run.grid, run.state, True,
+                                                  south=False)
+    log(f"  guards clean; state finite; aice in [{amin:.3g}, {amax:.6g}]; "
+        f"icy cells north of 70N {n_north}; max |u|,|v| {umax:.4g} m/s")
+
+    run.run(1)
+    cont = run.state
+    again = IceModelRun(cfg.with_values(**{"run.runtype": "continue"}),
+                        dtype=torch.float32, device=device,
+                        log=lines.append).initialize()
+    if again.calendar.istep != NSTEPS:
+        raise AssertionError(f"resumed at step {again.calendar.istep}")
+    again.run(1)
+    differ = [name for (name, a), (_, b) in zip(state_tensors(cont),
+                                                state_tensors(again.state))
+              if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"resumed step {NSTEPS + 1} differs from the "
+                             f"continued one in {differ}")
+    log(f"  restart {restarts[0].name}: the resumed step {NSTEPS + 1} equals "
+        f"the continued one bit for bit in every state field")
+    return run, counts, step_ms
+
+
+def phase_split_route(device):
+    """SPLIT_STEPS box steps on the split route against the default
+    route.  Returns (launches, worst difference)."""
+    model, state0, forcing = make_run(box_config(), device, torch.float32)
+    os.environ["CICE4_FORCE_PALLAS_REMAP"] = "1"
+    try:
+        reset_counts()
+        split, _, _ = run_steps(model, state0, forcing, SPLIT_STEPS)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        del os.environ["CICE4_FORCE_PALLAS_REMAP"]
+    want = expected(therm_newton=SPLIT_STEPS, evp_subcycle=SPLIT_STEPS,
+                    evp_wholegrid=SPLIT_STEPS, remap_ga=SPLIT_STEPS,
+                    remap_construct=SPLIT_STEPS,
+                    remap_contract=SPLIT_STEPS)
+    log(f"  split route: launches {counts}")
+    if counts != want:
+        raise AssertionError(f"split route: launches {counts}, expected "
+                             f"{want}")
+    default, _, _ = run_steps(model, state0, forcing, SPLIT_STEPS)
+    worst = compare_states(split, default, SPLIT_RTOL,
+                           "split vs default route")
+    check_physical(model.grid, split, True, south=False)
+    return counts, worst
+
+
+def phase_cli(workdir):
+    """``python -m cice4_tpu_torch run`` on a small box, in a process of
+    its own."""
+    sets = {**BOX, **BOX_CLI, "run.history_dir": str(workdir / "history"),
+            "run.restart_dir": str(workdir / "restart"),
+            "run.pointer_file": str(workdir / "restart" / "pointer"),
+            "run.diagfreq": CLI_STEPS}
+    cmd = [sys.executable, "-m", "cice4_tpu_torch", "run", "--steps",
+           str(CLI_STEPS)] + [f"--set={k}={v!r}" for k, v in sets.items()]
+    env = {**os.environ,
+           "PYTHONPATH": str(Path(__file__).resolve().parent)}
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         cwd=workdir, env=env)
+    tail = res.stdout.strip().splitlines()[-12:]
+    if res.returncode != 0 or f"ran {CLI_STEPS} steps" not in res.stdout:
+        raise AssertionError(f"CLI exited {res.returncode}:\n{res.stdout}"
+                             f"\n{res.stderr}")
+    ran = [ln for ln in res.stdout.splitlines() if ln.startswith("ran ")]
+    log(f"  {' '.join(cmd[1:5])} ... ({len(sets)} --set): exit 0; {ran[0]}")
+    return tail
+
+
+def phase_small_parity(device, cfg):
+    """A 24x32 cut in f64: the card (kernels) against the CPU (plain
+    versions), 3 steps."""
     out = []
     for dev in (device, torch.device("cpu")):
         model, state, forcing = make_run(cfg, dev, torch.float64)
         state, _, _ = run_steps(model, state, forcing, 3)
-        out.append(dict(state_tensors(state)))
-    worst = 0.0
-    for name, g in out[0].items():
-        c = out[1][name]
-        if not g.is_floating_point():
-            if not torch.equal(g.cpu(), c):
-                raise AssertionError(f"{name} differs between GPU and CPU")
-            continue
-        scale = max(float(c.abs().max()), 1e-300)
-        err = float((g.cpu() - c).abs().max()) / scale
-        worst = max(worst, err)
-        if err > STEP_RTOL:
-            raise AssertionError(f"{name}: GPU vs CPU step differs by {err:.3e}"
-                                 f" of its scale (limit {STEP_RTOL})")
-    return worst
+        out.append(state)
+    return compare_states(out[0], out[1], STEP_RTOL, "GPU vs CPU step")
 
 
 # ---------------------------------------------------------------------------
@@ -369,47 +639,54 @@ def phase_small_parity(device):
 # ---------------------------------------------------------------------------
 
 
-def time_main_path(model, state, forcing, nsteps):
+def time_path(model, state, forcing, nsteps, first=NSTEPS):
+    """(ms per step by CUDA events, by the host clock, ridge iterations)
+    of `nsteps` steps after step `first`."""
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     start.record()
-    state, ridge, _ = run_steps(model, state, forcing, nsteps,
-                                first=NSTEPS, check=False)
+    state, ridge, _ = run_steps(model, state, forcing, nsteps, first=first,
+                                check=False)
     end.record()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / nsteps
     return start.elapsed_time(end) / nsteps, host_ms, ridge
 
 
-def capture_kernel_inputs(model, state, forcing):
-    """The arguments the main path passes to each kernel wrapper in one
-    step (the step's results are discarded)."""
-    sites = wrappers()
-    real = {k: getattr(mod, attr) for k, (mod, attr, _) in sites.items()}
+def capture_kernel_inputs(model, state, forcing, names):
+    """The arguments one step of a path passes to the wrappers of the
+    kernels `names` (the step's results are discarded)."""
+    table = sites()
+    by_site = {}
+    for name in names:
+        mod, attr, _ = table[name]
+        by_site.setdefault((mod, attr), []).append(name)
+    real = {site: getattr(*site) for site in by_site}
     seen = {}
 
-    def recorder(name):
+    def recorder(site):
         def record(*args):
-            seen.setdefault(name, args)
-            return real[name](*args)
-        record.launches = 0
+            for name in by_site[site]:
+                seen.setdefault(name, args)
+            return real[site](*args)
+        record.launches = record.ns_cyclic_launches = 0
         return record
 
-    for k, (mod, attr, _) in sites.items():
-        setattr(mod, attr, recorder(k))
+    for site in by_site:
+        setattr(*site, recorder(site))
     try:
         yday = YDAY0 + NSTEPS * DT / 86400.0
         model(state, forcing(yday, 0.0), yday, 0.0)
     finally:
-        for k, (mod, attr, _) in sites.items():
-            setattr(mod, attr, real[k])
+        for site, fn in real.items():
+            setattr(*site, fn)
     return seen
 
 
 def kernel_and_plain(name, args):
     """(kernel call, plain call) on the captured arguments."""
-    mod, attr, plain = wrappers()[name]
+    mod, attr, plain = sites()[name]
     kern = getattr(mod, attr)
     return (lambda: kern(*args)), (lambda: plain(*args))
 
@@ -486,11 +763,21 @@ def bound(name, args, out):
     needs over the card's peak rate for the type."""
     from cice4_tpu_torch.ops.remap import _n_type1
 
+    def recon_ops(meta):
+        n1 = _n_type1(meta)
+        return OPS_K12_MASS + n1 * OPS_K12_T1 + (len(meta) - n1) * OPS_K12_T2
+
+    def contract_ops(meta, rows):
+        """Per cell, the 9 offsets' terms of `rows` rows, row 0 mass only."""
+        n1 = _n_type1(meta)
+        tracers = n1 * OPS_K12_OFF_T1 + (len(meta) - n1) * OPS_K12_OFF_T2
+        return 9 * (rows * OPS_K12_OFF_MASS + (rows - 1) * tracers)
+
     if name == "therm_newton":
         nbytes = unique_bytes(args[2:]) + unique_bytes(out)
         ops = OPS_NEWTON_ITER * float(out["niter_cells"].sum())
         dtype = args[-1].dtype
-    elif name == "evp_subcycle":
+    elif name in ("evp_subcycle", "evp_wholegrid"):
         p, grid = args[0], args[1]
         nbytes = unique_bytes(args[2:]) + unique_bytes(
             [getattr(grid, k) for k in ("cyp", "cxp", "cym", "cxm", "dxt",
@@ -502,23 +789,28 @@ def bound(name, args, out):
                + (OPS_EVP_STRESS + OPS_EVP_FINAL_SUMS) * ncell
                + OPS_EVP_MOMENTUM * n_u)
         dtype = args[-1].dtype
-    elif name == "remap_gsh":
+    elif name in ("remap_gsh", "remap_ga"):
         dx, order = args[0], args[4]
         nbytes = unique_bytes(args[:3]) + unique_bytes(out)
         ops = OPS_GSH_CELL[order] * dx.numel()
         dtype = dx.dtype
-    else:
+    elif name == "remap_k12":
         gsh, hm, mm, tm, meta = args[:5]
         nbytes = unique_bytes(args[:4]) + unique_bytes(out)
-        n1 = _n_type1(meta)
-        n2 = len(meta) - n1
-        ncell = hm.numel()
-        row0 = OPS_K12_MASS + 9 * OPS_K12_OFF_MASS
-        rows = (OPS_K12_MASS + n1 * OPS_K12_T1 + n2 * OPS_K12_T2
-                + 9 * (OPS_K12_OFF_MASS + n1 * OPS_K12_OFF_T1
-                       + n2 * OPS_K12_OFF_T2))
-        ops = ncell * (row0 + (mm.shape[0] - 1) * rows)
+        rows = mm.shape[0]
+        ops = hm.numel() * (OPS_K12_MASS + (rows - 1) * recon_ops(meta)
+                            + contract_ops(meta, rows))
         dtype = hm.dtype
+    elif name == "remap_construct":
+        hm, mm, tm, meta = args[:4]
+        nbytes = unique_bytes(args[:3]) + unique_bytes(out)
+        ops = hm.numel() * mm.shape[0] * recon_ops(meta)
+        dtype = hm.dtype
+    else:  # remap_contract
+        ga, mass, trc, par, meta = args[:5]
+        nbytes = unique_bytes(args[:4]) + unique_bytes(out)
+        ops = mass[0, 0].numel() * contract_ops(meta, mass.shape[0])
+        dtype = mass.dtype
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
@@ -532,16 +824,38 @@ def max_abs_err(name, kern, plain):
     if name == "therm_newton":
         return max(float((kern[k] - plain[k]).abs().max())
                    for k in ("Tsf", "Tsn", "Tin"))
-    if name == "evp_subcycle":
+    if name in ("evp_subcycle", "evp_wholegrid"):
         kern, plain = kc.evp_named(kern), kc.evp_named(plain)
         return max(float((kern[k] - plain[k]).abs().max()) for k in plain)
-    if name == "remap_gsh":
+    if name in ("remap_gsh", "remap_ga"):
         return float((kern - plain).abs().max())
     return max(float((a - b).abs().max()) for a, b in zip(kern, plain))
 
 
+def measure_kernel(name, args, card):
+    """Kernel against plain on a path's captured arguments: (max |kernel
+    - plain|, kernel device ms per launch, plain ms, bound_ms, bound_by)."""
+    kern_fn, plain_fn = kernel_and_plain(name, args)
+    kern, plain = kern_fn(), plain_fn()
+    torch.cuda.synchronize()
+    err = max_abs_err(name, kern, plain)
+    reps_plain = 2 if name.startswith("evp") else 3
+    kern_ms, plain_ms = time_pair(kern_fn, plain_fn, reps_plain=reps_plain)
+    bound_ms, bound_by, nbytes, ops = bound(name, args, kern)
+    ms = min(k[0] for k in kern_ms)
+    log(f"  {name} at the {PATH_OF.get(name, 'split')} path's inputs: "
+        f"kernel device time {kern_ms[0][0]:.4f} / {kern_ms[1][0]:.4f} ms "
+        f"per launch, wall {kern_ms[0][1]:.4f} / {kern_ms[1][1]:.4f} ms per "
+        f"call with the wrapper; plain version {plain_ms[0]:.3f} / "
+        f"{plain_ms[1]:.3f} ms (order plain, kernel, kernel, plain); bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, "
+        f"{ops / 1e9:.4g} G operations), {100 * bound_ms / ms:.1f}% of it; "
+        f"max |kernel - plain| {err:.3e}; card: {card}")
+    return err, ms, min(plain_ms), bound_ms, bound_by
+
+
 def phase_device_times(model, state, forcing):
-    """Device time by phase of one main-path step: each phase is profiled
+    """Device time by phase of one step of a path: each phase is profiled
     (torch.profiler, device kernels only) in a step of its own, between
     synchronisations, and the whole step once.  Returns (by phase, step
     total, number of kernel kinds, top kernels) or None when the profiler
@@ -617,6 +931,21 @@ def phase_device_times(model, state, forcing):
     return by_phase, total, len(rows), rows[:10]
 
 
+def log_profile(name, prof, ms_step):
+    if prof is None:
+        log(f"  {name} profiler: no device time recorded (not measured)")
+        return
+    by_phase, total, nkinds, top = prof
+    log(f"  {name} profiler, one step: {total:.3f} ms device time in "
+        f"{nkinds} kernel kinds ({100 * total / ms_step:.1f}% of the step's "
+        f"{ms_step:.3f} ms); by phase:")
+    for phase, ms in by_phase.items():
+        log(f"    {phase:10s} {ms:9.3f} ms ({100 * ms / total:.1f}%)")
+    log(f"    {'other':10s} {total - sum(by_phase.values()):9.3f} ms")
+    for key, ms, count in top:
+        log(f"    {ms:9.3f} ms  x{count:5d}  {key[:90]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs only "
@@ -626,13 +955,13 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     card = card_line()
-    log(f"[1/7 device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
+    log(f"[1/10 device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
         f"torch {torch.__version__} CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    libs = cuda_build.load_all(KERNELS)
-    log(f"[2/7 build] {len(libs)} kernels in {time.perf_counter() - t0:.2f} s"
-        f" wall, built in parallel")
+    libs = cuda_build.load_all(LIBRARIES)
+    log(f"[2/10 build] {len(libs)} kernel libraries in "
+        f"{time.perf_counter() - t0:.2f} s wall, built in parallel")
     for name, lib in libs.items():
         log(f"  {name}: built={lib.built} nvcc {lib.seconds:.2f} s -> "
             f"{lib.path.name}")
@@ -642,85 +971,124 @@ def main() -> int:
 
     cfg = make_config(MAIN)
     ny, nx = cfg.domain.ny_global, cfg.domain.nx_global
-    log("[3/7 kernels vs plain versions on the card]")
+    log("[3/10 kernels vs plain versions on the card]")
     model, _, _ = make_run(cfg, device, torch.float32)
     check_newton(model.thermo, device)
     check_dynamics_kernels(device)
 
-    log(f"[4/7 main path] gx1 default step {ny}x{nx}, ncat "
+    log(f"[4/10 gx1 main path] gx1 default step {ny}x{nx}, ncat "
         f"{cfg.domain.ncat}, nilyr {cfg.domain.nilyr}, nslyr "
         f"{cfg.domain.nslyr}, ndte {cfg.dynamics.ndte}, advection "
         f"{cfg.transport.advection}, f32, {NSTEPS} steps of {DT:.0f} s")
     model, state, forcing, ridge, _ = drive_path(
-        "main path", cfg, device, NSTEPS, {k: NSTEPS for k in KERNELS},
-        moving=True)
-    launches = read_counts()
+        "main path", cfg, device, NSTEPS,
+        expected(therm_newton=NSTEPS, evp_subcycle=NSTEPS,
+                 remap_gsh=NSTEPS, remap_k12=NSTEPS), moving=True)
+    launches = {"gx1": read_counts()}
     log(f"  ridge iterations per step: {ridge} (cap 20; "
         f"{sum(r == 20 for r in ridge)} steps at the cap)")
 
-    log(f"[5/7 earlier path] gx1 thermodynamics only, f32, {THERMO_STEPS} "
+    log(f"[5/10 earlier path] gx1 thermodynamics only, f32, {THERMO_STEPS} "
         f"steps")
     thermo_run = drive_path(
         "thermo-only path", make_config(THERMO_ONLY), device, THERMO_STEPS,
-        {k: (THERMO_STEPS if k == "therm_newton" else 0) for k in KERNELS},
-        moving=False)
+        expected(therm_newton=THERMO_STEPS), moving=False)
 
-    log("[6/7 small parity] 24x32 f64 main path, card vs CPU, 3 steps")
-    worst = phase_small_parity(device)
-    log(f"  worst difference {worst:.3e} of the field's scale (limit "
-        f"{STEP_RTOL})")
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        bcfg = box_config()
+        log(f"[6/10 box path] IceModelRun, doubly-periodic box "
+            f"{bcfg.domain.ny_global}x{bcfg.domain.nx_global} ("
+            f"{bcfg.grid.dx_rect / 1e3:.0f} km cells from "
+            f"{bcfg.grid.lat_origin}N), EW {bcfg.domain.ew_boundary_type} NS "
+            f"{bcfg.domain.ns_boundary_type}, ndte {bcfg.dynamics.ndte} "
+            f"(undamped, the default), f32, {NSTEPS} steps from day {YDAY0:.0f}, daily "
+            f"history and restart, diagnostics every {NSTEPS} steps")
+        box_run, launches["box"], driver_step_ms = phase_box_driver(
+            device, workdir / "box")
 
-    log(f"[7/7 timing] card: {card}")
-    ms_ev, ms_host, ridge_t = time_main_path(model, state, forcing, 8)
-    log(f"  main path: {ms_ev:.3f} ms/step (CUDA events, 8 steps after "
+        log(f"[7/10 split route] the box, {SPLIT_STEPS} steps with "
+            f"CICE4_FORCE_PALLAS_REMAP=1 (K0 in GA mode, K1, K2)")
+        launches["split"], worst_split = phase_split_route(device)
+        log(f"  split vs default route after {SPLIT_STEPS} steps: worst "
+            f"difference {worst_split:.3e} of the field's scale (limit "
+            f"{SPLIT_RTOL})")
+
+        log(f"[8/10 CLI] python -m cice4_tpu_torch run, the box cut to "
+            f"{BOX_CLI['domain.ny_global']}x{BOX_CLI['domain.nx_global']}, "
+            f"{CLI_STEPS} steps")
+        (workdir / "cli").mkdir()
+        phase_cli(workdir / "cli")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    log("[9/10 small parity] 24x32 f64, card vs CPU, 3 steps")
+    for name, pcfg in (("gx1 main path", make_config(MAIN, **SMALL)),
+                       ("box", box_config(**BOX_SMALL))):
+        worst = phase_small_parity(device, pcfg)
+        log(f"  {name}: worst difference {worst:.3e} of the field's scale "
+            f"(limit {STEP_RTOL})")
+
+    log(f"[10/10 timing] card: {card}")
+    ms_ev, ms_host, ridge_t = time_path(model, state, forcing, 8)
+    log(f"  gx1 main path: {ms_ev:.3f} ms/step (CUDA events, 8 steps after "
         f"{NSTEPS}), {ms_host:.3f} ms/step (host clock), "
         f"{ny * nx / (ms_ev / 1e3):.4g} cell-steps/s; ridge iterations "
         f"{ridge_t}; card: {card}")
-    ms_thermo, _, _ = time_main_path(*thermo_run[:3], 8)
+    ms_thermo, _, _ = time_path(*thermo_run[:3], 8)
     log(f"  earlier path (thermodynamics only), same card: {ms_thermo:.3f} "
         f"ms/step (CUDA events, 8 steps)")
-    prof = phase_device_times(model, state, forcing)
-    if prof is None:
-        log("  profiler: no device time recorded (not measured)")
-    else:
-        by_phase, total, nkinds, top = prof
-        log(f"  profiler, one step: {total:.3f} ms device time in {nkinds} "
-            f"kernel kinds ({100 * total / ms_ev:.1f}% of the step's "
-            f"{ms_ev:.3f} ms); by phase:")
-        for phase, ms in by_phase.items():
-            log(f"    {phase:10s} {ms:9.3f} ms ({100 * ms / total:.1f}%)")
-        log(f"    {'other':10s} {total - sum(by_phase.values()):9.3f} ms")
-        for key, ms, count in top:
-            log(f"    {ms:9.3f} ms  x{count:5d}  {key[:90]}")
+    log_profile("gx1 main path", phase_device_times(model, state, forcing),
+                ms_ev)
 
-    seen = capture_kernel_inputs(model, state, forcing)
+    bmodel, bstate = box_run.model, box_run.state
+    bforce = box_run.forcing_provider
+    bcells = bmodel.grid.ny * bmodel.grid.nx
+    bms_ev, bms_host, bridge = time_path(bmodel, bstate, bforce, 8)
+    log(f"  box path: {bms_ev:.3f} ms/step (CUDA events, 8 steps after "
+        f"{NSTEPS + 1}), {bms_host:.3f} ms/step (host clock), "
+        f"{bcells / (bms_ev / 1e3):.4g} cell-steps/s; ridge iterations "
+        f"{bridge}; the driver's Step timer over its {NSTEPS} steps "
+        f"{driver_step_ms:.3f} ms/step; card: {card}")
+    log_profile("box path", phase_device_times(bmodel, bstate, bforce),
+                bms_ev)
+
+    seen = capture_kernel_inputs(model, state, forcing,
+                                 [k for k, p in PATH_OF.items()
+                                  if p == "gx1"])
+    seen.update(capture_kernel_inputs(bmodel, bstate, bforce,
+                                      ["evp_wholegrid"]))
+    os.environ["CICE4_FORCE_PALLAS_REMAP"] = "1"
+    try:
+        seen.update(capture_kernel_inputs(
+            bmodel, bstate, bforce,
+            ["remap_ga", "remap_construct", "remap_contract"]))
+    finally:
+        del os.environ["CICE4_FORCE_PALLAS_REMAP"]
+
     record = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
-        args = seen[name]
-        kern_fn, plain_fn = kernel_and_plain(name, args)
-        kern, plain = kern_fn(), plain_fn()
-        torch.cuda.synchronize()
-        err = max_abs_err(name, kern, plain)
-        reps_plain = 2 if name == "evp_subcycle" else 3
-        kern_ms, plain_ms = time_pair(kern_fn, plain_fn,
-                                      reps_plain=reps_plain)
-        bound_ms, bound_by, nbytes, ops = bound(name, args, kern)
-        ms = min(k[0] for k in kern_ms)
-        log(f"  {name} at the main path's inputs: kernel device time "
-            f"{kern_ms[0][0]:.4f} / {kern_ms[1][0]:.4f} ms per launch, wall "
-            f"{kern_ms[0][1]:.4f} / {kern_ms[1][1]:.4f} ms per call with "
-            f"the wrapper; plain version {plain_ms[0]:.3f} / "
-            f"{plain_ms[1]:.3f} ms (order plain, kernel, kernel, plain); "
-            f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, "
-            f"{ops / 1e9:.4g} G operations), {100 * bound_ms / ms:.1f}% of "
-            f"it; max |kernel - plain| {err:.3e}; card: {card}")
-        record["kernels"].append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": min(plain_ms),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None})
+        path = PATH_OF[name]
+        err, ms, plain_ms, bound_ms, bound_by = measure_kernel(
+            name, seen[name], card)
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches[path][name],
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": None, "path": path}
+        if name == "remap_gsh":
+            # the same kernel in GA mode, on the split route's inputs
+            ga = measure_kernel("remap_ga", seen["remap_ga"], card)
+            entry.update({"ga_mode_launches": launches["split"]["remap_ga"],
+                          "ga_mode_max_abs_err": ga[0], "ga_mode_ms": ga[1],
+                          "ga_mode_plain_ms": ga[2],
+                          "ga_mode_bound_ms": ga[3],
+                          "ga_mode_bound_by": ga[4]})
+        record["kernels"].append(entry)
     for entry in record["kernels"]:
+        if entry["launches"] < 1:
+            raise AssertionError(f"{entry['name']} never launched on its "
+                                 f"path")
         for v in entry.values():
             if isinstance(v, float) and not math.isfinite(v):
                 raise AssertionError(f"non-finite number in {entry}")

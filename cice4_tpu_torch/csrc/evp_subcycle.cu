@@ -1,9 +1,15 @@
 // evp_subcycle.cu — the EVP subcycle loop (stress relaxation + momentum
 // solve, ndte times) on Hopper.
 //
-// Replaces the TPU kernel cice4_tpu/ops/evp_pallas.py::_kernel_blocked
-// (:210-334; host code _evp_pallas_blocked :374-440).  It computes what the
-// plain version cice4_tpu_torch/ops/evp.py::_evp_subcycle_plain computes:
+// Replaces the TPU kernels cice4_tpu/ops/evp_pallas.py::_kernel_blocked
+// (:210-334; host code _evp_pallas_blocked :374-440), taken on grids that are
+// closed or open north-south, and ::_kernel (:83-144; host code
+// _evp_pallas_wholegrid :443-486), the whole-grid kernel taken on grids that
+// are cyclic north-south.  On the GPU one kernel serves both: the per-cell
+// gating below is exact on any boundary, so the whole-grid kernel is this
+// one with the NS wrap of its neighbour reads (ns_cyclic).  It computes
+// what the plain version cice4_tpu_torch/ops/evp.py::_evp_subcycle_plain
+// computes:
 // per subcycle, the corner strain rates from the old velocities, the
 // relaxation of the 12 corner stresses and the 8 str8 flux pieces
 // (_stress_relax, _str8_from_stress), then the 2x2 implicit momentum solve
@@ -34,8 +40,9 @@
 // masked-zero invariant (stresses zero off icetmask, velocities zero off
 // iceumask, str8 zero-initialised), which the wrapper enforces.
 //
-// Boundaries: EW cyclic wraps, EW and NS open/closed read 0 beyond the edge
-// (evp_pallas.py KernelNbr).  NS cyclic and tripole folds are not handled.
+// Boundaries: EW and NS cyclic wrap (the corner read (j-1, i-1) wraps on both
+// axes), EW and NS open/closed read 0 beyond the edge (evp_pallas.py
+// KernelNbr).  Tripole folds are not handled.
 //
 // What bounds it on an H100: memory traffic and launch count.  A subcycle
 // reads about 38 (ny, nx) planes and writes 22 (counted in PERF.md); at gx1 in
@@ -49,7 +56,8 @@
 // order; the source is built with -fmad=false so that no a*b+c is contracted.
 //
 // C interface: evp_subcycle_f32 / evp_subcycle_f64 take a table of 37
-// pointers, the grid size, the EW boundary, a table of 9 double parameters,
+// pointers, the grid size, the EW and NS boundaries (1 = cyclic), a table of
+// 9 double parameters,
 // ndte, flags (bit 0 evp_damping, bit 1 hemi_turning) and the CUDA stream;
 // they return cudaGetLastError() after the launches.
 
@@ -92,15 +100,19 @@ struct Args {
   T* s12;
   T* str8;
   T* out[9];
-  int ny, nx, ew_cyclic;
+  int ny, nx, ew_cyclic, ns_cyclic;
   T dte2T, denom1, denom2, rcon, ecci, cosw, sinw, dragw, puny;
   bool damping, hemi;
 };
 
-// value of f at (j, i + di) with the EW rule; out of range -> 0
+// value of f at (j, i) with the boundary rules: a cyclic axis wraps, an open
+// or closed one reads 0 beyond its edge
 template <typename T>
 __device__ __forceinline__ T at(const T* f, int j, int i, const Args<T>& a) {
-  if (j < 0 || j >= a.ny) return T(0);
+  if (j < 0 || j >= a.ny) {
+    if (!a.ns_cyclic) return T(0);
+    j = (j + a.ny) % a.ny;
+  }
   if (i < 0 || i >= a.nx) {
     if (!a.ew_cyclic) return T(0);
     i = (i + a.nx) % a.nx;
@@ -311,7 +323,7 @@ __global__ void momentum_pass(Args<T> a) {
 }
 
 template <typename T>
-int run(const int64_t* ptrs, int ny, int nx, int ew_cyclic,
+int run(const int64_t* ptrs, int ny, int nx, int ew_cyclic, int ns_cyclic,
         const double* par, int ndte, int flags, cudaStream_t stream) {
   Args<T> a;
   for (int k = 0; k < 10; ++k) a.geom[k] = reinterpret_cast<const T*>(ptrs[k]);
@@ -329,6 +341,7 @@ int run(const int64_t* ptrs, int ny, int nx, int ew_cyclic,
   a.ny = ny;
   a.nx = nx;
   a.ew_cyclic = ew_cyclic;
+  a.ns_cyclic = ns_cyclic;
   a.dte2T = T(par[0]);
   a.denom1 = T(par[1]);
   a.denom2 = T(par[2]);
@@ -359,14 +372,16 @@ int run(const int64_t* ptrs, int ny, int nx, int ew_cyclic,
 extern "C" {
 
 int evp_subcycle_f32(const int64_t* ptrs, int ny, int nx, int ew_cyclic,
-                     const double* par, int ndte, int flags, void* stream) {
-  return run<float>(ptrs, ny, nx, ew_cyclic, par, ndte, flags,
+                     int ns_cyclic, const double* par, int ndte, int flags,
+                     void* stream) {
+  return run<float>(ptrs, ny, nx, ew_cyclic, ns_cyclic, par, ndte, flags,
                     static_cast<cudaStream_t>(stream));
 }
 
 int evp_subcycle_f64(const int64_t* ptrs, int ny, int nx, int ew_cyclic,
-                     const double* par, int ndte, int flags, void* stream) {
-  return run<double>(ptrs, ny, nx, ew_cyclic, par, ndte, flags,
+                     int ns_cyclic, const double* par, int ndte, int flags,
+                     void* stream) {
+  return run<double>(ptrs, ny, nx, ew_cyclic, ns_cyclic, par, ndte, flags,
                      static_cast<cudaStream_t>(stream));
 }
 

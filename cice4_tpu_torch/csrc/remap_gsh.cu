@@ -2,7 +2,9 @@
 // (the GSH tensor) on Hopper.
 //
 // Replaces the TPU kernel K0, cice4_tpu/ops/remap_pallas.py::_ga_kernel
-// (:70-132; host code ga_gsh_pallas :135-154).  It computes what the plain
+// (:70-132), in both its modes: GSH mode (emit_shifted, host code
+// ga_gsh_pallas :135-154) and GA mode (the K0 of the K0 -> K1 -> K2 route,
+// remap_pallas_divergence :569-576).  In GSH mode it computes what the plain
 // version cice4_tpu_torch/ops/remap_cuda.py::ga_gsh_plain computes: for the
 // east and north edge of every cell, the up-to-6 departure triangles
 // (remap._edge_geometry, free-area mode), the 10 monomial moments of each by
@@ -10,6 +12,8 @@
 // (remap._geom_moments); the +/- scatter of those moment planes to the 9
 // donor offsets (remap._geom_accumulators) and the back-shift of each
 // offset's planes by -offset: GSH (9, 10, ny, nx) in remap.ALL_OFFSETS order.
+// In GA mode (emit_shifted = 0) it skips the back-shift and writes the
+// accumulators GA (9, 10, ny, nx) themselves (remap_cuda.ga_planes_plain).
 //
 // Design.  Two kernels, no atomics:
 //  * edge_moments, one thread per (edge direction, cell): the edge geometry,
@@ -17,7 +21,8 @@
 //    exactly (a later case overwrites an earlier one), the areas, the
 //    flux-cell coordinates, the quadrature, and the moment sums per position,
 //    written to a scratch tensor planes (2, 6, 10, ny, nx);
-//  * gather_gsh, one thread per cell: GSH[off](c) = GA[off](c - off), and
+//  * gather_gsh, one thread per cell: GSH[off](c) = GA[off](c - off) (GA mode:
+//    GA[off](c)), and
 //    GA[off](x) gathers + planes[e][p](x) where SHIFTS[e][p] == off and
 //    - planes[e][p](x + back_e) where SHIFTS[e][p] + back_e == off, in the
 //    (edge, position) order of the plain version.  The TPU's scatter and
@@ -37,8 +42,8 @@
 // in shared memory (a tile plus a one-cell halo) and skip the scratch.
 //
 // C interface: remap_gsh_f32 / remap_gsh_f64 (dx, dy, afac, planes, gsh,
-// codes, ny, nx, ew, ns, order, stream), ew/ns 0 = cyclic, 1 = open or
-// closed; they return cudaGetLastError() after the launches.
+// codes, ny, nx, ew, ns, order, emit_shifted, stream), ew/ns 0 = cyclic,
+// 1 = open or closed; they return cudaGetLastError() after the launches.
 
 #include <cuda_runtime.h>
 
@@ -369,7 +374,7 @@ __global__ void edge_moments(const T* __restrict__ dxp,
 
 template <typename T>
 __global__ void gather_gsh(const T* __restrict__ planes, T* __restrict__ gsh,
-                           Grid2 g) {
+                           Grid2 g, int emit_shifted) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= g.nx || j >= g.ny) return;
@@ -381,7 +386,8 @@ __global__ void gather_gsh(const T* __restrict__ planes, T* __restrict__ gsh,
     T acc[10];
 #pragma unroll
     for (int k = 0; k < 10; ++k) acc[k] = T(0);
-    const int64_t x = g.idx(j - dj, i - di);  // GSH[off](c) = GA[off](c-off)
+    // GSH[off](c) = GA[off](c - off); GA mode reads GA[off](c)
+    const int64_t x = emit_shifted ? g.idx(j - dj, i - di) : c;
     if (x >= 0) {
       const int xj = (int)(x / g.nx), xi = (int)(x % g.nx);
 #pragma unroll
@@ -412,7 +418,7 @@ __global__ void gather_gsh(const T* __restrict__ planes, T* __restrict__ gsh,
 template <typename T>
 int run(const void* dx, const void* dy, const void* afac, void* planes,
         void* gsh, void* codes, int ny, int nx, int ew, int ns, int order,
-        cudaStream_t stream) {
+        int emit_shifted, cudaStream_t stream) {
   const Grid2 g{ny, nx, ew == 0, ns == 0};
   const dim3 block(32, 4);
   const dim3 grid2((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y,
@@ -423,7 +429,8 @@ int run(const void* dx, const void* dy, const void* afac, void* planes,
       static_cast<int*>(codes), g, order);
   const dim3 grid1(grid2.x, grid2.y);
   gather_gsh<T><<<grid1, block, 0, stream>>>(static_cast<const T*>(planes),
-                                             static_cast<T*>(gsh), g);
+                                             static_cast<T*>(gsh), g,
+                                             emit_shifted);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -433,16 +440,16 @@ extern "C" {
 
 int remap_gsh_f32(const void* dx, const void* dy, const void* afac,
                   void* planes, void* gsh, void* codes, int ny, int nx, int ew,
-                  int ns, int order, void* stream) {
+                  int ns, int order, int emit_shifted, void* stream) {
   return run<float>(dx, dy, afac, planes, gsh, codes, ny, nx, ew, ns, order,
-                    static_cast<cudaStream_t>(stream));
+                    emit_shifted, static_cast<cudaStream_t>(stream));
 }
 
 int remap_gsh_f64(const void* dx, const void* dy, const void* afac,
                   void* planes, void* gsh, void* codes, int ny, int nx, int ew,
-                  int ns, int order, void* stream) {
+                  int ns, int order, int emit_shifted, void* stream) {
   return run<double>(dx, dy, afac, planes, gsh, codes, ny, nx, ew, ns, order,
-                     static_cast<cudaStream_t>(stream));
+                     emit_shifted, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -18,14 +18,15 @@
 // (row, cell):
 //  * reconstruct: the 3x3 neighbourhood of mm, hm and the tracers gives the
 //    limited gradients; writes mc, mx, my, tc[T], tx[T], ty[T] to a scratch
-//    tensor recon (C, 3 + 3T, ny, nx);
+//    tensor recon (C, 3 + 3T, ny, nx).  Its device code is
+//    recon::reconstruct_cell (remap_recon.cuh), which the K1 kernel of
+//    remap_k1k2.cu shares;
 //  * contract: for each of the 9 offsets reads GSH and the reconstruction at
 //    c + off and accumulates div and divt in the offset order of the plain
 //    version.  A donor beyond an open or closed edge contributes 0 (the
 //    masked shift); cyclic edges wrap.
 // The tracer table comes as the type-1 count n1 and the parent row of each
-// type-2 tracer.  The guarded divisions (where(q != 0, q, 1)) are kept, so no
-// NaN of a branch not taken reaches a stored value.  The source is built
+// type-2 tracer.  The source is built
 // with -fmad=false, so sums and products round as in eager PyTorch; what
 // differs is only the order of the tracer sums inside each offset term,
 // which is the plain version's order too.
@@ -37,186 +38,51 @@
 // reads GSH once per row.  A fused version would stage a tile plus a 2-cell
 // halo in shared memory and keep the reconstruction there.
 //
-// C interface: remap_k12_f32 / remap_k12_f64 (gsh, hm, mm, tm, recon, div,
-// divt, C, T, n1, ny, nx, ew, ns, parent, stream); ew/ns 0 = cyclic, 1 = open
-// or closed; parent[T] the parent row of each type-2 tracer.  They return
-// cudaGetLastError() after the launches.
+// C interface: remap_k12_f32 / remap_k12_f64 (gsh, hm, mm, tm, scratch,
+// div, divt, C, T, n1, ny, nx, ew, ns, parent, stream); ew/ns 0 = cyclic,
+// 1 = open or closed; parent[T] the parent row of each type-2 tracer.  They
+// return cudaGetLastError() after the launches.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "remap_recon.cuh"
+
 namespace {
 
-constexpr double kPuny = 1.0e-11;
-constexpr int kMaxT = 32;   // tracers (remap_cuda.K12_MAX_T)
-constexpr int kMaxT1 = 8;   // type-1 tracers (remap_cuda.K12_MAX_T1)
-
-// remap.ALL_OFFSETS: (di, dj) for dj in (1, 0, -1) for di in (-1, 0, 1)
-__device__ __forceinline__ int off_of(int o, int d) {
-  constexpr int f[9][2] = {{-1, 1}, {0, 1}, {1, 1}, {-1, 0}, {0, 0},
-                           {1, 0}, {-1, -1}, {0, -1}, {1, -1}};
-  return f[o][d];
-}
-// the neighbour order of _grad_stream: AXES (E, W, N, S), then DIAGS
-__device__ __forceinline__ int nb_of(int n, int d) {
-  constexpr int f[8][2] = {{1, 0}, {-1, 0}, {0, 1}, {0, -1},
-                           {1, 1}, {-1, 1}, {1, -1}, {-1, -1}};
-  return f[n][d];
-}
-
-struct Args {
-  int C, T, n1, ny, nx, ew_cyclic, ns_cyclic;
-  int parent[kMaxT];
-  __device__ __forceinline__ int64_t idx(int j, int i) const {
-    if (i < 0 || i >= nx) {
-      if (!ew_cyclic) return -1;
-      i = (i + nx) % nx;
-    }
-    if (j < 0 || j >= ny) {
-      if (!ns_cyclic) return -1;
-      j = (j + ny) % ny;
-    }
-    return (int64_t)j * nx + i;
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ T ld(const T* f, int64_t k) {
-  return k < 0 ? T(0) : f[k];
-}
-
-// _grad_stream: the limited gradient (gx, gy) of phi about (cnx, cny), from
-// the neighbour values sv[8] and masks sm[8] in AXES + DIAGS order
-template <typename T>
-__device__ __forceinline__ void grad(T phi, T phimask, T cnx, T cny,
-                                     const T* sv, const T* sm, T& ox, T& oy) {
-  T nb[8];
-#pragma unroll
-  for (int n = 0; n < 8; ++n) nb[n] = sm[n] * sv[n] + (T(1) - sm[n]) * phi;
-  const T gx = T(0.5) * (nb[0] - nb[1]);
-  const T gy = T(0.5) * (nb[2] - nb[3]);
-  T pmn = fmin(fmin(nb[0], nb[1]), fmin(nb[2], nb[3]));
-  T pmx = fmax(fmax(nb[0], nb[1]), fmax(nb[2], nb[3]));
-  pmn = fmin(pmn, phi);
-  pmx = fmax(pmx, phi);
-#pragma unroll
-  for (int n = 4; n < 8; ++n) {
-    pmn = fmin(pmn, nb[n]);
-    pmx = fmax(pmx, nb[n]);
-  }
-  pmn = pmn - phi;
-  pmx = pmx - phi;
-
-  const T w1 = (T(0.5) - cnx) * gx + (T(0.5) - cny) * gy;
-  const T w2 = (T(0.5) - cnx) * gx - (T(0.5) + cny) * gy;
-  const T w3 = -(T(0.5) + cnx) * gx - (T(0.5) + cny) * gy;
-  const T w4 = (T(0.5) - cny) * gy - (T(0.5) + cnx) * gx;
-  const T qmn = fmin(fmin(w1, w2), fmin(w3, w4));
-  const T qmx = fmax(fmax(w1, w2), fmax(w3, w4));
-  const T wa = (fabs(qmn) > T(0))
-                   ? fmax(pmn / ((qmn != T(0)) ? qmn : T(1)), T(0)) : T(1);
-  const T wb = (fabs(qmx) > T(0))
-                   ? fmax(pmx / ((qmx != T(0)) ? qmx : T(1)), T(0)) : T(1);
-  const T lim = fmin(fmin(wa, wb), T(1)) * phimask;
-  ox = lim * gx;
-  oy = lim * gy;
-}
+using recon::Args;
+using recon::kMaxT;
+using recon::kMaxT1;
+using recon::off_of;
 
 template <typename T>
 __global__ void reconstruct(const T* __restrict__ hm, const T* __restrict__ mm,
-                            const T* __restrict__ tm, T* __restrict__ recon,
+                            const T* __restrict__ tm, T* __restrict__ rec,
                             Args a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   const int r = blockIdx.z;
   if (i >= a.nx || j >= a.ny) return;
-  const int64_t c = (int64_t)j * a.nx + i;
   const int64_t np = (int64_t)a.ny * a.nx;
-  const T puny = T(kPuny);
-  const T* m = mm + r * np;
-  T* out = recon + (int64_t)r * (3 + 3 * a.T) * np;
-
-  int64_t nbi[8];
-#pragma unroll
-  for (int n = 0; n < 8; ++n) nbi[n] = a.idx(j + nb_of(n, 1), i + nb_of(n, 0));
-
-  // mass
-  const T mc = m[c];
-  T msv[8], hsv[8], mmask_sh[8];
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    msv[n] = ld(m, nbi[n]);
-    hsv[n] = ld(hm, nbi[n]);
-    mmask_sh[n] = (msv[n] > puny) ? T(1) : T(0);
-  }
-  T mx, my;
-  grad(mc, hm[c], T(0), T(0), msv, hsv, mx, my);
-  out[c] = mc;
-  out[np + c] = mx;
-  out[2 * np + c] = my;
-  if (r == 0 || a.T == 0) return;  // open water: mass only
-
-  const T mmask = (mc > puny) ? T(1) : T(0);
-  const T safe_mm = fmax(mc, puny);
-  const T mxav = (mmask > T(0)) ? mx / (T(12.0) * safe_mm) : T(0);
-  const T myav = (mmask > T(0)) ? my / (T(12.0) * safe_mm) : T(0);
-
-  const T* t0 = tm + (int64_t)r * a.T * np;
-  T* oc = out + 3 * np;
-  T* ox = oc + a.T * np;
-  T* oy = ox + a.T * np;
-  T mtxav1[kMaxT1], mtyav1[kMaxT1], tmask1[kMaxT1];
-  T sv[8];
-  for (int t = 0; t < a.n1; ++t) {
-    const T* f = t0 + t * np;
-    const T phi = f[c];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) sv[n] = ld(f, nbi[n]);
-    T tx, ty;
-    grad(phi, mmask, mxav, myav, sv, mmask_sh, tx, ty);
-    const T tc = phi - tx * mxav - ty * myav;
-    oc[t * np + c] = tc;
-    ox[t * np + c] = tx;
-    oy[t * np + c] = ty;
-    const T w2 = mc * tx + mx * tc;
-    const T w3 = mc * ty + my * tc;
-    const T denom = mc * phi;
-    const bool good = (mmask > T(0)) && (fabs(phi) > puny);
-    const T sd = (fabs(denom) > puny) ? denom : T(1);
-    mtxav1[t] = good ? w2 / (T(12.0) * sd) : T(0);
-    mtyav1[t] = good ? w3 / (T(12.0) * sd) : T(0);
-    tmask1[t] = ((fabs(phi) > T(0)) ? T(1) : T(0)) * mmask;
-  }
-  T smk[8];
-  for (int t = a.n1; t < a.T; ++t) {
-    const int p = a.parent[t];
-    const T* f = t0 + t * np;
-    const T* fp = t0 + p * np;
-    const T phi = f[c];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      sv[n] = ld(f, nbi[n]);
-      smk[n] = ((fabs(ld(fp, nbi[n])) > T(0)) ? T(1) : T(0)) * mmask_sh[n];
-    }
-    T tx, ty;
-    grad(phi, tmask1[p], mtxav1[p], mtyav1[p], sv, smk, tx, ty);
-    oc[t * np + c] = phi - tx * mtxav1[p] - ty * mtyav1[p];
-    ox[t * np + c] = tx;
-    oy[t * np + c] = ty;
-  }
+  // scratch layout per row: mc, mx, my, tc[T], tx[T], ty[T]
+  T* out = rec + (int64_t)r * (3 + 3 * a.T) * np;
+  // open water (row 0) is mass only
+  recon::reconstruct_cell(hm, mm + r * np, tm + (int64_t)r * a.T * np, out,
+                          out + 3 * np, 1, a.T, r > 0, j, i, a);
 }
 
 template <typename T>
-__global__ void contract(const T* __restrict__ gsh, const T* __restrict__ recon,
-                         T* __restrict__ div, T* __restrict__ divt, Args a) {
+__global__ void contract(const T* __restrict__ gsh,
+                         const T* __restrict__ scratch, T* __restrict__ div,
+                         T* __restrict__ divt, Args a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   const int r = blockIdx.z;
   if (i >= a.nx || j >= a.ny) return;
   const int64_t c = (int64_t)j * a.nx + i;
   const int64_t np = (int64_t)a.ny * a.nx;
-  const T* rec = recon + (int64_t)r * (3 + 3 * a.T) * np;
+  const T* rec = scratch + (int64_t)r * (3 + 3 * a.T) * np;
   const T* rc = rec + 3 * np;
   const T* rx = rc + a.T * np;
   const T* ry = rx + a.T * np;
@@ -270,22 +136,17 @@ __global__ void contract(const T* __restrict__ gsh, const T* __restrict__ recon,
 
 template <typename T>
 int run(const void* gsh, const void* hm, const void* mm, const void* tm,
-        void* recon, void* div, void* divt, int C, int Tn, int n1, int ny,
+        void* scratch, void* div, void* divt, int C, int Tn, int n1, int ny,
         int nx, int ew, int ns, const int* parent, cudaStream_t stream) {
   if (Tn > kMaxT || n1 > kMaxT1 || n1 > Tn) return -1;
-  Args a;
-  a.C = C; a.T = Tn; a.n1 = n1; a.ny = ny; a.nx = nx;
-  a.ew_cyclic = ew == 0;
-  a.ns_cyclic = ns == 0;
-  for (int t = 0; t < kMaxT; ++t) a.parent[t] = t < Tn ? parent[t] : 0;
+  const Args a = recon::make_args(C, Tn, n1, ny, nx, ew, ns, parent);
   const dim3 block(32, 4);
-  const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y,
-                  C);
+  const dim3 grid = recon::grid_of(ny, nx, C, block);
   reconstruct<T><<<grid, block, 0, stream>>>(
       static_cast<const T*>(hm), static_cast<const T*>(mm),
-      static_cast<const T*>(tm), static_cast<T*>(recon), a);
+      static_cast<const T*>(tm), static_cast<T*>(scratch), a);
   contract<T><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(gsh), static_cast<const T*>(recon),
+      static_cast<const T*>(gsh), static_cast<const T*>(scratch),
       static_cast<T*>(div), static_cast<T*>(divt), a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -295,18 +156,18 @@ int run(const void* gsh, const void* hm, const void* mm, const void* tm,
 extern "C" {
 
 int remap_k12_f32(const void* gsh, const void* hm, const void* mm,
-                  const void* tm, void* recon, void* div, void* divt, int C,
+                  const void* tm, void* scratch, void* div, void* divt, int C,
                   int T, int n1, int ny, int nx, int ew, int ns,
                   const int* parent, void* stream) {
-  return run<float>(gsh, hm, mm, tm, recon, div, divt, C, T, n1, ny, nx, ew,
+  return run<float>(gsh, hm, mm, tm, scratch, div, divt, C, T, n1, ny, nx, ew,
                     ns, parent, static_cast<cudaStream_t>(stream));
 }
 
 int remap_k12_f64(const void* gsh, const void* hm, const void* mm,
-                  const void* tm, void* recon, void* div, void* divt, int C,
+                  const void* tm, void* scratch, void* div, void* divt, int C,
                   int T, int n1, int ny, int nx, int ew, int ns,
                   const int* parent, void* stream) {
-  return run<double>(gsh, hm, mm, tm, recon, div, divt, C, T, n1, ny, nx, ew,
+  return run<double>(gsh, hm, mm, tm, scratch, div, divt, C, T, n1, ny, nx, ew,
                      ns, parent, static_cast<cudaStream_t>(stream));
 }
 

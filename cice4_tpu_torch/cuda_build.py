@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one CUDA C++ source under ``csrc/`` with a plain C
-interface.  At first use in a process, :func:`load` compiles it with
-``nvcc`` for Hopper (``sm_90a``) into a shared library under the
+Each kernel library is one CUDA C++ source under ``csrc/`` with a plain
+C interface (headers ``csrc/*.cuh`` are shared between sources).  At
+first use in a process, :func:`load` compiles it with ``nvcc`` for Hopper (``sm_90a``) into a shared library under the
 checkout's ``build/`` directory and loads it with ``ctypes``.  The
 library's file name carries a hash of the sources and flags, so a
 changed source is rebuilt and an unchanged one is reused.
@@ -29,7 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # eager PyTorch does not do (it could flip the remap geometry's case tests)
 EXTRA_FLAGS = {"evp_subcycle": ("-fmad=false",),
                "remap_gsh": ("-fmad=false",),
-               "remap_k12": ("-fmad=false",)}
+               "remap_k12": ("-fmad=false",),
+               "remap_k1k2": ("-fmad=false",)}
 NVCC_TIMEOUT_S = 600
 
 

@@ -316,3 +316,77 @@ def to_tgrid(grid: Grid, f):
     w = f * grid.uarea
     num = (w + h.nbr_w(w, bc) + h.nbr_s(w, bc) + h.nbr_sw(w, bc))
     return 0.25 * num * grid.tarear
+
+
+def gridbox_corners(grid: Grid) -> dict:
+    """Approximate cell-corner coordinates for history metadata
+    (``ice_grid.F90 gridbox_verts:2128-2246`` for T cells from the U
+    coordinates, ``gridbox_corners:1948-2122`` for U cells from the T
+    coordinates; both use linear extrapolation at the open edges, so
+    the fields are approximate by design).  Port of
+    :func:`cice4_tpu.grid.gridbox_corners`.
+
+    Returns numpy arrays (host-side metadata): lont_bounds/latt_bounds/
+    lonu_bounds/latu_bounds, each (4, ny, nx) in degrees, corner order
+    SW, SE, NE, NW; longitudes normalized to [0, 360).
+    """
+    def shift_sw(a):                       # value at (j-1, i-1)
+        v = np.empty_like(a)
+        v[1:, 1:] = a[:-1, :-1]
+        v[0, :] = 2.0 * v[1, :] - v[2, :]  # extrapolate row 0
+        v[:, 0] = 2.0 * v[:, 1] - v[:, 2]  # extrapolate col 0
+        return v
+
+    def shift_s(a):                        # value at (j-1, i)
+        v = np.empty_like(a)
+        v[1:, :] = a[:-1, :]
+        v[0, :] = 2.0 * v[1, :] - v[2, :]
+        return v
+
+    def shift_w(a):                        # value at (j, i-1)
+        v = np.empty_like(a)
+        v[:, 1:] = a[:, :-1]
+        v[:, 0] = 2.0 * v[:, 1] - v[:, 2]
+        return v
+
+    def shift_ne(a):                       # value at (j+1, i+1)
+        v = np.empty_like(a)
+        v[:-1, :-1] = a[1:, 1:]
+        v[-1, :] = 2.0 * v[-2, :] - v[-3, :]
+        v[:, -1] = 2.0 * v[:, -2] - v[:, -3]
+        return v
+
+    def shift_n(a):                        # value at (j+1, i)
+        v = np.empty_like(a)
+        v[:-1, :] = a[1:, :]
+        v[-1, :] = 2.0 * v[-2, :] - v[-3, :]
+        return v
+
+    def shift_e(a):                        # value at (j, i+1)
+        v = np.empty_like(a)
+        v[:, :-1] = a[:, 1:]
+        v[:, -1] = 2.0 * v[:, -2] - v[:, -3]
+        return v
+
+    def lon_deg(a):
+        return np.mod(np.rad2deg(a) + 360.0, 360.0)
+
+    def host(t):
+        return t.detach().cpu().numpy().astype(np.float64)
+
+    out = {}
+    # T-cell corners are the surrounding U (NE-corner) points
+    for name, fld, to_deg in (("lont_bounds", grid.ulon, lon_deg),
+                              ("latt_bounds", grid.ulat, np.rad2deg)):
+        a = host(fld)
+        sw, se = shift_sw(a), shift_s(a)
+        ne, nw = a.copy(), shift_w(a)
+        out[name] = to_deg(np.stack([sw, se, ne, nw]))
+    # U-cell corners are the surrounding T points
+    for name, fld, to_deg in (("lonu_bounds", grid.tlon, lon_deg),
+                              ("latu_bounds", grid.tlat, np.rad2deg)):
+        a = host(fld)
+        sw, se = a.copy(), shift_e(a)
+        ne, nw = shift_ne(a), shift_n(a)
+        out[name] = to_deg(np.stack([sw, se, ne, nw]))
+    return out

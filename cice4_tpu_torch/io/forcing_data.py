@@ -1,14 +1,20 @@
 """Forcing producers.
 
 Port of the analytic part of :mod:`cice4_tpu.io.forcing_data`: the fixed
-shortwave band split and :class:`AnalyticForcing`, the idealized
-forcing the benchmark and the smoke run use.  The file-based datasets
-(NCAR, LYq, ECMWF, monthly) wait for ROADMAP queue 1 item 5.
+shortwave band split, :class:`AnalyticForcing`, the idealized forcing the
+benchmark and the smoke run use, and :func:`make_forcing_provider`, the
+driver's factory.  The readers of the file-based datasets (NCAR, LYq,
+ECMWF, monthly, HadGEM, RCT and the ocean climatology) wait for their
+files to be in the repository (ROADMAP queue 1 item 5): as in the JAX
+package, a dataset without its files falls back to the analytic forcing,
+and one whose data directory exists raises ``NotImplementedError``
+rather than run on the analytic forcing without a word.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -44,7 +50,11 @@ class AnalyticForcing:
         self.lon = grid.tlon.to(device=device, dtype=dtype)
         self.ulat = grid.ulat.to(device=device, dtype=dtype)
 
-    def __call__(self, yday: float, sec: float = 0.0) -> Forcing:
+    def ocean_update(self, state, cal, dt):
+        return state
+
+    def __call__(self, yday: float, sec: float = 0.0, cal=None,
+                 state=None) -> Forcing:
         lat = self.lat
         dtype = self.dtype
         # season phase: NH summer solstice ~ day 172
@@ -90,3 +100,35 @@ class AnalyticForcing:
             sss=z + 34.0, uocn=z, vocn=z, ss_tltx=z, ss_tlty=z,
             qdp=z, hmix=z + 20.0,
         )
+
+
+# ---------------------------------------------------------------------------
+# provider factory
+# ---------------------------------------------------------------------------
+
+# the file-based datasets of the JAX package (its LAYOUT tables,
+# ``cice4_tpu/io/forcing_data.py:520-705``, come with the readers)
+FILE_DATASETS = ("ncar", "bin", "LYq", "monthly", "ecmwf", "hadgem", "rct")
+
+
+def make_forcing_provider(cfg: Config, grid: Grid, *, device,
+                          dtype=torch.float32):
+    """The forcing provider of a run (``cice4_tpu/io/forcing_data.py:
+    886-896``): the analytic forcing for ``atm_data_type="analytic"`` and
+    for a file dataset without a data directory, as the JAX package falls
+    back when its files are absent.  A file dataset whose directory
+    exists, or an ocean climatology whose directory exists, raises: their
+    readers are not ported yet."""
+    fc = cfg.forcing
+    if fc.atm_data_type in FILE_DATASETS and fc.atm_data_dir and \
+            os.path.isdir(fc.atm_data_dir):
+        raise NotImplementedError(
+            f"the {fc.atm_data_type!r} forcing directory "
+            f"{fc.atm_data_dir!r} exists, but its reader is not ported yet "
+            "(ROADMAP queue 1 item 5)")
+    if "clim" in (fc.sss_data_type, fc.sst_data_type) and \
+            fc.ocn_data_dir and os.path.isdir(fc.ocn_data_dir):
+        raise NotImplementedError(
+            f"the ocean climatology directory {fc.ocn_data_dir!r} exists, "
+            "but its reader is not ported yet (ROADMAP queue 1 item 5)")
+    return AnalyticForcing(cfg, grid, device=device, dtype=dtype)

@@ -1,7 +1,7 @@
 """Seeded inputs and the kernel-versus-plain comparisons of the port's
 CUDA kernels, shared by ``chip_smoke.py`` and the GPU tests: the Newton
-temperature solve first, the dynamics kernels (EVP, remap GSH and K12)
-at the end of the module.
+temperature solve first, the dynamics kernels (EVP, remap K0 in both
+modes, K12, K1 and K2) at the end of the module.
 
 The inputs follow the JAX package's own kernel test
 (``tests/test_thermo.py::test_pallas_thermo_matches_jnp``): ice only in
@@ -120,7 +120,8 @@ def compare(kern: dict, plain: dict, has_ice, dtype) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the dynamics kernels: evp_subcycle, remap_gsh (ga_gsh), remap_k12
+# the dynamics kernels: evp_subcycle, remap_gsh (ga_gsh, ga_planes),
+# remap_k12, remap_construct and remap_contract
 # ---------------------------------------------------------------------------
 #
 # Tolerances, fixed before the first run on the card.  The three kernels are
@@ -139,11 +140,28 @@ def compare(kern: dict, plain: dict, has_ice, dtype) -> dict:
 #   90 planes at 25 cells per flipped edge) may exceed the tolerance.
 # * K12: same operations in the same order on the same GSH:
 #   rtol 1e-5 (f32) / 1e-12 (f64).
+#
+# Fixed before the first run on the card of the kernels of the split route
+# and of the NS-cyclic EVP:
+#
+# * EVP on an NS-cyclic grid: the same kernel with the NS wrap of its
+#   neighbour reads, the same reasons: EVP_RTOL.
+# * K0 in GA mode: the same geometry and sums as GSH mode without the
+#   back-shift, the same reasons: GSH_RTOL and GSH_MAX_FLIP_SHARE, with the
+#   same allowance of GA values near an edge whose case differs.
+# * K1 (`construct`): the reconstruction device code K12 runs, the same
+#   operations in the same order as `construct_plain`: rtol 1e-5 (f32) /
+#   1e-12 (f64).
+# * K2 (`contract`): the plain version's operations in its order, with the
+#   9 offsets summed in `remap.ALL_OFFSETS` order: rtol 1e-5 (f32) / 1e-12
+#   (f64).
 
 EVP_RTOL = {torch.float32: 1.0e-4, torch.float64: 1.0e-10}
 GSH_RTOL = {torch.float32: 1.0e-5, torch.float64: 1.0e-12}
 GSH_MAX_FLIP_SHARE = {torch.float32: 1.0e-3, torch.float64: 1.0e-4}
 K12_RTOL = {torch.float32: 1.0e-5, torch.float64: 1.0e-12}
+K1_RTOL = {torch.float32: 1.0e-5, torch.float64: 1.0e-12}
+K2_RTOL = {torch.float32: 1.0e-5, torch.float64: 1.0e-12}
 
 
 def compare_fields(kern: dict, plain: dict, rtol: float) -> dict:

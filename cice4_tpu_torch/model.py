@@ -41,10 +41,6 @@ from cice4_tpu_torch.state import State, freezing_temperature, make_itd_params
 def _check_supported(cfg: Config):
     if cfg.dynamics.kdyn not in (0, 1):
         raise ValueError(f"unknown kdyn {cfg.dynamics.kdyn}")
-    if cfg.dynamics.kdyn == 1 and cfg.domain.ns_boundary_type == "cyclic":
-        raise NotImplementedError(
-            "EVP on an NS-cyclic grid is not ported yet (ROADMAP queue 2 "
-            "item 7)")
     tr = cfg.transport
     if tr.advection == "upwind":
         raise NotImplementedError(

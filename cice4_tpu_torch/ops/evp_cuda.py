@@ -1,7 +1,8 @@
 """The EVP subcycle kernel and its wrapper.
 
 ``evp_subcycle`` (kernel ``csrc/evp_subcycle.cu``, replaces the TPU
-kernel ``cice4_tpu/ops/evp_pallas.py::_kernel_blocked``) runs all ndte
+kernels ``cice4_tpu/ops/evp_pallas.py::_kernel_blocked`` and, on grids
+that are cyclic north-south, the whole-grid ``_kernel``) runs all ndte
 subcycles of the stress relaxation and the momentum solve on the card:
 one C call makes 2*ndte launches on PyTorch's current stream.  It
 computes what the plain version :func:`_evp_subcycle_plain` computes:
@@ -10,14 +11,15 @@ north-to-south block order also realises.
 
 For CUDA tensors the wrapper launches the kernel (or raises); for CPU
 tensors it runs the plain version.  ``evp_subcycle.launches`` counts the
-wrapper's kernel calls (one per dynamics step).  The kernel works on
+wrapper's kernel calls (one per dynamics step), and
+``evp_subcycle.ns_cyclic_launches`` those on an NS-cyclic grid, the
+whole-grid TPU kernel's counterpart.  The kernel works on
 new tensors made from uvel, vvel and the stresses, with velocities set
 to zero off iceumask and stresses off icetmask (the masked-zero
 invariant its activity gating relies on; `evp` always satisfies it), so
-the caller's tensors are never written.  Boundaries: EW cyclic, open or
-closed; NS open or closed.  NS cyclic grids are the TPU's whole-grid
-kernel ``_kernel`` (ROADMAP queue 2 item 7) and tripole folds (item 5)
-raise ``NotImplementedError``.
+the caller's tensors are never written.  Boundaries: cyclic, open or
+closed on both axes; tripole folds (ROADMAP queue 2 item 5) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ def _evp_fn(dtype):
     fn = lib.evp_subcycle_f32 if dtype == torch.float32 \
         else lib.evp_subcycle_f64
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -57,12 +59,8 @@ def _evp_subcycle_cuda(p: EvpParams, grid, strength, icetmask, iceumask,
         raise NotImplementedError(
             "evp_subcycle on a tripole grid is not ported yet (ROADMAP "
             "queue 2 item 5)")
-    if bc.ns == "cyclic":
-        raise NotImplementedError(
-            "evp_subcycle on an NS-cyclic grid (the TPU's whole-grid "
-            "kernel) is not ported yet (ROADMAP queue 2 item 7)")
-    if bc.ns not in ("open", "closed") or bc.ew not in ("cyclic", "open",
-                                                        "closed"):
+    edges = ("cyclic", "open", "closed")
+    if bc.ns not in edges or bc.ew not in edges:
         raise ValueError(f"unknown boundary conditions {bc}")
     dtype, device = uvel.dtype, uvel.device
     if dtype not in (torch.float32, torch.float64):
@@ -107,10 +105,13 @@ def _evp_subcycle_cuda(p: EvpParams, grid, strength, icetmask, iceumask,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(ctypes.addressof(ptr_arr), ny, nx, int(bc.ew == "cyclic"),
-                ctypes.addressof(par_arr), p.ndte, flags, stream)
+                int(bc.ns == "cyclic"), ctypes.addressof(par_arr), p.ndte,
+                flags, stream)
     if rc != 0:
         raise RuntimeError(f"evp_subcycle launch failed: cudaError {rc}")
     evp_subcycle.launches += 1
+    if bc.ns == "cyclic":
+        evp_subcycle.ns_cyclic_launches += 1
     o = dict(zip(_OUT, outs))
     diag = {k: o[k] for k in ("div_sum", "delta_sum", "ten_sum", "shr_sum",
                               "prs_sig")}
@@ -137,3 +138,4 @@ def evp_subcycle(p: EvpParams, grid, strength, icetmask, iceumask, aiu,
 
 
 evp_subcycle.launches = 0
+evp_subcycle.ns_cyclic_launches = 0

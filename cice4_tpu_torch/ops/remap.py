@@ -16,17 +16,27 @@ the flux divergences (`remap_cuda._construct_vmem` +
 `_flux_divergence_ga`): kernel ``remap_k12`` on the card
 (:func:`cice4_tpu_torch.ops.remap_cuda.k12_divergence`).
 
+The split route (``split_kernels=True``, or ``CICE4_FORCE_PALLAS_REMAP``
+set on a CUDA device; the JAX package's ``use_pallas`` route
+``remap_pallas.remap_pallas_divergence``) computes the same divergences
+in three kernels: the GA accumulators without the back-shift (K0 in GA
+mode, `remap_cuda.ga_planes`), the reconstruction of every row (K1,
+`remap_cuda.construct`) and the scatter-form contraction (K2,
+`remap_cuda.contract`).  The two routes agree to roundoff.
+
 As in the reference, all local geometry is computed on the *scaled*
 grid (cell = unit square); physical areas enter only through the corner
 area factors dxu*dyu and the final 1/tarea.
 
 Not ported (ROADMAP queue 1 item 4): the departure-point midpoint
 correction (``l_dp_midpt``), the fixed-area mode (``l_fixed_area``), the
-conservation and monotonicity checks, the legacy non-GA path and the
-K1/K2 path; each raises ``NotImplementedError``.
+conservation and monotonicity checks and the legacy non-GA path; each
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -465,18 +475,32 @@ def _update_category(mm, tm, div, divt, tmask_land, tarear, meta):
     return mm_new, tm_new, (mm_mid, mt)
 
 
+def use_split_kernels(device) -> bool:
+    """Whether `transport_remap` takes the split route by default: on a
+    CUDA device when ``CICE4_FORCE_PALLAS_REMAP`` is set, as the JAX
+    package takes its K0 -> K1 -> K2 route on its accelerator
+    (``cice4_tpu/ops/remap.py:992-1018``)."""
+    return (torch.device(device).type == "cuda"
+            and bool(os.environ.get("CICE4_FORCE_PALLAS_REMAP")))
+
+
 def transport_remap(state: State, grid: Grid, dt,
                     integral_order: int = 2, dp_midpt: bool = False,
                     fixed_area: bool = False,
                     conservation_check: bool = False,
-                    monotonicity_check: bool = False):
+                    monotonicity_check: bool = False,
+                    split_kernels: bool | None = None):
     """Incremental-remapping advection of the ice state (the GA branch
     of ``cice4_tpu.ops.remap.transport_remap``).
+
+    `split_kernels` selects the route of the divergences: True the split
+    route (K0 in GA mode, K1, K2), False the K0/K12 route, None the split
+    route only where :func:`use_split_kernels` says so.
 
     Returns (state, aice0): the advected open-water fraction feeds the
     ridging opening/closing rates.
     """
-    from cice4_tpu_torch.ops.remap_cuda import ga_gsh, k12_divergence
+    from cice4_tpu_torch.ops import remap_cuda
 
     for flag, name in ((dp_midpt, "l_dp_midpt"), (fixed_area, "l_fixed_area"),
                        (conservation_check, "conservation_check"),
@@ -516,14 +540,24 @@ def transport_remap(state: State, grid: Grid, dt,
     tm = torch.stack([src[name] for (name, _t, _p) in meta],
                      dim=1)               # (ncat, T, ny, nx)
 
-    # K0: category-independent back-shifted geometry accumulators; K12:
-    # reconstruction + contraction of open water (row 0, mass only) and
-    # every category
-    gsh = ga_gsh(dx, dy, afac, bc, integral_order)
+    # open water rides as an extra mass-only category (row 0)
     mm_ext = torch.cat([aice0[None], state.aicen], dim=0)
     tm_ext = torch.cat([torch.zeros_like(tm[:1]), tm], dim=0)
-    div_ext, divt_ext = k12_divergence(gsh, grid.hm, mm_ext, tm_ext, meta,
-                                       bc)
+    if split_kernels is None:
+        split_kernels = use_split_kernels(dx.device)
+    if split_kernels:
+        # K0 in GA mode, K1 (reconstruction of every row), the parents'
+        # reconstructions gathered once, K2 (scatter-form contraction)
+        ga = remap_cuda.ga_planes(dx, dy, afac, bc, integral_order)
+        mass, trc = remap_cuda.construct(grid.hm, mm_ext, tm_ext, meta, bc)
+        par = remap_cuda.gather_parents(trc, meta)
+        div_ext, divt_ext = remap_cuda.contract(ga, mass, trc, par, meta, bc)
+    else:
+        # K0: category-independent back-shifted geometry accumulators;
+        # K12: reconstruction + contraction of every row
+        gsh = remap_cuda.ga_gsh(dx, dy, afac, bc, integral_order)
+        div_ext, divt_ext = remap_cuda.k12_divergence(gsh, grid.hm, mm_ext,
+                                                      tm_ext, meta, bc)
     mm_new, tm_new, _mid = _update_category(
         state.aicen, tm, div_ext[1:], divt_ext[1:], grid.tmask,
         grid.tarear, meta)

@@ -1,18 +1,36 @@
-"""The two remap kernels and their plain versions.
+"""The remap kernels and their plain versions.
+
+The default route (K0 in GSH mode, then K12):
 
 * ``ga_gsh`` (kernel ``csrc/remap_gsh.cu``, replaces the TPU kernel K0,
-  ``cice4_tpu/ops/remap_pallas.py::_ga_kernel``): departure-triangle
-  geometry of every east and north edge, the 10 monomial moments of each
-  triangle by quadrature, the +/- scatter to the 9 donor offsets and the
-  back-shift by -offset: GSH (9, 10, ny, nx) in `remap.ALL_OFFSETS`
-  order.  Plain version :func:`ga_gsh_plain` (`remap._geom_accumulators`
-  plus the back-shift).
+  ``cice4_tpu/ops/remap_pallas.py::_ga_kernel``, in its GSH mode):
+  departure-triangle geometry of every east and north edge, the 10
+  monomial moments of each triangle by quadrature, the +/- scatter to the
+  9 donor offsets and the back-shift by -offset: GSH (9, 10, ny, nx) in
+  `remap.ALL_OFFSETS` order.  Plain version :func:`ga_gsh_plain`
+  (`remap._geom_accumulators` plus the back-shift).
 * ``k12_divergence`` (kernel ``csrc/remap_k12.cu``, replaces K12,
   ``remap_pallas.py::_k12_kernel``): van-Leer-limited reconstruction of
   mass and tracers (:func:`_construct_vmem`) contracted against GSH into
   the flux divergences of all ncat+1 category rows (row 0 is open water,
   mass only).  Plain version :func:`k12_plain` (`_construct_vmem` plus
   `remap._flux_divergence_ga`).
+
+The split route (K0 in GA mode, then K1 and K2; the JAX package's
+``remap_pallas_divergence``):
+
+* ``ga_planes`` (kernel ``csrc/remap_gsh.cu`` with ``emit_shifted=0``,
+  replaces K0 in its GA mode): the accumulators GA (9, 10, ny, nx)
+  without the back-shift.  Plain version :func:`ga_planes_plain`
+  (`remap._geom_accumulators`).
+* ``construct`` (kernel ``csrc/remap_k1k2.cu`` ``remap_construct``,
+  replaces K1, ``remap_pallas.py::_construct_kernel``): the
+  reconstruction of every row, mass (C, 3, ny, nx) and trc (C, T, 3, ny,
+  nx).  Plain version :func:`construct_plain`.
+* ``contract`` (kernel ``csrc/remap_k1k2.cu`` ``remap_contract``,
+  replaces K2, ``remap_pallas.py::_contract_kernel``): the scatter-form
+  contraction against GA with the gathered parent reconstructions.
+  Plain version :func:`contract_plain`.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 the plain version for CPU tensors; ``<wrapper>.launches`` counts its
@@ -184,6 +202,97 @@ def k12_plain(gsh, hm, mm_ext, tm_ext, meta, bc):
     return _flux_divergence_ga(GSH, mc, mx, my, tc, tx, ty, meta, sh)
 
 
+def ga_planes_plain(dx, dy, afac, bc, order=2):
+    """GA (9, 10, ny, nx): `remap._geom_accumulators` stacked in
+    `remap.ALL_OFFSETS` order, without the back-shift (what K0 writes in
+    its GA mode)."""
+    GA = _geom_accumulators(afac, dx, dy, order, Nbr(bc))
+    zero = torch.zeros_like(afac)
+    return torch.stack([torch.stack([GA[off][k] + zero for k in range(10)])
+                        for off in ALL_OFFSETS])
+
+
+def construct_plain(hm, mm_ext, tm_ext, meta, bc):
+    """(mass (C, 3, ny, nx), trc (C, T, 3, ny, nx)): the reconstruction
+    (mc, mx, my) and per tracer (tc, tx, ty) of every row, row 0
+    included (what K1 writes)."""
+    mc, mx, my, tc, tx, ty = _construct_vmem(mm_ext, hm, tm_ext, list(meta),
+                                             Nbr(bc))
+    return torch.stack([mc, mx, my], dim=1), torch.stack([tc, tx, ty], dim=2)
+
+
+def parent_set(meta):
+    """The rows that type-2 tracers take as parents, sorted: the rows of
+    `trc` that :func:`gather_parents` gathers (`parset` of K2)."""
+    return tuple(sorted({p for (_n, tt, p) in meta if tt == 2}))
+
+
+def parent_positions(meta):
+    """Per tracer, the index of its parent in :func:`parent_set`, or -1
+    for a type-1 tracer."""
+    parset = parent_set(meta)
+    return [parset.index(p) if tt == 2 else -1 for (_n, tt, p) in meta]
+
+
+def gather_parents(trc, meta):
+    """par (C, P, 3, ny, nx): the parents' reconstructions, gathered from
+    trc once (a plain index, as the JAX route leaves it to XLA); one zero
+    row when no tracer has a parent."""
+    parset = parent_set(meta)
+    if not parset:
+        return trc.new_zeros(trc.shape[:1] + (1, 3) + trc.shape[-2:])
+    return trc[:, list(parset)]
+
+
+def contract_plain(ga, mass, trc, par, meta, bc):
+    """(div (C, ny, nx), divt (C, T, ny, nx)): the scatter-form
+    contraction ``div(c) = sum_off S_off(S_-off(GA[off]) * U)(c)`` of
+    `remap_pallas._contract_kernel`, for all rows and tracers at once.
+    U are the monomial coefficients of m*p*t with parent planes p = (1, 0,
+    0) for a type-1 tracer and the parent's reconstruction from `par` for
+    a type-2 tracer."""
+    sh = Nbr(bc)
+    T = len(meta)
+    mc, mx, my = mass[:, 0], mass[:, 1], mass[:, 2]
+    if T:
+        c2, x2, y2 = trc[:, :, 0], trc[:, :, 1], trc[:, :, 2]
+        one, zer = torch.ones_like(mc), torch.zeros_like(mc)
+        planes = [(one, zer, zer) if pp < 0 else
+                  (par[:, pp, 0], par[:, pp, 1], par[:, pp, 2])
+                  for pp in parent_positions(meta)]
+        pc, px, py = (torch.stack([pl[q] for pl in planes], dim=1)
+                      for q in range(3))
+        mc1, mx1, my1 = (a.unsqueeze(1) for a in (mc, mx, my))
+        mpc, mpx, mpy = mc1 * pc, mc1 * px, mc1 * py
+        xpc, xpx, xpy = mx1 * pc, mx1 * px, mx1 * py
+        ypc, ypx, ypy = my1 * pc, my1 * px, my1 * py
+    div = divt = None
+    for o, off in enumerate(ALL_OFFSETS):
+        neg = (-off[0], -off[1])
+        g0, g1, g2, g3, g4, g5, g6, g7, g8, g9 = (
+            _shift_by(sh, ga[o, k], neg) for k in range(10))
+        dm = _shift_by(sh, g0 * mc + g1 * mx + g2 * my, off)
+        div = dm if div is None else div + dm
+        if not T:
+            continue
+        p = (g0 * (mpc * c2)
+             + g1 * (xpc * c2 + mpx * c2 + mpc * x2)
+             + g2 * (ypc * c2 + mpy * c2 + mpc * y2)
+             + g3 * (xpx * c2 + xpc * x2 + mpx * x2)
+             + g4 * (xpy * c2 + ypx * c2 + xpc * y2
+                     + ypc * x2 + mpx * y2 + mpy * x2)
+             + g5 * (ypy * c2 + ypc * y2 + mpy * y2)
+             + g6 * (xpx * x2)
+             + g7 * (xpx * y2 + xpy * x2 + ypx * x2)
+             + g8 * (xpy * y2 + ypx * y2 + ypy * x2)
+             + g9 * (ypy * y2))
+        dp = _shift_by(sh, p, off)
+        divt = dp if divt is None else divt + dp
+    if not T:
+        divt = mc.new_zeros(mc.shape[:1] + (0,) + mc.shape[1:])
+    return div, divt
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -213,18 +322,23 @@ def _plane(x, device, dtype, shape):
     return x.contiguous()
 
 
+def _dtype_device(x, name):
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name} takes float32 or float64, not {x.dtype}")
+    return x.dtype, x.device
+
+
 def _stream(device):
     with torch.cuda.device(device):
         return torch.cuda.current_stream(device).cuda_stream
 
 
-def _ga_gsh_cuda(dx, dy, afac, bc, order, case_codes=None):
+def _ga_gsh_cuda(dx, dy, afac, bc, order, case_codes=None,
+                 emit_shifted=True):
     _check_bc(bc)
     if order not in (1, 2, 3):
         raise ValueError(f"integral_order must be 1, 2 or 3, not {order}")
-    dtype, device = dx.dtype, dx.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"remap_gsh takes float32 or float64, not {dtype}")
+    dtype, device = _dtype_device(dx, "remap_gsh")
     ny, nx = dx.shape
     dx, dy, afac = (_plane(a, device, dtype, (ny, nx)) for a in (dx, dy, afac))
     # per-edge moment planes (east/north x 6 positions x 10 monomials),
@@ -239,13 +353,16 @@ def _ga_gsh_cuda(dx, dy, afac, bc, order, case_codes=None):
                              "inputs' device")
         codes = case_codes.data_ptr()
     fn = _fn("remap_gsh", "remap_gsh", dtype,
-             [_VOIDP] * 6 + [_INT] * 5 + [_VOIDP])
+             [_VOIDP] * 6 + [_INT] * 6 + [_VOIDP])
     rc = fn(dx.data_ptr(), dy.data_ptr(), afac.data_ptr(), planes.data_ptr(),
             gsh.data_ptr(), codes, ny, nx, _BC_CODE[bc.ew], _BC_CODE[bc.ns],
-            order, _stream(device))
+            order, int(emit_shifted), _stream(device))
     if rc != 0:
         raise RuntimeError(f"remap_gsh launch failed: cudaError {rc}")
-    ga_gsh.launches += 1
+    if emit_shifted:
+        ga_gsh.launches += 1
+    else:
+        ga_planes.launches += 1
     return gsh
 
 
@@ -264,6 +381,20 @@ def ga_gsh(dx, dy, afac, bc, order=2):
 ga_gsh.launches = 0
 
 
+def ga_planes(dx, dy, afac, bc, order=2):
+    """The GA divergence accumulators (9, 10, ny, nx), not back-shifted:
+    kernel ``remap_gsh`` in GA mode on CUDA tensors, :func:`ga_planes_plain`
+    on CPU tensors."""
+    if dx.device.type == "cuda":
+        return _ga_gsh_cuda(dx, dy, afac, bc, order, emit_shifted=False)
+    if dx.device.type == "cpu":
+        return ga_planes_plain(dx, dy, afac, bc, order)
+    raise NotImplementedError(f"ga_planes has no path for device {dx.device}")
+
+
+ga_planes.launches = 0
+
+
 def edge_cases_plain(dx, dy, afac, bc):
     """The case code of every east and north edge (`remap._edge_geometry`
     ``case``), int32 (2, ny, nx): what ``remap_gsh`` writes when asked."""
@@ -274,31 +405,42 @@ def edge_cases_plain(dx, dy, afac, bc):
                         for edge in ("east", "north")])
 
 
-def edge_cases_cuda(dx, dy, afac, bc, order=2):
-    """(GSH, case codes (2, ny, nx)) from one ``remap_gsh`` launch: the
-    comparison of the kernel's geometric case selection with
-    :func:`edge_cases_plain`.  Counts as a launch of `ga_gsh`."""
+def edge_cases_cuda(dx, dy, afac, bc, order=2, emit_shifted=True):
+    """(GSH, or GA with ``emit_shifted=False``, and the case codes (2, ny,
+    nx)) from one ``remap_gsh`` launch: the comparison of the kernel's
+    geometric case selection with :func:`edge_cases_plain`.  Counts as a
+    launch of `ga_gsh` (or `ga_planes`)."""
     codes = torch.empty((2,) + tuple(dx.shape), dtype=torch.int32,
                         device=dx.device)
-    gsh = _ga_gsh_cuda(dx, dy, afac, bc, order, case_codes=codes)
-    return gsh, codes
+    out = _ga_gsh_cuda(dx, dy, afac, bc, order, case_codes=codes,
+                       emit_shifted=emit_shifted)
+    return out, codes
 
 
-def _k12_cuda(gsh, hm, mm_ext, tm_ext, meta, bc):
-    _check_bc(bc)
-    dtype, device = hm.dtype, hm.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"remap_k12 takes float32 or float64, not {dtype}")
-    C, T = tm_ext.shape[:2]
-    ny, nx = hm.shape
+def _tracer_table(name, meta, T):
+    """(n1, the parent row of each tracer) as the reconstruction kernels
+    take them, after checking the table fits them."""
     n1 = _n_type1(meta)
     if len(meta) != T or T > K12_MAX_T or n1 > K12_MAX_T1:
         raise NotImplementedError(
-            f"remap_k12 takes at most {K12_MAX_T} tracers of which "
+            f"{name} takes at most {K12_MAX_T} tracers of which "
             f"{K12_MAX_T1} of type 1; got {T} ({n1}), meta of {len(meta)}")
     par = [max(p, 0) for (_n, _t, p) in meta]
     if any(p >= n1 for p in par):
         raise ValueError("a type-2 tracer's parent must be a type-1 row")
+    return n1, par
+
+
+def _int_table(values):
+    return (ctypes.c_int * max(len(values), 1))(*(values or [0]))
+
+
+def _k12_cuda(gsh, hm, mm_ext, tm_ext, meta, bc):
+    _check_bc(bc)
+    dtype, device = _dtype_device(hm, "remap_k12")
+    C, T = tm_ext.shape[:2]
+    ny, nx = hm.shape
+    n1, par = _tracer_table("remap_k12", meta, T)
     gsh = _plane(gsh, device, dtype, (9, 10, ny, nx))
     hm = _plane(hm, device, dtype, (ny, nx))
     mm_ext = _plane(mm_ext, device, dtype, (C, ny, nx))
@@ -307,7 +449,7 @@ def _k12_cuda(gsh, hm, mm_ext, tm_ext, meta, bc):
     recon = torch.empty((C, 3 + 3 * T, ny, nx), dtype=dtype, device=device)
     div = torch.empty((C, ny, nx), dtype=dtype, device=device)
     divt = torch.empty((C, T, ny, nx), dtype=dtype, device=device)
-    par_arr = (ctypes.c_int * max(T, 1))(*(par or [0]))
+    par_arr = _int_table(par)
     fn = _fn("remap_k12", "remap_k12", dtype,
              [_VOIDP] * 7 + [_INT] * 7 + [_VOIDP] * 2)
     rc = fn(gsh.data_ptr(), hm.data_ptr(), mm_ext.data_ptr(),
@@ -333,3 +475,88 @@ def k12_divergence(gsh, hm, mm_ext, tm_ext, meta, bc):
 
 
 k12_divergence.launches = 0
+
+
+def _construct_cuda(hm, mm_ext, tm_ext, meta, bc):
+    _check_bc(bc)
+    dtype, device = _dtype_device(hm, "remap_construct")
+    C, T = tm_ext.shape[:2]
+    ny, nx = hm.shape
+    n1, par = _tracer_table("remap_construct", meta, T)
+    hm = _plane(hm, device, dtype, (ny, nx))
+    mm_ext = _plane(mm_ext, device, dtype, (C, ny, nx))
+    tm_ext = _plane(tm_ext, device, dtype, (C, T, ny, nx))
+    mass = torch.empty((C, 3, ny, nx), dtype=dtype, device=device)
+    trc = torch.empty((C, T, 3, ny, nx), dtype=dtype, device=device)
+    par_arr = _int_table(par)
+    fn = _fn("remap_k1k2", "remap_construct", dtype,
+             [_VOIDP] * 5 + [_INT] * 7 + [_VOIDP] * 2)
+    rc = fn(hm.data_ptr(), mm_ext.data_ptr(), tm_ext.data_ptr(),
+            mass.data_ptr(), trc.data_ptr(), C, T, n1, ny, nx,
+            _BC_CODE[bc.ew], _BC_CODE[bc.ns], ctypes.addressof(par_arr),
+            _stream(device))
+    if rc != 0:
+        raise RuntimeError(f"remap_construct launch failed: cudaError {rc}")
+    construct.launches += 1
+    return mass, trc
+
+
+def construct(hm, mm_ext, tm_ext, meta, bc):
+    """(mass (C, 3, ny, nx), trc (C, T, 3, ny, nx)): the reconstruction of
+    every row of the extended category batch.  Kernel ``remap_construct``
+    (K1) on CUDA tensors, :func:`construct_plain` on CPU tensors."""
+    if hm.device.type == "cuda":
+        return _construct_cuda(hm, mm_ext, tm_ext, meta, bc)
+    if hm.device.type == "cpu":
+        return construct_plain(hm, mm_ext, tm_ext, meta, bc)
+    raise NotImplementedError(f"construct has no path for device {hm.device}")
+
+
+construct.launches = 0
+
+
+def _contract_cuda(ga, mass, trc, par, meta, bc):
+    _check_bc(bc)
+    dtype, device = _dtype_device(mass, "remap_contract")
+    C, _three, ny, nx = mass.shape
+    T = len(meta)
+    P = par.shape[1]
+    if T > K12_MAX_T:
+        raise NotImplementedError(
+            f"remap_contract takes at most {K12_MAX_T} tracers, got {T}")
+    ppos = parent_positions(meta)
+    if any(pp >= P for pp in ppos):
+        raise ValueError(f"par holds {P} parent rows; meta needs "
+                         f"{max(ppos) + 1}")
+    ga = _plane(ga, device, dtype, (9, 10, ny, nx))
+    mass = _plane(mass, device, dtype, (C, 3, ny, nx))
+    trc = _plane(trc, device, dtype, (C, T, 3, ny, nx))
+    par = _plane(par, device, dtype, (C, P, 3, ny, nx))
+    div = torch.empty((C, ny, nx), dtype=dtype, device=device)
+    divt = torch.empty((C, T, ny, nx), dtype=dtype, device=device)
+    ppos_arr = _int_table(ppos)
+    fn = _fn("remap_k1k2", "remap_contract", dtype,
+             [_VOIDP] * 6 + [_INT] * 7 + [_VOIDP] * 2)
+    rc = fn(ga.data_ptr(), mass.data_ptr(), trc.data_ptr(), par.data_ptr(),
+            div.data_ptr(), divt.data_ptr(), C, T, P, ny, nx,
+            _BC_CODE[bc.ew], _BC_CODE[bc.ns], ctypes.addressof(ppos_arr),
+            _stream(device))
+    if rc != 0:
+        raise RuntimeError(f"remap_contract launch failed: cudaError {rc}")
+    contract.launches += 1
+    return div, divt
+
+
+def contract(ga, mass, trc, par, meta, bc):
+    """(div (C, ny, nx), divt (C, T, ny, nx)) of the extended category
+    batch from GA, the reconstruction and the gathered parents (see
+    :func:`gather_parents`).  Kernel ``remap_contract`` (K2) on CUDA
+    tensors, :func:`contract_plain` on CPU tensors."""
+    if mass.device.type == "cuda":
+        return _contract_cuda(ga, mass, trc, par, meta, bc)
+    if mass.device.type == "cpu":
+        return contract_plain(ga, mass, trc, par, meta, bc)
+    raise NotImplementedError(f"contract has no path for device {mass.device}")
+
+
+contract.launches = 0

@@ -85,6 +85,10 @@ def test_port_imports_no_jax():
         import cice4_tpu_torch.io.forcing_data, cice4_tpu_torch.guards
         import cice4_tpu_torch.cuda_build, cice4_tpu_torch.kernel_check
         import cice4_tpu_torch.ops.evp_cuda, cice4_tpu_torch.ops.remap_cuda
+        import cice4_tpu_torch.calendar, cice4_tpu_torch.timers
+        import cice4_tpu_torch.diagnostics, cice4_tpu_torch.driver
+        import cice4_tpu_torch.cli, cice4_tpu_torch.io.history
+        import cice4_tpu_torch.io.restart, cice4_tpu_torch.ops.restoring
         import chip_smoke
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "cice4_tpu."))

@@ -68,7 +68,9 @@ def test_therm_newton_on_a_plane_and_rejects_bad_input(cuda_device):
 # ---------------------------------------------------------------------------
 
 DYN_CASES = [((64, 128), ("cyclic", "closed")),
-             ((116, 100), ("closed", "open")), ((7, 33), ("cyclic", "open"))]
+             ((116, 100), ("closed", "open")), ((7, 33), ("cyclic", "open")),
+             ((64, 128), ("cyclic", "cyclic")),
+             ((116, 100), ("closed", "cyclic")), ((7, 33), ("cyclic", "cyclic"))]
 
 
 def _dyn_grid(shape, bcs, device, dtype):
@@ -97,9 +99,13 @@ def test_evp_subcycle_matches_plain(cuda_device, dtype, shape, bcs, damping,
     p = evp_ops.make_evp_params(
         DynamicsConfig(ndte=40, evp_damping=damping, sinw=sinw), 3600.0)
     args = kernel_check.evp_inputs(grid, seed=4, dtype=dtype)
-    before = evp_cuda.evp_subcycle.launches
+    before = (evp_cuda.evp_subcycle.launches,
+              evp_cuda.evp_subcycle.ns_cyclic_launches)
     kern = kernel_check.evp_named(evp_cuda.evp_subcycle(p, grid, *args))
-    assert evp_cuda.evp_subcycle.launches == before + 1
+    cyclic = int(bcs[1] == "cyclic")
+    assert (evp_cuda.evp_subcycle.launches,
+            evp_cuda.evp_subcycle.ns_cyclic_launches) == (
+        before[0] + 1, before[1] + cyclic)
     plain = kernel_check.evp_named(evp_ops._evp_subcycle_plain(p, grid,
                                                                *args))
     torch.cuda.synchronize()
@@ -132,6 +138,73 @@ def test_remap_gsh_matches_plain(cuda_device, dtype, shape, bcs, order):
                                          kernel_check.GSH_RTOL[dtype])
     assert kernel_check.fields_ok(report, allowed_bad=90 * 25 * flips), \
         report
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,bcs", DYN_CASES)
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_remap_ga_mode_matches_plain(cuda_device, dtype, shape, bcs, order):
+    """K0 in GA mode (no back-shift), with its case codes."""
+    from cice4_tpu_torch.ops import remap_cuda
+    from cice4_tpu_torch.ops.remap import _tracer_meta
+
+    grid = _dyn_grid(shape, bcs, cuda_device, dtype)
+    dx, dy, afac, _, _ = kernel_check.remap_inputs(
+        grid, seed=6, ncat=5, meta=_tracer_meta([], 4, 1), dtype=dtype)
+    before = remap_cuda.ga_planes.launches
+    ga = remap_cuda.ga_planes(dx, dy, afac, grid.bc, order)
+    assert remap_cuda.ga_planes.launches == before + 1
+    ga2, codes = remap_cuda.edge_cases_cuda(dx, dy, afac, grid.bc, order,
+                                            emit_shifted=False)
+    plain = remap_cuda.ga_planes_plain(dx, dy, afac, grid.bc, order)
+    codes_plain = remap_cuda.edge_cases_plain(dx, dy, afac, grid.bc)
+    torch.cuda.synchronize()
+    assert torch.equal(ga, ga2)
+    flips = int((codes != codes_plain).sum())
+    assert flips <= kernel_check.GSH_MAX_FLIP_SHARE[dtype] * codes.numel()
+    report = kernel_check.compare_fields({"ga": ga}, {"ga": plain},
+                                         kernel_check.GSH_RTOL[dtype])
+    assert kernel_check.fields_ok(report, allowed_bad=90 * 25 * flips), \
+        report
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,bcs", DYN_CASES)
+def test_remap_construct_and_contract_match_plain(cuda_device, dtype, shape,
+                                                  bcs):
+    """K1 and K2 of the split route, each on the other's plain inputs."""
+    from cice4_tpu_torch.ops import remap_cuda
+    from cice4_tpu_torch.ops.remap import _tracer_meta
+
+    grid = _dyn_grid(shape, bcs, cuda_device, dtype)
+    meta = _tracer_meta(["iage"], 4, 1)
+    dx, dy, afac, mm, tm = kernel_check.remap_inputs(
+        grid, seed=9, ncat=5, meta=meta, dtype=dtype)
+    before = remap_cuda.construct.launches
+    mass, trc = remap_cuda.construct(grid.hm, mm, tm, meta, grid.bc)
+    assert remap_cuda.construct.launches == before + 1
+    mass_p, trc_p = remap_cuda.construct_plain(grid.hm, mm, tm, meta,
+                                               grid.bc)
+    torch.cuda.synchronize()
+    report = kernel_check.compare_fields({"mass": mass, "trc": trc},
+                                         {"mass": mass_p, "trc": trc_p},
+                                         kernel_check.K1_RTOL[dtype])
+    assert kernel_check.fields_ok(report), report
+
+    ga = remap_cuda.ga_planes_plain(dx, dy, afac, grid.bc, 2)
+    par = remap_cuda.gather_parents(trc_p, meta)
+    before = remap_cuda.contract.launches
+    div, divt = remap_cuda.contract(ga, mass_p, trc_p, par, meta, grid.bc)
+    assert remap_cuda.contract.launches == before + 1
+    div_p, divt_p = remap_cuda.contract_plain(ga, mass_p, trc_p, par, meta,
+                                              grid.bc)
+    torch.cuda.synchronize()
+    report = kernel_check.compare_fields({"div": div, "divt": divt},
+                                         {"div": div_p, "divt": divt_p},
+                                         kernel_check.K2_RTOL[dtype])
+    assert kernel_check.fields_ok(report), report
 
 
 @pytest.mark.gpu
@@ -184,3 +257,44 @@ def test_default_step_launches_every_kernel(cuda_device):
     assert [w.launches - b for w, b in zip(wrappers, before)] == [2] * 4
     assert bool(torch.isfinite(state.aicen).all())
     assert 0.0 < float(state.uvel.abs().max()) < 2.0
+
+
+BOX_SMALL = {"domain.nx_global": 32, "domain.ny_global": 24,
+             "domain.ew_boundary_type": "cyclic",
+             "domain.ns_boundary_type": "cyclic", "grid.grid_type": "column",
+             "grid.lat_origin": 69.0, "grid.dx_rect": 10.0e3,
+             "grid.dy_rect": 10.0e3, "forcing.atm_data_type": "analytic"}
+
+
+@pytest.mark.gpu
+def test_box_split_route_launches_its_kernels(cuda_device, monkeypatch):
+    """Two steps of the doubly-periodic box at 24x32 on the split route:
+    the NS-cyclic EVP, K0 in GA mode, K1 and K2 once per step each, and
+    neither GSH mode nor K12."""
+    from cice4_tpu_torch.config import Config
+    from cice4_tpu_torch.io.forcing_data import AnalyticForcing
+    from cice4_tpu_torch.model import Model
+    from cice4_tpu_torch.ops import evp_cuda, remap_cuda
+    from cice4_tpu_torch.state import init_state
+
+    monkeypatch.setenv("CICE4_FORCE_PALLAS_REMAP", "1")
+    cfg = Config().with_values(**BOX_SMALL)
+    model = Model.create(cfg, device=cuda_device, dtype=torch.float32)
+    state = init_state(cfg, model.grid, model.itd, device=cuda_device,
+                       dtype=torch.float32)
+    forcing = AnalyticForcing(cfg, model.grid, device=cuda_device,
+                              dtype=torch.float32)
+    counts = ((evp_cuda.evp_subcycle, "ns_cyclic_launches"),
+              (remap_cuda.ga_planes, "launches"),
+              (remap_cuda.construct, "launches"),
+              (remap_cuda.contract, "launches"),
+              (remap_cuda.ga_gsh, "launches"),
+              (remap_cuda.k12_divergence, "launches"))
+    before = [getattr(w, a) for w, a in counts]
+    for n in range(2):
+        yday = 80.0 + n / 24.0
+        state, _ = model(state, forcing(yday, 0.0), yday, 0.0)
+    torch.cuda.synchronize()
+    assert [getattr(w, a) - b for (w, a), b in zip(counts, before)] == \
+        [2, 2, 2, 2, 0, 0]
+    assert bool(torch.isfinite(state.aicen).all())
