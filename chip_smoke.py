@@ -59,15 +59,19 @@ Phases, each of which ends the run with a non-zero exit on failure:
    CPU path (which the tier-1 tests hold against the JAX package) after 3
    steps;
 10. timing: ms/step and cell-steps/s of the gx1 and box paths, device
-    time by phase, and each kernel against its plain version at the
-    inputs its path gives it, beside the least time the card could take;
+    time by phase (the box also on the split remap route), and each
+    kernel against its plain version at the inputs its path gives it,
+    beside the least time the card could take;
     each kernel's max |kernel - plain| there must lie within its
     ``kernel_check`` tolerance of the field's scale.  Logged: the EVP
     kernel's grid, grid barriers and active cells as its launch reports
-    them, its time on the same grid without ice (ndte and 1), K12's tile,
-    shared memory and resident blocks as its library reports them, both
-    kernels' ptxas lines, and whether a CUDA graph can capture the EVP
-    kernel's cooperative launch.
+    them, its time on the same grid without ice (ndte and 1), the tiles,
+    shared memory and resident blocks of K12, K1 and K2 as their libraries
+    report them, K2's bound with and without the gathered parents an
+    earlier design read, what binds K1 and K2 (a PyTorch copy of as many
+    bytes, their operation rate, their time without tracers), the ptxas
+    lines of the EVP kernel, K12, K1 and K2, and whether a CUDA graph can
+    capture the EVP kernel's cooperative launch.
 
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -154,9 +158,7 @@ PATH_OF = {"therm_newton": "gx1", "evp_subcycle": "gx1",
 # K12 and K1: per (row, cell) the reconstruction of the mass (100), of
 # each type-1 (111) and type-2 (113) tracer; K12 and K2: per donor offset
 # the mass (6), type-1 (24) and type-2 (73) contraction terms, the open
-# water row (0) as mass only (its tracer divergence is discarded).  K2's
-# one polynomial per tracer does more for type-1 tracers and row 0; the
-# bound counts the work the function needs.
+# water row (0) as mass only (its tracer divergence is 0).
 OPS_NEWTON_ITER = 300
 OPS_EVP_STRESS, OPS_EVP_MOMENTUM, OPS_EVP_FINAL_SUMS = 357, 43, 12
 OPS_GSH_CELL = {1: 1204, 2: 1948, 3: 2248}
@@ -454,7 +456,8 @@ def check_dynamics_kernels(device):
                             {"mass": mass_p, "trc": trc_p}, kc.K1_RTOL[dtype])
                 ga_p = remap_cuda.ga_planes_plain(dx, dy, afac, grid.bc, 2)
                 par = remap_cuda.gather_parents(trc_p, meta)
-                div, divt = remap_cuda.contract(ga_p, mass_p, trc_p, par,
+                # the kernel reads the parents from trc, as on the path
+                div, divt = remap_cuda.contract(ga_p, mass_p, trc_p, None,
                                                 meta, grid.bc)
                 div_p, divt_p = remap_cuda.contract_plain(ga_p, mass_p, trc_p,
                                                           par, meta, grid.bc)
@@ -879,11 +882,13 @@ def ptxas_lines(library, entry):
 
 
 def log_design(name, args, ms):
-    """Log what the EVP and K12 kernels ran at a path's inputs, as the
-    kernels and the runtime report it, and the EVP kernel's time without
-    ice: its grid barriers, active lists and final full-grid subcycle
-    alone.  Call it right after `measure_kernel`, whose last kernel call
-    was at `args`."""
+    """Log what the EVP kernel and the remap kernels K12, K1 and K2 ran at
+    a path's inputs, as the kernels and the runtime report it; the EVP
+    kernel's time without ice (its grid barriers, active lists and final
+    full-grid subcycle alone); and what binds K1 and K2 (a copy of their
+    bytes, their operation rate, their time without tracers).  Call it
+    right after `measure_kernel`, whose last kernel call was at `args` and
+    took `ms`."""
     if name in ("evp_subcycle", "evp_wholegrid"):
         from cice4_tpu_torch.ops import evp_cuda
 
@@ -912,19 +917,62 @@ def log_design(name, args, ms):
         entry = "evp_persistentIf" if dtype == torch.float32 \
             else "evp_persistentId"
         log(f"    ptxas: {ptxas_lines('evp_subcycle', entry)}")
-    elif name == "remap_k12":
+    elif name in ("remap_k12", "remap_construct", "remap_contract"):
         from cice4_tpu_torch.ops import remap_cuda
         from cice4_tpu_torch.ops.remap import _n_type1
 
-        hm, tm, meta = args[1], args[3], args[4]
-        tile = remap_cuda.k12_tile(tm.shape[1], _n_type1(meta), hm.dtype,
-                                   hm.device)
+        meta = args[3] if name == "remap_construct" else args[4]
+        dtype, device = args[1].dtype, args[1].device
+        tile_of, library, entry = {
+            "remap_k12": (remap_cuda.k12_tile, "remap_k12", "k12"),
+            "remap_construct": (remap_cuda.construct_tile, "remap_k1k2",
+                                "construct"),
+            "remap_contract": (remap_cuda.contract_tile, "remap_k1k2",
+                               "contract")}[name]
+        tile = tile_of(len(meta), _n_type1(meta), dtype, device)
+        ny, nx = args[1].shape[-2:]
+        blocks = -(-nx // 32) * -(-ny // tile["rows"])
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
         log(f"    tile of 32 x {tile['rows']} cells, {tile['smem_bytes']} "
             f"bytes of shared memory a block, {tile['blocks_per_sm']} "
             f"block(s) resident an SM (as the library and the runtime "
-            f"report them)")
-        entry = "k12If" if hm.dtype == torch.float32 else "k12Id"
-        log(f"    ptxas: {ptxas_lines('remap_k12', entry)}")
+            f"report them); {blocks} blocks, "
+            f"{blocks / (sms * tile['blocks_per_sm']):.2f} waves on {sms} "
+            f"SMs")
+        entry += "If" if dtype == torch.float32 else "Id"
+        log(f"    ptxas: {ptxas_lines(library, entry)}")
+        if name == "remap_k12":
+            return
+        kern = getattr(remap_cuda, sites()[name][1])
+        out = kern(*args)
+        bound_ms, bound_by, nbytes, ops = bound(name, args, out)
+        if name == "remap_contract":
+            # the bound of a design that reads the gathered parents
+            par = remap_cuda.gather_parents(args[2], meta)
+            with_par = bound(name, (*args[:3], par, *args[4:]), out)
+            log(f"    bound {bound_ms:.4f} ms by {bound_by} "
+                f"({nbytes / 1e6:.2f} MB: GA, mass, trc, div, divt); with the "
+                f"gathered parents an earlier design read, "
+                f"{with_par[0]:.4f} ms by {with_par[1]} "
+                f"({with_par[2] / 1e6:.2f} MB)")
+        # what binds it: the same bytes in a PyTorch copy, its operation
+        # rate, and the kernel on the same grid without tracers
+        buf = torch.empty(nbytes // 8, dtype=torch.float32, device=device)
+        copy = device_ms(buf.clone, 50)
+        rate = ops / (ms * 1e-3)
+        no_fma = PEAK_OPS_PER_S[dtype] / 2   # each operation an instruction
+        no_tracers = ((*args[:2], args[2][:, :0], [], args[4])
+                      if name == "remap_construct"
+                      else (*args[:2], args[2][:, :0], None, [], args[5]))
+        bare = device_ms(lambda: kern(*no_tracers), 50)
+        log(f"    a PyTorch copy of as many bytes ({nbytes / 2e6:.2f} MB "
+            f"read, as many written) {copy:.4f} ms, "
+            f"{100 * copy / ms:.1f}% of the kernel's {ms:.4f}; "
+            f"{ops / 1e9:.4g} G operations at "
+            f"{rate / 1e12:.2f} T/s, {100 * rate / no_fma:.1f}% of the "
+            f"{no_fma / 1e12:.1f} T/s the card issues without FMA; without "
+            f"tracers (mass only) {bare:.4f} ms, so the {len(meta)} tracers "
+            f"take {ms - bare:.4f} ms")
 
 
 def evp_graph_capture(args):
@@ -1175,6 +1223,16 @@ def main() -> int:
         f"{driver_step_ms:.3f} ms/step; card: {card}")
     log_profile("box path", phase_device_times(bmodel, bstate, bforce),
                 bms_ev)
+    os.environ["CICE4_FORCE_PALLAS_REMAP"] = "1"
+    try:
+        sms_ev, sms_host, _ = time_path(bmodel, bstate, bforce, 8)
+        sprof = phase_device_times(bmodel, bstate, bforce)
+    finally:
+        del os.environ["CICE4_FORCE_PALLAS_REMAP"]
+    log(f"  box path on the split remap route (K0 in GA mode, K1, K2): "
+        f"{sms_ev:.3f} ms/step (CUDA events, 8 steps after {NSTEPS + 1}), "
+        f"{sms_host:.3f} ms/step (host clock); card: {card}")
+    log_profile("box path, split route", sprof, sms_ev)
 
     seen = capture_kernel_inputs(model, state, forcing,
                                  [k for k, p in PATH_OF.items()

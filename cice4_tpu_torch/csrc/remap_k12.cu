@@ -26,7 +26,8 @@
 //    the device code K1 shares), one cell a thread, into shared memory,
 //    3 + 3T values a cell; after __syncthreads() the two threads of each
 //    cell contract it from shared memory, one the mass and the even
-//    tracers, the other the odd ones, and write div and divt.
+//    tracers, the other the odd ones, and write div and divt
+//    (tiled::contract_cell, remap_tile.cuh, the device code K2 shares).
 // The contraction loops over a thread's tracers at run time and unrolls the
 // 9 offsets inside, so one register accumulates a (row, tracer) sum and the
 // 9 offset terms, which are independent, overlap; each accumulator adds its
@@ -59,25 +60,22 @@
 
 #include <cstdint>
 
-#include "remap_recon.cuh"
+#include "remap_tile.cuh"
 
 namespace {
 
 using recon::Args;
 using recon::kMaxT;
-using recon::kMaxT1;
-using recon::nb_of;
 using recon::off_of;
-
-constexpr int kTileW = 32;
-constexpr int kMaxTileRows = 8;
-constexpr int kSplit = 2;  // threads per cell
-// a cell's GSH values, offset o's 10 at o * 12: 16-byte aligned vectors,
-// and a row of 108 elements keeps a quarter-warp's 16-byte loads on
-// distinct banks
-constexpr int kGshOff = 12;
-constexpr int kGshRow = 9 * kGshOff;
-constexpr int kMaxSmem = 232448;  // bytes a block may use on Hopper
+using tiled::copies_landed;
+using tiled::copy_async;
+using tiled::kGshOff;
+using tiled::kGshRow;
+using tiled::kMaxTileRows;
+using tiled::kSplit;
+using tiled::kTileW;
+using tiled::stage_row;
+using tiled::TileSrc;
 
 // the shared-memory layout of a block, in elements
 struct Layout {
@@ -103,22 +101,6 @@ struct Layout {
   }
 };
 
-// the staged inputs of one cell (p, its index in the plane4 arrays)
-template <typename T>
-struct TileSrc {
-  const T* hm_;
-  const T* in;
-  int w, plane, p;
-  __device__ __forceinline__ T at(const T* f, int n) const {
-    return n == 8 ? f[p] : f[p + nb_of(n, 1) * w + nb_of(n, 0)];
-  }
-  __device__ __forceinline__ T hm(int n) const { return at(hm_, n); }
-  __device__ __forceinline__ T mass(int n) const { return at(in, n); }
-  __device__ __forceinline__ T tracer(int t, int n) const {
-    return at(in + (1 + t) * plane, n);
-  }
-};
-
 // the reconstruction of one cell (p, its index in the plane2 arrays):
 // mc, mx, my, then tc[T], tx[T], ty[T]
 template <typename T>
@@ -132,72 +114,6 @@ struct TileDst {
     rec[(3 + q * ntr + t) * plane + p] = v;
   }
 };
-
-// an asynchronous copy of one element from device to shared memory
-template <typename T>
-__device__ __forceinline__ void copy_async(T* dst, const T* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (sizeof(T) == 4) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-                 "l"(src));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
-                 "l"(src));
-  }
-}
-
-__device__ __forceinline__ void commit_copies() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void copies_landed() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-// the 12 elements from p (16-byte aligned) in 16-byte loads
-__device__ __forceinline__ void load_vec(const float* p, float (&g)[kGshOff]) {
-#pragma unroll
-  for (int k = 0; k < kGshOff; k += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p + k);
-    g[k] = v.x;
-    g[k + 1] = v.y;
-    g[k + 2] = v.z;
-    g[k + 3] = v.w;
-  }
-}
-
-__device__ __forceinline__ void load_vec(const double* p,
-                                         double (&g)[kGshOff]) {
-#pragma unroll
-  for (int k = 0; k < kGshOff; k += 2) {
-    const double2 v = *reinterpret_cast<const double2*>(p + k);
-    g[k] = v.x;
-    g[k + 1] = v.y;
-  }
-}
-
-// start copying row r's mm (and tm, when it carries tracers) on the tile
-// plus a 2-cell halo into `in`; a cell beyond an open edge stages 0
-template <typename T>
-__device__ __forceinline__ void stage_row(T* in, const T* mm, const T* tm,
-                                          int r, const Layout& L, int j0,
-                                          int i0, int tid, const Args& a) {
-  const int64_t np = (int64_t)a.ny * a.nx;
-  const int planes = r > 0 ? 1 + a.T : 1;
-  for (int k = tid; k < L.plane4; k += L.nthreads) {
-    const int64_t x = a.idx(j0 - 2 + k / L.w4, i0 - 2 + k % L.w4);
-    for (int q = 0; q < planes; ++q) {
-      T* dst = in + q * L.plane4 + k;
-      if (x < 0) {
-        *dst = T(0);
-      } else {
-        copy_async(dst, q == 0 ? mm + r * np + x
-                               : tm + ((int64_t)r * a.T + q - 1) * np + x);
-      }
-    }
-  }
-  commit_copies();
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kTileW * kMaxTileRows * kSplit)
@@ -248,7 +164,8 @@ __global__ void __launch_bounds__(kTileW * kMaxTileRows * kSplit)
     }
   }
   const int inplanes = (1 + a.T) * L.plane4;
-  stage_row(smem + L.in, mm, tm, 0, L, j0, i0, tid, a);
+  stage_row(smem + L.in, mm, tm, 0, L.w4, L.plane4, 2, j0, i0, tid,
+            L.nthreads, a);
 
   const int base = (threadIdx.y + 1) * L.w2 + threadIdx.x + 1;
   for (int r = 0; r < a.C; ++r) {
@@ -259,8 +176,8 @@ __global__ void __launch_bounds__(kTileW * kMaxTileRows * kSplit)
     copies_landed();
     __syncthreads();
     if (r + 1 < a.C)
-      stage_row(smem + L.in + ((r + 1) & 1) * inplanes, mm, tm, r + 1, L,
-                j0, i0, tid, a);
+      stage_row(smem + L.in + ((r + 1) & 1) * inplanes, mm, tm, r + 1,
+                L.w4, L.plane4, 2, j0, i0, tid, L.nthreads, a);
     for (int k = tid; k < L.plane2; k += L.nthreads) {
       const int y = k / L.w2, xx = k % L.w2;
       if (a.idx(j0 - 1 + y, i0 - 1 + xx) < 0) continue;  // never a donor
@@ -271,97 +188,19 @@ __global__ void __launch_bounds__(kTileW * kMaxTileRows * kSplit)
     __syncthreads();
     if (!own) continue;
 
-    // the two threads of a cell: the mass (h = 0) and the tracers
-    // t = h, h + 2, ...; each accumulator adds its 9 offset terms in
-    // ALL_OFFSETS order, the offsets unrolled so their terms overlap
-    const int P = L.plane2;
-    const T* gc = sg + cell * kGshRow;
-    if (h == 0) {
-      T d = T(0);
-#pragma unroll
-      for (int o = 0; o < 9; ++o) {
-        T g[kGshOff];
-        load_vec(gc + o * kGshOff, g);
-        const int x = base + off_of(o, 1) * L.w2 + off_of(o, 0);
-        const T mc = rec[x], mx = rec[P + x], my = rec[2 * P + x];
-        const T sum = d + (g[0] * mc + g[1] * mx + g[2] * my);
-        d = ((valid >> o) & 1u) ? sum : d;  // the masked shift brings 0
-      }
-      div[r * np + c] = d;
-    }
-    if (!tracers) {
-      for (int t = h; t < a.T; t += kSplit)
-        divt[((int64_t)r * a.T + t) * np + c] = T(0);
-      continue;
-    }
-    const T* rc = rec + 3 * P;
-    const T* rx = rc + a.T * P;
-    const T* ry = rx + a.T * P;
-    for (int t = h; t < a.T; t += kSplit) {
-      T acc = T(0);
-      if (t < a.n1) {
-#pragma unroll
-        for (int o = 0; o < 9; ++o) {
-          T g[kGshOff];
-          load_vec(gc + o * kGshOff, g);
-          const int x = base + off_of(o, 1) * L.w2 + off_of(o, 0);
-          const T mc = rec[x], mx = rec[P + x], my = rec[2 * P + x];
-          const T c1 = rc[t * P + x], x1 = rx[t * P + x], y1 = ry[t * P + x];
-          const T p1 = g[0] * (mc * c1) + g[1] * (mc * x1 + mx * c1) +
-                       g[2] * (mc * y1 + my * c1) + g[3] * (mx * x1) +
-                       g[4] * (mx * y1 + my * x1) + g[5] * (my * y1);
-          const T sum = acc + p1;
-          acc = ((valid >> o) & 1u) ? sum : acc;
-        }
-      } else {
-        const int p = parent[t];
-#pragma unroll
-        for (int o = 0; o < 9; ++o) {
-          T g[kGshOff];
-          load_vec(gc + o * kGshOff, g);
-          const int x = base + off_of(o, 1) * L.w2 + off_of(o, 0);
-          const T mc = rec[x], mx = rec[P + x], my = rec[2 * P + x];
-          const T pc = rc[p * P + x], px = rx[p * P + x], py = ry[p * P + x];
-          const T c2 = rc[t * P + x], x2 = rx[t * P + x], y2 = ry[t * P + x];
-          const T mpc = mc * pc, mpx = mc * px, mpy = mc * py;
-          const T xpc = mx * pc, xpx = mx * px, xpy = mx * py;
-          const T ypc = my * pc, ypx = my * px, ypy = my * py;
-          const T p2 = g[0] * (mpc * c2) +
-                       g[1] * (xpc * c2 + mpx * c2 + mpc * x2) +
-                       g[2] * (ypc * c2 + mpy * c2 + mpc * y2) +
-                       g[3] * (xpx * c2 + xpc * x2 + mpx * x2) +
-                       g[4] * (xpy * c2 + ypx * c2 + xpc * y2 + ypc * x2 +
-                               mpx * y2 + mpy * x2) +
-                       g[5] * (ypy * c2 + ypc * y2 + mpy * y2) +
-                       g[6] * (xpx * x2) +
-                       g[7] * (xpx * y2 + xpy * x2 + ypx * x2) +
-                       g[8] * (xpy * y2 + ypx * y2 + ypy * x2) +
-                       g[9] * (ypy * y2);
-          const T sum = acc + p2;
-          acc = ((valid >> o) & 1u) ? sum : acc;
-        }
-      }
-      divt[((int64_t)r * a.T + t) * np + c] = acc;
-    }
+    tiled::contract_cell(sg + cell * kGshRow, rec, L.plane2, L.w2, base,
+                         valid, h, tracers, a, parent, div, divt, r, np, c);
   }
 }
 
-// the tile of a call with Tn tracers, n1 of type 1: the deepest of 8, 4, 2,
-// 1 rows whose shared memory fits a block (the least halo to reconstruct
-// twice), its bytes in *smem, and k12<T> allowed that much; -1 when no tile
-// fits or the table is one the kernel does not take
+// the tile of a call with Tn tracers, n1 of type 1 (tiled::plan_tile)
 template <typename T>
-int plan(int Tn, int n1, int* rows, int* smem) {
-  if (Tn > kMaxT || n1 > kMaxT1 || n1 > Tn || n1 < 0) return -1;
-  for (int r = kMaxTileRows; r >= 1; r /= 2) {
-    const size_t s = sizeof(T) * (size_t)Layout(r, Tn, n1).total;
-    if (s > (size_t)kMaxSmem) continue;
-    *rows = r;
-    *smem = static_cast<int>(s);
-    return static_cast<int>(cudaFuncSetAttribute(
-        k12<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem));
-  }
-  return -1;
+int plan(int Tn, int n1, int* rows, int* smem, int* blocks_per_sm) {
+  if (!recon::table_ok(Tn, n1)) return -1;
+  return tiled::plan_tile(
+      k12<T>, kTileW * kSplit,
+      [=](int r) { return sizeof(T) * Layout(r, Tn, n1).total; }, rows, smem,
+      blocks_per_sm);
 }
 
 template <typename T>
@@ -369,7 +208,7 @@ int run(const void* gsh, const void* hm, const void* mm, const void* tm,
         void* div, void* divt, int C, int Tn, int n1, int ny, int nx, int ew,
         int ns, const int* parent, cudaStream_t stream) {
   int rows = 0, smem = 0;
-  const int rc = plan<T>(Tn, n1, &rows, &smem);
+  const int rc = plan<T>(Tn, n1, &rows, &smem, nullptr);
   if (rc != 0) return rc;
   const Args a = recon::make_args(C, Tn, n1, ny, nx, ew, ns, parent);
   const dim3 block(kTileW, rows, kSplit);
@@ -379,16 +218,6 @@ int run(const void* gsh, const void* hm, const void* mm, const void* tm,
       static_cast<const T*>(mm), static_cast<const T*>(tm),
       static_cast<T*>(div), static_cast<T*>(divt), a);
   return static_cast<int>(cudaGetLastError());
-}
-
-// the tile a call takes (rows, bytes of shared memory a block) and how many
-// such blocks the runtime keeps resident on one SM
-template <typename T>
-int tile(int Tn, int n1, int* rows, int* smem, int* blocks_per_sm) {
-  const int rc = plan<T>(Tn, n1, rows, smem);
-  if (rc != 0) return rc;
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, k12<T>, kTileW * *rows * kSplit, *smem));
 }
 
 }  // namespace
@@ -413,12 +242,12 @@ int remap_k12_f64(const void* gsh, const void* hm, const void* mm,
 
 int remap_k12_tile_f32(int T, int n1, int* rows, int* smem,
                        int* blocks_per_sm) {
-  return tile<float>(T, n1, rows, smem, blocks_per_sm);
+  return plan<float>(T, n1, rows, smem, blocks_per_sm);
 }
 
 int remap_k12_tile_f64(int T, int n1, int* rows, int* smem,
                        int* blocks_per_sm) {
-  return tile<double>(T, n1, rows, smem, blocks_per_sm);
+  return plan<double>(T, n1, rows, smem, blocks_per_sm);
 }
 
 }  // extern "C"

@@ -1,9 +1,9 @@
 // remap_recon.cuh — the van-Leer-limited reconstruction of incremental
 // remapping, one (category row, cell) at a time: the device code shared by
-// the K12 kernel (remap_k12.cu, which reads its inputs from a tile staged in
-// shared memory and writes the reconstruction back there) and the K1 kernel
-// (remap_k1k2.cu, which reads device memory and returns the reconstruction),
-// so both come from one source.
+// the K12 kernel (remap_k12.cu, which writes the reconstruction back to
+// shared memory) and the K1 kernel (remap_k1k2.cu, which writes it to
+// device memory), both reading a tile staged in shared memory
+// (tiled::TileSrc, remap_tile.cuh), so both come from one source.
 //
 // It computes what cice4_tpu_torch/ops/remap_cuda.py::_construct_vmem (the
 // port of cice4_tpu/ops/remap_pallas.py::_construct_vmem) computes for one
@@ -38,6 +38,11 @@ __device__ __forceinline__ int nb_of(int n, int d) {
   return f[n][d];
 }
 
+// whether the kernels take a table of Tn tracers, n1 of type 1
+inline bool table_ok(int Tn, int n1) {
+  return Tn >= 0 && Tn <= kMaxT && n1 >= 0 && n1 <= kMaxT1 && n1 <= Tn;
+}
+
 // grid size, boundaries and the tracer table (n1 type-1 tracers first, then
 // the type-2 tracers with the row of their parent)
 struct Args {
@@ -58,8 +63,7 @@ struct Args {
 };
 
 // Args from the C interfaces' arguments (ew/ns 0 = cyclic, 1 = open or
-// closed); table[T] is each tracer's parent row (K12, K1) or its index into
-// the gathered parents (K2)
+// closed); table[T] is each tracer's parent row
 inline Args make_args(int C, int Tn, int n1, int ny, int nx, int ew, int ns,
                       const int* table) {
   Args a;
@@ -68,16 +72,6 @@ inline Args make_args(int C, int Tn, int n1, int ny, int nx, int ew, int ns,
   a.ns_cyclic = ns == 0;
   for (int t = 0; t < kMaxT; ++t) a.parent[t] = t < Tn ? table[t] : 0;
   return a;
-}
-
-// one thread per (row, cell): x over i, y over j, z over the C rows
-inline dim3 grid_of(int ny, int nx, int C, dim3 block) {
-  return dim3((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y, C);
-}
-
-template <typename T>
-__device__ __forceinline__ T ld(const T* f, int64_t k) {
-  return k < 0 ? T(0) : f[k];
 }
 
 // _grad_stream: the limited gradient (gx, gy) of phi about (cnx, cny), from
@@ -116,35 +110,6 @@ __device__ __forceinline__ void grad(T phi, T phimask, T cnx, T cny,
   ox = lim * gx;
   oy = lim * gy;
 }
-
-// The inputs of one cell read from device memory (K1): hm, the row's mass
-// plane m and its tracer planes from t0 (tracer t at t0 + t * np).  Index n
-// is a neighbour in nb_of order, or 8 for the cell itself; a neighbour
-// beyond an open or closed edge reads 0.
-template <typename T>
-struct GlobalSrc {
-  const T* hm_;
-  const T* m_;
-  const T* t0;
-  int64_t np, c;
-  int64_t nbi[8];
-  __device__ __forceinline__ GlobalSrc(const T* hm, const T* m, const T* t,
-                                       int64_t np_, int j, int i,
-                                       const Args& a)
-      : hm_(hm), m_(m), t0(t), np(np_), c((int64_t)j * a.nx + i) {
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      nbi[n] = a.idx(j + nb_of(n, 1), i + nb_of(n, 0));
-  }
-  __device__ __forceinline__ T at(const T* f, int n) const {
-    return n == 8 ? f[c] : ld(f, nbi[n]);
-  }
-  __device__ __forceinline__ T hm(int n) const { return at(hm_, n); }
-  __device__ __forceinline__ T mass(int n) const { return at(m_, n); }
-  __device__ __forceinline__ T tracer(int t, int n) const {
-    return at(t0 + t * np, n);
-  }
-};
 
 // The outputs of one cell to device memory (K1): mass component q (mc, mx,
 // my) at mass[q * np + c], tracer t component q (c, x, y) at trc[(t * ts +

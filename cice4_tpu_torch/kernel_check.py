@@ -154,7 +154,9 @@ def compare(kern: dict, plain: dict, has_ice, dtype) -> dict:
 #   1e-12 (f64).
 # * K2 (`contract`): the plain version's operations in its order, with the
 #   9 offsets summed in `remap.ALL_OFFSETS` order: rtol 1e-5 (f32) / 1e-12
-#   (f64).
+#   (f64).  Since K2 runs K12's contraction, a type-1 tracer's polynomial
+#   drops the terms whose parent planes are exactly 0, which changes at
+#   most the sign of a zero.
 
 EVP_RTOL = {torch.float32: 1.0e-4, torch.float64: 1.0e-10}
 GSH_RTOL = {torch.float32: 1.0e-5, torch.float64: 1.0e-12}

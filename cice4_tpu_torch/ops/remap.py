@@ -546,12 +546,11 @@ def transport_remap(state: State, grid: Grid, dt,
     if split_kernels is None:
         split_kernels = use_split_kernels(dx.device)
     if split_kernels:
-        # K0 in GA mode, K1 (reconstruction of every row), the parents'
-        # reconstructions gathered once, K2 (scatter-form contraction)
+        # K0 in GA mode, K1 (reconstruction of every row), K2 (scatter-form
+        # contraction; the parents' planes are rows of trc)
         ga = remap_cuda.ga_planes(dx, dy, afac, bc, integral_order)
         mass, trc = remap_cuda.construct(grid.hm, mm_ext, tm_ext, meta, bc)
-        par = remap_cuda.gather_parents(trc, meta)
-        div_ext, divt_ext = remap_cuda.contract(ga, mass, trc, par, meta, bc)
+        div_ext, divt_ext = remap_cuda.contract(ga, mass, trc, None, meta, bc)
     else:
         # K0: category-independent back-shifted geometry accumulators;
         # K12: reconstruction + contraction of every row

@@ -29,8 +29,9 @@ The split route (K0 in GA mode, then K1 and K2; the JAX package's
   nx).  Plain version :func:`construct_plain`.
 * ``contract`` (kernel ``csrc/remap_k1k2.cu`` ``remap_contract``,
   replaces K2, ``remap_pallas.py::_contract_kernel``): the scatter-form
-  contraction against GA with the gathered parent reconstructions.
-  Plain version :func:`contract_plain`.
+  contraction against GA, the parents' reconstructions read from the
+  reconstruction itself (the plain version takes them gathered).  Plain
+  version :func:`contract_plain`.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 the plain version for CPU tensors; ``<wrapper>.launches`` counts its
@@ -250,9 +251,11 @@ def contract_plain(ga, mass, trc, par, meta, bc):
     `remap_pallas._contract_kernel`, for all rows and tracers at once.
     U are the monomial coefficients of m*p*t with parent planes p = (1, 0,
     0) for a type-1 tracer and the parent's reconstruction from `par` for
-    a type-2 tracer."""
+    a type-2 tracer (gathered here when `par` is None)."""
     sh = Nbr(bc)
     T = len(meta)
+    if par is None:
+        par = gather_parents(trc, meta)
     mc, mx, my = mass[:, 0], mass[:, 1], mass[:, 2]
     if T:
         c2, x2, y2 = trc[:, :, 0], trc[:, :, 1], trc[:, :, 2]
@@ -435,20 +438,34 @@ def _int_table(values):
     return (ctypes.c_int * max(len(values), 1))(*(values or [0]))
 
 
+def _tile(lib, sym, T, n1, dtype, device) -> dict:
+    fn = _fn(lib, sym, dtype, [_INT, _INT] + [_VOIDP] * 3)
+    out = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device):
+        rc = fn(T, n1, *(ctypes.addressof(x) for x in out))
+    if rc != 0:
+        raise RuntimeError(f"{sym} has no tile for {T} tracers ({n1} of "
+                           f"type 1): error {rc}")
+    return dict(zip(("rows", "smem_bytes", "blocks_per_sm"),
+                    (x.value for x in out)))
+
+
 def k12_tile(T: int, n1: int, dtype, device) -> dict:
     """The tile a K12 call with T tracers, n1 of type 1, launches with on
     the card `device`, as the kernel's library picks it: ``rows`` (of 32
     cells), ``smem_bytes`` a block and ``blocks_per_sm`` the runtime keeps
     resident."""
-    fn = _fn("remap_k12", "remap_k12_tile", dtype, [_INT, _INT] + [_VOIDP] * 3)
-    out = [ctypes.c_int(0) for _ in range(3)]
-    with torch.cuda.device(device):
-        rc = fn(T, n1, *(ctypes.addressof(x) for x in out))
-    if rc != 0:
-        raise RuntimeError(f"remap_k12 has no tile for {T} tracers ({n1} of "
-                           f"type 1): error {rc}")
-    return dict(zip(("rows", "smem_bytes", "blocks_per_sm"),
-                    (x.value for x in out)))
+    return _tile("remap_k12", "remap_k12_tile", T, n1, dtype, device)
+
+
+def construct_tile(T: int, n1: int, dtype, device) -> dict:
+    """The tile of a K1 call, as :func:`k12_tile` gives K12's."""
+    return _tile("remap_k1k2", "remap_construct_tile", T, n1, dtype, device)
+
+
+def contract_tile(T: int, n1: int, dtype, device) -> dict:
+    """The tile of a K2 call, as :func:`k12_tile` gives K12's."""
+    return _tile("remap_k1k2", "remap_contract_tile", T, n1, dtype, device)
 
 
 def _k12_cuda(gsh, hm, mm_ext, tm_ext, meta, bc):
@@ -529,32 +546,23 @@ def construct(hm, mm_ext, tm_ext, meta, bc):
 construct.launches = 0
 
 
-def _contract_cuda(ga, mass, trc, par, meta, bc):
+def _contract_cuda(ga, mass, trc, meta, bc):
     _check_bc(bc)
     dtype, device = _dtype_device(mass, "remap_contract")
     C, _three, ny, nx = mass.shape
     T = len(meta)
-    P = par.shape[1]
-    if T > K12_MAX_T:
-        raise NotImplementedError(
-            f"remap_contract takes at most {K12_MAX_T} tracers, got {T}")
-    ppos = parent_positions(meta)
-    if any(pp >= P for pp in ppos):
-        raise ValueError(f"par holds {P} parent rows; meta needs "
-                         f"{max(ppos) + 1}")
+    n1, par = _tracer_table("remap_contract", meta, T)
     ga = _plane(ga, device, dtype, (9, 10, ny, nx))
     mass = _plane(mass, device, dtype, (C, 3, ny, nx))
     trc = _plane(trc, device, dtype, (C, T, 3, ny, nx))
-    par = _plane(par, device, dtype, (C, P, 3, ny, nx))
     div = torch.empty((C, ny, nx), dtype=dtype, device=device)
     divt = torch.empty((C, T, ny, nx), dtype=dtype, device=device)
-    ppos_arr = _int_table(ppos)
+    par_arr = _int_table(par)
     fn = _fn("remap_k1k2", "remap_contract", dtype,
-             [_VOIDP] * 6 + [_INT] * 7 + [_VOIDP] * 2)
-    rc = fn(ga.data_ptr(), mass.data_ptr(), trc.data_ptr(), par.data_ptr(),
-            div.data_ptr(), divt.data_ptr(), C, T, P, ny, nx,
-            _BC_CODE[bc.ew], _BC_CODE[bc.ns], ctypes.addressof(ppos_arr),
-            _stream(device))
+             [_VOIDP] * 5 + [_INT] * 7 + [_VOIDP] * 2)
+    rc = fn(ga.data_ptr(), mass.data_ptr(), trc.data_ptr(), div.data_ptr(),
+            divt.data_ptr(), C, T, n1, ny, nx, _BC_CODE[bc.ew],
+            _BC_CODE[bc.ns], ctypes.addressof(par_arr), _stream(device))
     if rc != 0:
         raise RuntimeError(f"remap_contract launch failed: cudaError {rc}")
     contract.launches += 1
@@ -563,11 +571,13 @@ def _contract_cuda(ga, mass, trc, par, meta, bc):
 
 def contract(ga, mass, trc, par, meta, bc):
     """(div (C, ny, nx), divt (C, T, ny, nx)) of the extended category
-    batch from GA, the reconstruction and the gathered parents (see
-    :func:`gather_parents`).  Kernel ``remap_contract`` (K2) on CUDA
-    tensors, :func:`contract_plain` on CPU tensors."""
+    batch (row 0 open water, whose tracers are zero) from GA and the
+    reconstruction.  `par` is ``gather_parents(trc, meta)`` or None: the
+    kernel reads the parents' planes from `trc` and ignores it.  Kernel
+    ``remap_contract`` (K2) on CUDA tensors, :func:`contract_plain` on CPU
+    tensors."""
     if mass.device.type == "cuda":
-        return _contract_cuda(ga, mass, trc, par, meta, bc)
+        return _contract_cuda(ga, mass, trc, meta, bc)
     if mass.device.type == "cpu":
         return contract_plain(ga, mass, trc, par, meta, bc)
     raise NotImplementedError(f"contract has no path for device {mass.device}")

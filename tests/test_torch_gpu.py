@@ -13,6 +13,7 @@ import torch
 from cice4_tpu_torch import kernel_check
 from cice4_tpu_torch.config import gx1_config
 from cice4_tpu_torch.ops import therm_vertical as tv
+from cice4_tpu_torch.ops.remap import _tracer_meta
 from cice4_tpu_torch.state import make_itd_params
 
 
@@ -64,7 +65,8 @@ def test_therm_newton_on_a_plane_and_rejects_bad_input(cuda_device):
 
 
 # ---------------------------------------------------------------------------
-# the dynamics kernels: evp_subcycle, remap_gsh, remap_k12
+# the dynamics kernels: evp_subcycle, remap_gsh, remap_k12, remap_construct
+# and remap_contract
 # ---------------------------------------------------------------------------
 
 DYN_CASES = [((64, 128), ("cyclic", "closed")),
@@ -152,7 +154,6 @@ def test_evp_subcycle_matches_plain(cuda_device, dtype, shape, bcs, ice,
 @pytest.mark.parametrize("order", [1, 2, 3])
 def test_remap_gsh_matches_plain(cuda_device, dtype, shape, bcs, order):
     from cice4_tpu_torch.ops import remap_cuda
-    from cice4_tpu_torch.ops.remap import _tracer_meta
 
     grid = _dyn_grid(shape, bcs, cuda_device, dtype)
     dx, dy, afac, _, _ = kernel_check.remap_inputs(
@@ -179,7 +180,6 @@ def test_remap_gsh_matches_plain(cuda_device, dtype, shape, bcs, order):
 def test_remap_ga_mode_matches_plain(cuda_device, dtype, shape, bcs, order):
     """K0 in GA mode (no back-shift), with its case codes."""
     from cice4_tpu_torch.ops import remap_cuda
-    from cice4_tpu_torch.ops.remap import _tracer_meta
 
     grid = _dyn_grid(shape, bcs, cuda_device, dtype)
     dx, dy, afac, _, _ = kernel_check.remap_inputs(
@@ -201,44 +201,6 @@ def test_remap_ga_mode_matches_plain(cuda_device, dtype, shape, bcs, order):
         report
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape,bcs", DYN_CASES)
-def test_remap_construct_and_contract_match_plain(cuda_device, dtype, shape,
-                                                  bcs):
-    """K1 and K2 of the split route, each on the other's plain inputs."""
-    from cice4_tpu_torch.ops import remap_cuda
-    from cice4_tpu_torch.ops.remap import _tracer_meta
-
-    grid = _dyn_grid(shape, bcs, cuda_device, dtype)
-    meta = _tracer_meta(["iage"], 4, 1)
-    dx, dy, afac, mm, tm = kernel_check.remap_inputs(
-        grid, seed=9, ncat=5, meta=meta, dtype=dtype)
-    before = remap_cuda.construct.launches
-    mass, trc = remap_cuda.construct(grid.hm, mm, tm, meta, grid.bc)
-    assert remap_cuda.construct.launches == before + 1
-    mass_p, trc_p = remap_cuda.construct_plain(grid.hm, mm, tm, meta,
-                                               grid.bc)
-    torch.cuda.synchronize()
-    report = kernel_check.compare_fields({"mass": mass, "trc": trc},
-                                         {"mass": mass_p, "trc": trc_p},
-                                         kernel_check.K1_RTOL[dtype])
-    assert kernel_check.fields_ok(report), report
-
-    ga = remap_cuda.ga_planes_plain(dx, dy, afac, grid.bc, 2)
-    par = remap_cuda.gather_parents(trc_p, meta)
-    before = remap_cuda.contract.launches
-    div, divt = remap_cuda.contract(ga, mass_p, trc_p, par, meta, grid.bc)
-    assert remap_cuda.contract.launches == before + 1
-    div_p, divt_p = remap_cuda.contract_plain(ga, mass_p, trc_p, par, meta,
-                                              grid.bc)
-    torch.cuda.synchronize()
-    report = kernel_check.compare_fields({"div": div, "divt": divt},
-                                         {"div": div_p, "divt": divt_p},
-                                         kernel_check.K2_RTOL[dtype])
-    assert kernel_check.fields_ok(report), report
-
-
 # the largest tracer table the reconstruction kernels take: 8 type-1
 # tracers, 24 type-2 with parents 0..7
 WIDE_META = ([(f"a{k}", 1, -1) for k in range(8)]
@@ -252,6 +214,17 @@ K12_CASES = ([(shape, bcs, "bands", "gx1") for shape, bcs in DYN_CASES]
                 for ice in ("none", "seams", "all")]
              + [((45, 70), bcs, "bands", "wide")
                 for bcs in (("cyclic", "cyclic"), ("open", "closed"))])
+# the tracer tables by name: the model's (gx1: 9 tracers, 3 of type 1), the
+# widest, one without type-2 tracers (its gathered parents are one zero
+# row) and none at all
+TABLES = {"gx1": _tracer_meta(["iage"], 4, 1), "wide": WIDE_META,
+          "type1": [("hi", 1, -1), ("hs", 1, -1), ("Tsfc", 1, -1)],
+          "none": []}
+# K12's cases, and the tables without type-2 tracers or without tracers
+SPLIT_CASES = K12_CASES + [
+    ((37, 61), bcs, "bands", table)
+    for bcs in (("cyclic", "cyclic"), ("open", "closed"))
+    for table in ("type1", "none")]
 
 
 @pytest.mark.gpu
@@ -259,10 +232,9 @@ K12_CASES = ([(shape, bcs, "bands", "gx1") for shape, bcs in DYN_CASES]
 @pytest.mark.parametrize("shape,bcs,ice,table", K12_CASES)
 def test_remap_k12_matches_plain(cuda_device, dtype, shape, bcs, ice, table):
     from cice4_tpu_torch.ops import remap_cuda
-    from cice4_tpu_torch.ops.remap import _tracer_meta
 
     grid = _dyn_grid(shape, bcs, cuda_device, dtype)
-    meta = _tracer_meta(["iage"], 4, 1) if table == "gx1" else WIDE_META
+    meta = TABLES[table]
     dx, dy, afac, mm, tm = kernel_check.remap_inputs(
         grid, seed=8, ncat=5, meta=meta, dtype=dtype, ice=ice)
     gsh = remap_cuda.ga_gsh_plain(dx, dy, afac, grid.bc, 2)
@@ -292,6 +264,66 @@ def test_remap_k12_tile_fits_every_table(cuda_device, dtype, ntracers, n1):
     assert tile["blocks_per_sm"] >= 1
     assert 0 < tile["smem_bytes"] <= 227 * 1024  # a Hopper block's most
     if (ntracers, n1) == (9, 3):
+        assert tile["rows"] == (8 if dtype == torch.float32 else 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,bcs,ice,table", SPLIT_CASES)
+def test_remap_construct_and_contract_match_plain(cuda_device, dtype, shape,
+                                                  bcs, ice, table):
+    """K1 and K2 of the split route, each on the other's plain inputs; K2
+    reads the parents from trc, its plain version takes them gathered."""
+    from cice4_tpu_torch.ops import remap_cuda
+
+    grid = _dyn_grid(shape, bcs, cuda_device, dtype)
+    meta = TABLES[table]
+    dx, dy, afac, mm, tm = kernel_check.remap_inputs(
+        grid, seed=9, ncat=5, meta=meta, dtype=dtype, ice=ice)
+    before = remap_cuda.construct.launches
+    mass, trc = remap_cuda.construct(grid.hm, mm, tm, meta, grid.bc)
+    assert remap_cuda.construct.launches == before + 1
+    mass_p, trc_p = remap_cuda.construct_plain(grid.hm, mm, tm, meta,
+                                               grid.bc)
+    torch.cuda.synchronize()
+    report = kernel_check.compare_fields({"mass": mass, "trc": trc},
+                                         {"mass": mass_p, "trc": trc_p},
+                                         kernel_check.K1_RTOL[dtype])
+    assert kernel_check.fields_ok(report), report
+    assert not bool(trc[0].any())     # open water carries no tracers
+
+    ga = remap_cuda.ga_planes_plain(dx, dy, afac, grid.bc, 2)
+    par = remap_cuda.gather_parents(trc_p, meta)
+    before = remap_cuda.contract.launches
+    div, divt = remap_cuda.contract(ga, mass_p, trc_p, None, meta, grid.bc)
+    assert remap_cuda.contract.launches == before + 1
+    div_p, divt_p = remap_cuda.contract_plain(ga, mass_p, trc_p, par, meta,
+                                              grid.bc)
+    torch.cuda.synchronize()
+    report = kernel_check.compare_fields({"div": div, "divt": divt},
+                                         {"div": div_p, "divt": divt_p},
+                                         kernel_check.K2_RTOL[dtype])
+    assert kernel_check.fields_ok(report), report
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ntracers,n1", [(0, 0), (1, 1), (3, 3), (9, 3),
+                                         (17, 8), (32, 8)])
+@pytest.mark.parametrize("kernel", ["construct", "contract"])
+def test_remap_split_tiles_fit_every_table(cuda_device, dtype, ntracers, n1,
+                                           kernel):
+    """Every tracer table `_tracer_table` accepts gets a K1 and a K2 tile
+    whose block the card keeps resident; K2 at the gx1 table (9 tracers, 3
+    of type 1) takes 8 rows in f32 and 4 in f64."""
+    from cice4_tpu_torch.ops import remap_cuda
+
+    tile = getattr(remap_cuda, f"{kernel}_tile")(ntracers, n1, dtype,
+                                                 cuda_device)
+    assert tile["rows"] in (8, 4, 2, 1)
+    assert tile["blocks_per_sm"] >= 1
+    assert 0 < tile["smem_bytes"] <= 227 * 1024  # a Hopper block's most
+    if kernel == "contract" and (ntracers, n1) == (9, 3):
         assert tile["rows"] == (8 if dtype == torch.float32 else 4)
 
 

@@ -13,6 +13,10 @@ a swirling velocity field that moves ice across cell corners.
 * `contract_plain` (plain version of K2) and the port's whole split route
   against one call of the TPU route `remap_pallas_divergence` (K0 -> K1 ->
   K2 in interpret mode, ~1 min) on the box;
+* `construct_plain` and `contract_plain` on the inputs of the kernels' GPU
+  cases (`kernel_check.remap_inputs`: no ice, one icy cell at each seam,
+  ice everywhere; the widest tracer table) on a ragged grid against the
+  jnp reconstruction and GA contraction, row by row;
 * the port's `transport_remap` on the split route against its K0/K12
   route.
 
@@ -26,12 +30,13 @@ import torch
 
 from cice4_tpu.config import Config, DomainConfig, GridConfig, \
     TransportConfig
-from cice4_tpu.grid import make_grid
+from cice4_tpu.grid import make_grid, make_rect_grid
 from cice4_tpu.model import Model
 from cice4_tpu.ops import remap as jremap
 from cice4_tpu.ops import remap_pallas as jrp
+from cice4_tpu.parallel.halo import BoundaryConditions as JBC
 from cice4_tpu.state import init_state
-from cice4_tpu_torch import convert
+from cice4_tpu_torch import convert, kernel_check
 from cice4_tpu_torch.ops import remap as tremap
 from cice4_tpu_torch.ops import remap_cuda
 
@@ -225,9 +230,69 @@ def test_contract_plain_matches_pallas_route(box, split_run, pallas_route):
     _close(divt, want_divt, "divt vs K2")
 
 
+# the widest tracer table the kernels take: 8 type-1 tracers, 24 type-2
+WIDE_META = ([(f"a{k}", 1, -1) for k in range(8)]
+             + [(f"b{k}", 2, k % 8) for k in range(24)])
+
+
+# (ice pattern of kernel_check.ice_mask, tracer table, boundaries)
+PATTERN_CASES = ([(ice, "gx1", ew, ns) for ice in ("none", "seams", "all")
+                  for ew, ns in (("cyclic", "cyclic"), ("open", "closed"),
+                                 ("closed", "cyclic"), ("cyclic", "open"))]
+                 + [("bands", "wide", ew, ns)
+                    for ew, ns in (("cyclic", "cyclic"), ("open", "closed"))])
+
+
+@pytest.mark.parametrize("ice,table,ew,ns", PATTERN_CASES)
+def test_split_plain_matches_jnp_on_ice_patterns(ice, table, ew, ns):
+    """The plain versions of K1 and K2, the kernels' oracles on the card,
+    against the JAX reconstruction (`_construct_vmem`) and, on the JAX
+    package's GA accumulators and reconstruction, its GA contraction
+    (`_flux_divergence_ga` on the back-shifted GA), row by row."""
+    ny, nx = 11, 17
+    jgrid = make_rect_grid(nx, ny, JBC(ew=ew, ns=ns), dx=20.0e3, dy=20.0e3,
+                           land_edges=False, dtype=jnp.float64)
+    tgrid = convert.grid_from_arrays(
+        {k: np.asarray(getattr(jgrid, k)) for k in convert.GRID_FIELDS},
+        convert.BoundaryConditions(ew=ew, ns=ns), device=CPU, dtype=F64)
+    meta = jremap._tracer_meta(["iage"], 4, 1) if table == "gx1" \
+        else WIDE_META
+    dx, dy, afac, mm, tm = kernel_check.remap_inputs(
+        tgrid, seed=8, ncat=5, meta=meta, dtype=F64, ice=ice)
+    mass, trc = remap_cuda.construct_plain(tgrid.hm, mm, tm, meta, tgrid.bc)
+    sh = jremap.JnpShift(jgrid.bc)
+    rows = [jrp._construct_vmem(jnp.asarray(mm[r].numpy()), jgrid.hm,
+                                jnp.asarray(tm[r].numpy()), meta, sh)
+            for r in range(mm.shape[0])]
+    for r, rec in enumerate(rows):
+        _close(mass[r], jnp.stack(rec[:3]), f"mass row {r}")
+        _close(trc[r], jnp.stack(rec[3:], axis=1), f"trc row {r}")
+
+    GA = jremap._geom_accumulators(*(jnp.asarray(a.numpy())
+                                     for a in (afac, dx, dy)), 2, sh)
+    zero = jnp.zeros_like(jnp.asarray(afac.numpy()))
+    ga = np.stack([np.stack([np.asarray(GA[off][k] + zero)
+                             for k in range(10)])
+                   for off in jremap.ALL_OFFSETS])
+    GSH = {off: [jremap._shift_by_jnp(sh, jnp.asarray(ga[o, k]),
+                                      (-off[0], -off[1])) for k in range(10)]
+           for o, off in enumerate(jremap.ALL_OFFSETS)}
+    jmass = _t(np.stack([np.stack([np.asarray(a) for a in rec[:3]])
+                         for rec in rows]))
+    jtrc = _t(np.stack([np.stack([np.asarray(a) for a in rec[3:]], axis=1)
+                        for rec in rows]))
+    div, divt = remap_cuda.contract_plain(_t(ga), jmass, jtrc, None, meta,
+                                          tgrid.bc)
+    for r, rec in enumerate(rows):
+        want_div, want_divt = jremap._flux_divergence_ga(GSH, *rec, meta, sh)
+        _close(div[r], want_div, f"div row {r}")
+        _close(divt[r], want_divt, f"divt row {r}")
+    assert float(divt[0].abs().max()) == 0.0   # open water has no tracers
+
+
 def test_split_route_matches_pallas_route(split_run, pallas_route):
     """The port's whole split route inside `transport_remap`: K0 in GA
-    mode, K1, the parent gather and K2."""
+    mode, K1 and K2."""
     div, divt = split_run["contract"][1]
     want_div, want_divt = pallas_route
     _close(div, want_div, "div, split route vs K0 -> K1 -> K2")
