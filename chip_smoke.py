@@ -11,8 +11,9 @@ versions:
 * ``evp_subcycle`` (``csrc/evp_subcycle.cu``), the EVP subcycle loop on
   grids closed or open north-south, and ``evp_wholegrid``, the same
   kernel with its NS-cyclic wrap (the TPU's whole-grid kernel);
-* ``remap_gsh`` (``csrc/remap_gsh.cu``), the remap geometry, in GSH mode
-  (back-shifted) and in GA mode (the split route's K0);
+* ``remap_gsh`` (``csrc/remap_gsh.cu``), the remap geometry, one fused
+  tile kernel in GSH mode (back-shifted) and in GA mode (the split
+  route's K0);
 * ``remap_k12`` (``csrc/remap_k12.cu``), the reconstruction and
   contraction of the default route;
 * ``remap_construct`` and ``remap_contract`` (``csrc/remap_k1k2.cu``),
@@ -37,8 +38,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
    checkout, one nvcc each, all started together;
 3. kernels vs plain versions on the card, f32 and f64, with the
    tolerances of ``kernel_check``: therm_newton at (5, 384, 320) and
-   (5, 116, 100); the dynamics kernels at 384x320 and 116x100 with
-   ice-free bands, EW cyclic and closed, NS closed, open and cyclic;
+   (5, 116, 100), and at the layer counts (7, 1), (2, 1) and (4, 2) on
+   the smaller; the dynamics kernels at 384x320 and 116x100 with
+   ice-free bands, EW cyclic and closed, NS closed, open and cyclic
+   (remap_gsh at quadrature orders 1-3);
 4. gx1 main path: 24 one-hour steps with the analytic forcing; each of
    the four kernels of the default route launches once per step; no
    conservation guard fires; the state is finite, 0 <= aice <= 1, with
@@ -66,11 +69,13 @@ Phases, each of which ends the run with a non-zero exit on failure:
     ``kernel_check`` tolerance of the field's scale.  Logged: the EVP
     kernel's grid, grid barriers and active cells as its launch reports
     them, its time on the same grid without ice (ndte and 1), the tiles,
-    shared memory and resident blocks of K12, K1 and K2 as their libraries
-    report them, K2's bound with and without the gathered parents an
-    earlier design read, what binds K1 and K2 (a PyTorch copy of as many
-    bytes, their operation rate, their time without tracers), the ptxas
-    lines of the EVP kernel, K12, K1 and K2, and whether a CUDA graph can
+    shared memory and resident blocks of K0, K12, K1 and K2 as their
+    libraries report them, K0's share of halo moments computed again,
+    K2's bound with and without the gathered parents an earlier design
+    read, what binds K0, K1 and K2 (a PyTorch copy of as many bytes, their
+    operation rate, for K1 and K2 their time without tracers), the ptxas
+    lines of the EVP kernel, K0 (f32 and f64), K12, K1 and K2, therm_newton
+    at (7, 1) beside (4, 1) on seeded inputs, and whether a CUDA graph can
     capture the EVP kernel's cooperative launch.
 
 The last three lines of standard output are the kernels' JSON record,
@@ -120,6 +125,10 @@ BOX_CLI = {"domain.ny_global": 48, "domain.nx_global": 64,
            "grid.lat_origin": 67.0}
 STEP_RTOL = 1.0e-9   # GPU f64 step vs CPU f64 step, relative to field max
 SPLIT_RTOL = 1.0e-5  # split vs default remap route, f32, to field max
+# therm_newton's (nilyr, nslyr) instances held against the plain version
+# beside the gx1 path's (4, 1), and the one timed beside it
+NEWTON_LAYERS = ((7, 1), (2, 1), (4, 2))
+NEWTON_TIMED = (7, 1)
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W; the
 # f32 and f64 rates outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -319,19 +328,38 @@ def expected(**per_step):
 # ---------------------------------------------------------------------------
 
 
+def layer_params(p, nilyr, nslyr):
+    """`p` (the gx1 model's thermo parameters) at other layer counts: the
+    salinity and melting-temperature profiles of that many layers."""
+    from cice4_tpu_torch.ops import therm_vertical as tv
+    from cice4_tpu_torch.state import make_itd_params
+
+    cfg = make_config(MAIN, **{"domain.nilyr": nilyr,
+                               "domain.nslyr": nslyr})
+    return dataclasses.replace(
+        p, **{k: v for k, v in vars(tv.make_thermo_params(
+            cfg, make_itd_params(cfg))).items()
+            if k in ("nilyr", "nslyr", "salin", "tmlt")})
+
+
 def check_newton(p, device):
+    """therm_newton against its plain version at the gx1 layer counts on
+    two shapes, and at the other instances NEWTON_LAYERS on the smaller."""
     from cice4_tpu_torch import kernel_check
     from cice4_tpu_torch.ops import therm_vertical as tv
 
-    for shape in ((5, 384, 320), (5, 116, 100)):
+    cases = [(p, shape) for shape in ((5, 384, 320), (5, 116, 100))]
+    cases += [(layer_params(p, *nl), (5, 116, 100)) for nl in NEWTON_LAYERS]
+    for q, shape in cases:
         for dtype in (torch.float32, torch.float64):
-            args = kernel_check.make_inputs(p, *shape, seed=11,
+            args = kernel_check.make_inputs(q, *shape, seed=11,
                                             device=device, dtype=dtype)
-            kern = tv.temperature_changes(p, DT, *args)
-            plain = tv._temperature_changes_core(p, DT, *args)
+            kern = tv.temperature_changes(q, DT, *args)
+            plain = tv._temperature_changes_core(q, DT, *args)
             torch.cuda.synchronize()
             rep = kernel_check.compare(kern, plain, args[0], dtype)
-            log(f"  therm_newton {shape} {str(dtype)[6:]}: ok={rep['ok']} "
+            log(f"  therm_newton {shape} nilyr {q.nilyr} nslyr {q.nslyr} "
+                f"{str(dtype)[6:]}: ok={rep['ok']} "
                 f"icy cells {rep['n_ice']}, cells whose convergence or "
                 f"iteration count differs {rep['n_flip']}, max niter kernel "
                 f"{rep['niter_kernel']} plain {rep['niter_plain']}")
@@ -341,7 +369,8 @@ def check_newton(p, device):
                     f"beyond tol {v['n_bad']}")
             if not rep["ok"]:
                 raise AssertionError(f"therm_newton disagrees with its plain "
-                                     f"version at {shape} {dtype}")
+                                     f"version at {shape} {dtype}, nilyr "
+                                     f"{q.nilyr} nslyr {q.nslyr}")
 
 
 def _log_fields(rep):
@@ -354,28 +383,31 @@ def _log_fields(rep):
         log("    max|d|/rel/beyond tol: " + "; ".join(items[i:i + 4]))
 
 
-def _check_geometry(name, tag, dx, dy, afac, grid, dtype, emit_shifted):
+def _check_geometry(name, tag, dx, dy, afac, grid, dtype, emit_shifted,
+                    order):
     """remap_gsh in one mode against its plain version, with the case
     codes of every edge."""
     from cice4_tpu_torch import kernel_check as kc
     from cice4_tpu_torch.ops import remap_cuda
 
-    out, codes = remap_cuda.edge_cases_cuda(dx, dy, afac, grid.bc, 2,
+    out, codes = remap_cuda.edge_cases_cuda(dx, dy, afac, grid.bc, order,
                                             emit_shifted=emit_shifted)
     plain = (remap_cuda.ga_gsh_plain if emit_shifted
-             else remap_cuda.ga_planes_plain)(dx, dy, afac, grid.bc, 2)
+             else remap_cuda.ga_planes_plain)(dx, dy, afac, grid.bc, order)
     codes_p = remap_cuda.edge_cases_plain(dx, dy, afac, grid.bc)
     torch.cuda.synchronize()
     flips = int((codes != codes_p).sum())
     rep = kc.compare_fields({name: out}, {name: plain}, kc.GSH_RTOL[dtype])
     ok = (flips <= kc.GSH_MAX_FLIP_SHARE[dtype] * codes.numel()
           and kc.fields_ok(rep, allowed_bad=90 * 25 * flips))
-    log(f"  remap_gsh ({name} mode) {tag}: ok={ok}, edges {codes.numel()}, "
+    log(f"  remap_gsh ({name} mode) {tag}, order {order}: ok={ok}, edges "
+        f"{codes.numel()}, "
         f"edges whose case differs {flips}, distinct cases "
         f"{len(set(codes_p.flatten().tolist()))}")
     _log_fields(rep)
     if not ok:
-        raise AssertionError(f"remap_gsh ({name} mode) disagrees at {tag}")
+        raise AssertionError(f"remap_gsh ({name} mode) disagrees at {tag}, "
+                             f"order {order}")
 
 
 def _check_pair(name, tag, kern, plain, rtol):
@@ -434,8 +466,11 @@ def check_dynamics_kernels(device):
 
                 dx, dy, afac, mm, tm = kc.remap_inputs(grid, seed=5, ncat=5,
                                                        meta=meta, dtype=dtype)
-                _check_geometry("GSH", tag, dx, dy, afac, grid, dtype, True)
-                _check_geometry("GA", tag, dx, dy, afac, grid, dtype, False)
+                for order in (1, 2, 3):
+                    _check_geometry("GSH", tag, dx, dy, afac, grid, dtype,
+                                    True, order)
+                    _check_geometry("GA", tag, dx, dy, afac, grid, dtype,
+                                    False, order)
                 gsh_p = remap_cuda.ga_gsh_plain(dx, dy, afac, grid.bc, 2)
                 div, divt = remap_cuda.k12_divergence(gsh_p, grid.hm, mm, tm,
                                                       meta, grid.bc)
@@ -881,12 +916,28 @@ def ptxas_lines(library, entry):
     return out
 
 
+def what_binds(nbytes, ops, ms, dtype, device):
+    """A line on what binds a kernel that took `ms` a call: a PyTorch copy
+    of as many bytes, and its operation rate against the rate the card
+    issues them without FMA (each operation an instruction)."""
+    buf = torch.empty(nbytes // 8, dtype=torch.float32, device=device)
+    copy = device_ms(buf.clone, 50)
+    rate = ops / (ms * 1e-3)
+    no_fma = PEAK_OPS_PER_S[dtype] / 2
+    return (f"a PyTorch copy of as many bytes ({nbytes / 2e6:.2f} MB read, "
+            f"as many written) {copy:.4f} ms, {100 * copy / ms:.1f}% of the "
+            f"kernel's {ms:.4f}; {ops / 1e9:.4g} G operations at "
+            f"{rate / 1e12:.2f} T/s, {100 * rate / no_fma:.1f}% of the "
+            f"{no_fma / 1e12:.1f} T/s the card issues without FMA")
+
+
 def log_design(name, args, ms):
-    """Log what the EVP kernel and the remap kernels K12, K1 and K2 ran at
-    a path's inputs, as the kernels and the runtime report it; the EVP
-    kernel's time without ice (its grid barriers, active lists and final
-    full-grid subcycle alone); and what binds K1 and K2 (a copy of their
-    bytes, their operation rate, their time without tracers).  Call it
+    """Log what the EVP kernel and the remap kernels K0, K12, K1 and K2
+    ran at a path's inputs, as the kernels and the runtime report it; the
+    EVP kernel's time without ice (its grid barriers, active lists and
+    final full-grid subcycle alone); K0's share of halo moments computed
+    again; and what binds K0, K1 and K2 (a copy of their bytes, their
+    operation rate, for K1 and K2 their time without tracers).  Call it
     right after `measure_kernel`, whose last kernel call was at `args` and
     took `ms`."""
     if name in ("evp_subcycle", "evp_wholegrid"):
@@ -917,6 +968,32 @@ def log_design(name, args, ms):
         entry = "evp_persistentIf" if dtype == torch.float32 \
             else "evp_persistentId"
         log(f"    ptxas: {ptxas_lines('evp_subcycle', entry)}")
+    elif name in ("remap_gsh", "remap_ga"):
+        from cice4_tpu_torch.ops import remap_cuda
+
+        dx, order = args[0], args[4]
+        dtype, device = dx.dtype, dx.device
+        ny, nx = dx.shape
+        tile = remap_cuda.gsh_tile(order, dtype, device)
+        rows = tile["rows"]
+        blocks = -(-nx // 32) * -(-ny // rows)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        # moments computed a call: the tile plus a one-cell halo per block
+        halo = (34 * (rows + 2)) / (32 * rows) - 1.0
+        log(f"    tile of 32 x {rows} cells, 2 threads a cell, "
+            f"{tile['smem_bytes']} bytes of shared memory a block, "
+            f"{tile['blocks_per_sm']} block(s) resident an SM (as the "
+            f"library and the runtime report them); {blocks} blocks, "
+            f"{blocks / (sms * tile['blocks_per_sm']):.2f} waves on {sms} "
+            f"SMs; the halo's moments computed again: {100 * halo:.1f}% "
+            f"more edges than cells")
+        for t, tag in ((torch.float32, "If"), (torch.float64, "Id")):
+            log(f"    ptxas, gsh_fused order {order} {str(t)[6:]}: "
+                f"{ptxas_lines('remap_gsh', f'gsh_fused{tag}Li{order}E')}")
+        kern = getattr(remap_cuda, sites()[name][1])
+        _, _, nbytes, ops = bound(name, args, kern(*args))
+        log(f"    {what_binds(nbytes, ops * (1.0 + halo), ms, dtype, device)}"
+            f" (the operations with the halo's)")
     elif name in ("remap_k12", "remap_construct", "remap_contract"):
         from cice4_tpu_torch.ops import remap_cuda
         from cice4_tpu_torch.ops.remap import _n_type1
@@ -957,22 +1034,44 @@ def log_design(name, args, ms):
                 f"({with_par[2] / 1e6:.2f} MB)")
         # what binds it: the same bytes in a PyTorch copy, its operation
         # rate, and the kernel on the same grid without tracers
-        buf = torch.empty(nbytes // 8, dtype=torch.float32, device=device)
-        copy = device_ms(buf.clone, 50)
-        rate = ops / (ms * 1e-3)
-        no_fma = PEAK_OPS_PER_S[dtype] / 2   # each operation an instruction
         no_tracers = ((*args[:2], args[2][:, :0], [], args[4])
                       if name == "remap_construct"
                       else (*args[:2], args[2][:, :0], None, [], args[5]))
         bare = device_ms(lambda: kern(*no_tracers), 50)
-        log(f"    a PyTorch copy of as many bytes ({nbytes / 2e6:.2f} MB "
-            f"read, as many written) {copy:.4f} ms, "
-            f"{100 * copy / ms:.1f}% of the kernel's {ms:.4f}; "
-            f"{ops / 1e9:.4g} G operations at "
-            f"{rate / 1e12:.2f} T/s, {100 * rate / no_fma:.1f}% of the "
-            f"{no_fma / 1e12:.1f} T/s the card issues without FMA; without "
+        log(f"    {what_binds(nbytes, ops, ms, dtype, device)}; without "
             f"tracers (mass only) {bare:.4f} ms, so the {len(meta)} tracers "
             f"take {ms - bare:.4f} ms")
+
+
+def time_newton_layers(p, device, card):
+    """Device ms per therm_newton launch on the seeded inputs of
+    `kernel_check` at the gx1 shape (5, 384, 320), f32, with the gx1
+    path's layer counts and with NEWTON_TIMED, in the order gx1, other,
+    other, gx1; each call held against its plain version."""
+    from cice4_tpu_torch import kernel_check
+    from cice4_tpu_torch.ops import therm_vertical as tv
+
+    calls = {}
+    for q in (p, layer_params(p, *NEWTON_TIMED)):
+        args = kernel_check.make_inputs(q, 5, 384, 320, seed=11,
+                                        device=device, dtype=torch.float32)
+        kern = tv.temperature_changes(q, DT, *args)
+        plain = tv._temperature_changes_core(q, DT, *args)
+        torch.cuda.synchronize()
+        if not kernel_check.compare(kern, plain, args[0],
+                                    torch.float32)["ok"]:
+            raise AssertionError(f"therm_newton disagrees at nilyr "
+                                 f"{q.nilyr} nslyr {q.nslyr}")
+        calls[f"{q.nilyr}x{q.nslyr}"] = (
+            lambda q=q, args=args: tv.temperature_changes(q, DT, *args))
+    (a, b), order = list(calls), []
+    for key in (a, b, b, a):
+        order.append((key, device_ms(calls[key], 50)))
+    out = {key: min(t for k, t in order if k == key) for key in calls}
+    log(f"  therm_newton on the seeded inputs at (5, 384, 320), f32: "
+        + "; ".join(f"nilyr x nslyr {k}: {t:.4f} ms" for k, t in order)
+        + f" (device time per launch, in this order); card: {card}")
+    return out
 
 
 def evp_graph_capture(args):
@@ -1258,9 +1357,13 @@ def main() -> int:
                  "bound_ms": bound_ms, "bound_by": bound_by,
                  "library_ms": None, "path": path}
         log_design(name, seen[name], ms)
+        if name == "therm_newton":
+            entry["ms_at_layers"] = time_newton_layers(
+                seen[name][0], device, card)
         if name == "remap_gsh":
             # the same kernel in GA mode, on the split route's inputs
             ga = measure_kernel("remap_ga", seen["remap_ga"], card)
+            log_design("remap_ga", seen["remap_ga"], ga[1])
             entry.update({"ga_mode_launches": launches["split"]["remap_ga"],
                           "ga_mode_max_abs_err": ga[0], "ga_mode_ms": ga[1],
                           "ga_mode_plain_ms": ga[2],

@@ -34,9 +34,17 @@
 // contracts a*b+c into FMA, so results may differ from the plain version in
 // the last ulp and, rarely, a cell may converge one iteration earlier or later.
 //
+// Layer counts: the kernel is a template over (nilyr, nslyr), so that its
+// per-layer arrays are unrolled into registers; it is built for nilyr 1..8
+// and nslyr 1..3 (24 instances per type, picked at run time by launch).
+// Instances, not a generic kernel with run-time counts: with run-time trip
+// counts the arrays would be indexed dynamically and live in local memory.
+//
 // C interface: therm_newton_f32 / therm_newton_f64 take a table of pointers,
-// a table of strides, the sizes, a table of double parameters and the CUDA
-// stream; they return cudaGetLastError() after the launch.
+// a table of strides, the sizes, a table of double parameters (dt, l_brine,
+// bubbly, nilyr, nslyr, salin[nilyr], tmlt[nilyr]) and the CUDA stream; they
+// return cudaGetLastError() after the launch, or -2 for a layer count
+// beyond the instances built.
 
 #include <cuda_runtime.h>
 
@@ -466,12 +474,16 @@ therm_newton_kernel(const Args<T, NI> a) {
   }
 }
 
-template <typename T>
-int launch(const int64_t* ptrs, const int64_t* strides, int64_t ncat,
-           int64_t ny, int64_t nx, const double* params, void* stream) {
-  constexpr int NI = 4, NS = 1;
-  if (static_cast<int>(params[3]) != NI || static_cast<int>(params[4]) != NS)
-    return static_cast<int>(cudaErrorInvalidValue);
+// the layer counts built: nilyr 1..kMaxNI x nslyr 1..kMaxNS, one template
+// instance each, so every per-layer array of the kernel stays in registers
+constexpr int kMaxNI = 8, kMaxNS = 3;
+// returned for a layer count beyond them (cudaError_t values are >= 0)
+constexpr int kErrLayers = -2;
+
+template <typename T, int NI, int NS>
+int launch_layers(const int64_t* ptrs, const int64_t* strides, int64_t ncat,
+                  int64_t ny, int64_t nx, const double* params,
+                  void* stream) {
   Args<T, NI> a;
   int ip = 0, is = 0;
   a.has_ice = reinterpret_cast<const uint8_t*>(ptrs[ip++]);
@@ -505,6 +517,34 @@ int launch(const int64_t* ptrs, const int64_t* strides, int64_t ncat,
   therm_newton_kernel<T, NI, NS><<<static_cast<unsigned>(blocks), kThreads, 0,
                                    static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int NI>
+int launch_snow(int nslyr, const int64_t* ptrs, const int64_t* strides,
+                int64_t ncat, int64_t ny, int64_t nx, const double* params,
+                void* stream) {
+  switch (nslyr) {
+    case 1: return launch_layers<T, NI, 1>(ptrs, strides, ncat, ny, nx, params, stream);
+    case 2: return launch_layers<T, NI, 2>(ptrs, strides, ncat, ny, nx, params, stream);
+    case 3: return launch_layers<T, NI, 3>(ptrs, strides, ncat, ny, nx, params, stream);
+    default: return kErrLayers;
+  }
+}
+
+template <typename T>
+int launch(const int64_t* ptrs, const int64_t* strides, int64_t ncat,
+           int64_t ny, int64_t nx, const double* params, void* stream) {
+  static_assert(kMaxNI == 8 && kMaxNS == 3, "the switches list the counts");
+  const int ni = static_cast<int>(params[3]), ns = static_cast<int>(params[4]);
+#define THERM_NEWTON_ICE(NI) \
+  case NI: return launch_snow<T, NI>(ns, ptrs, strides, ncat, ny, nx, params, stream);
+  switch (ni) {
+    THERM_NEWTON_ICE(1) THERM_NEWTON_ICE(2) THERM_NEWTON_ICE(3)
+    THERM_NEWTON_ICE(4) THERM_NEWTON_ICE(5) THERM_NEWTON_ICE(6)
+    THERM_NEWTON_ICE(7) THERM_NEWTON_ICE(8)
+    default: return kErrLayers;
+  }
+#undef THERM_NEWTON_ICE
 }
 
 }  // namespace

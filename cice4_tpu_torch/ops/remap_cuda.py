@@ -7,7 +7,8 @@ The default route (K0 in GSH mode, then K12):
   departure-triangle geometry of every east and north edge, the 10
   monomial moments of each triangle by quadrature, the +/- scatter to the
   9 donor offsets and the back-shift by -offset: GSH (9, 10, ny, nx) in
-  `remap.ALL_OFFSETS` order.  Plain version :func:`ga_gsh_plain`
+  `remap.ALL_OFFSETS` order, in one launch that keeps the moments in
+  shared memory (no scratch tensor).  Plain version :func:`ga_gsh_plain`
   (`remap._geom_accumulators` plus the back-shift).
 * ``k12_divergence`` (kernel ``csrc/remap_k12.cu``, replaces K12,
   ``remap_pallas.py::_k12_kernel``): van-Leer-limited reconstruction of
@@ -344,9 +345,8 @@ def _ga_gsh_cuda(dx, dy, afac, bc, order, case_codes=None,
     dtype, device = _dtype_device(dx, "remap_gsh")
     ny, nx = dx.shape
     dx, dy, afac = (_plane(a, device, dtype, (ny, nx)) for a in (dx, dy, afac))
-    # per-edge moment planes (east/north x 6 positions x 10 monomials),
-    # then the gathered GSH
-    planes = torch.empty((2, 6, 10, ny, nx), dtype=dtype, device=device)
+    # the output only: the kernel keeps the edges' moment planes in shared
+    # memory
     gsh = torch.empty((9, 10, ny, nx), dtype=dtype, device=device)
     codes = 0
     if case_codes is not None:
@@ -356,10 +356,10 @@ def _ga_gsh_cuda(dx, dy, afac, bc, order, case_codes=None,
                              "inputs' device")
         codes = case_codes.data_ptr()
     fn = _fn("remap_gsh", "remap_gsh", dtype,
-             [_VOIDP] * 6 + [_INT] * 6 + [_VOIDP])
-    rc = fn(dx.data_ptr(), dy.data_ptr(), afac.data_ptr(), planes.data_ptr(),
-            gsh.data_ptr(), codes, ny, nx, _BC_CODE[bc.ew], _BC_CODE[bc.ns],
-            order, int(emit_shifted), _stream(device))
+             [_VOIDP] * 5 + [_INT] * 6 + [_VOIDP])
+    rc = fn(dx.data_ptr(), dy.data_ptr(), afac.data_ptr(), gsh.data_ptr(),
+            codes, ny, nx, _BC_CODE[bc.ew], _BC_CODE[bc.ns], order,
+            int(emit_shifted), _stream(device))
     if rc != 0:
         raise RuntimeError(f"remap_gsh launch failed: cudaError {rc}")
     if emit_shifted:
@@ -418,6 +418,23 @@ def edge_cases_cuda(dx, dy, afac, bc, order=2, emit_shifted=True):
     out = _ga_gsh_cuda(dx, dy, afac, bc, order, case_codes=codes,
                        emit_shifted=emit_shifted)
     return out, codes
+
+
+def gsh_tile(order: int, dtype, device) -> dict:
+    """The tile a ``remap_gsh`` call of quadrature order `order` launches
+    with on the card `device`, as the kernel's library picks it: ``rows``
+    (of 32 cells, two threads a cell), ``smem_bytes`` a block and
+    ``blocks_per_sm`` the runtime keeps resident.  The same in both
+    modes."""
+    fn = _fn("remap_gsh", "remap_gsh_tile", dtype, [_INT] + [_VOIDP] * 3)
+    out = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device):
+        rc = fn(order, *(ctypes.addressof(x) for x in out))
+    if rc != 0:
+        raise RuntimeError(f"remap_gsh has no tile for order {order}: "
+                           f"error {rc}")
+    return dict(zip(("rows", "smem_bytes", "blocks_per_sm"),
+                    (x.value for x in out)))
 
 
 def _tracer_table(name, meta, T):

@@ -547,8 +547,11 @@ _TC_OUT_PLANES = ("Tsf", "fsurfn", "fcondtopn", "fcondbot", "fsensn",
 _TC_OUT_LAYERS = ("Tsn", "Tin", "qsn", "qin", "Sswabs", "Iswabs")
 _TC_LAYERS = dict(Sswabs="s", Iswabs="i", qin="i", Tin="i", qsn="s",
                   Tsn="s")
-# the layer counts the kernel is instantiated for (template arguments)
-_TC_NILYR, _TC_NSLYR = 4, 1
+# the layer counts the kernel is built for (csrc/therm_newton.cu kMaxNI,
+# kMaxNS: one template instance per nilyr 1..8 and nslyr 1..3)
+TC_MAX_NILYR, TC_MAX_NSLYR = 8, 3
+# what therm_newton_{f32,f64} return for a layer count beyond them
+_TC_ERR_LAYERS = -2
 
 
 def _therm_newton_fn(dtype):
@@ -571,10 +574,11 @@ def _temperature_changes_cuda(p: ThermoParams, dt, has_ice, *args):
     stacks (..., nlyr, ny, nx).  Returns the dict of
     :func:`_temperature_changes_core`, with `niter` the maximum of the
     per-cell iteration counts (a 0-dim device tensor)."""
-    if (p.nilyr, p.nslyr) != (_TC_NILYR, _TC_NSLYR):
+    if not (1 <= p.nilyr <= TC_MAX_NILYR and 1 <= p.nslyr <= TC_MAX_NSLYR):
         raise NotImplementedError(
-            f"therm_newton is instantiated for nilyr={_TC_NILYR}, "
-            f"nslyr={_TC_NSLYR}; got nilyr={p.nilyr}, nslyr={p.nslyr}")
+            f"therm_newton is built for nilyr 1..{TC_MAX_NILYR} and nslyr "
+            f"1..{TC_MAX_NSLYR}; got nilyr={p.nilyr}, nslyr={p.nslyr} "
+            f"(ROADMAP queue 2 item 10)")
     if p.conduct not in ("MU71", "bubbly"):
         raise ValueError(f"unknown conduct {p.conduct!r}")
     fields = dict(zip(_TC_ARGS, args))
@@ -633,6 +637,10 @@ def _temperature_changes_cuda(p: ThermoParams, dt, has_ice, *args):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(ctypes.addressof(ptr_arr), ctypes.addressof(stride_arr),
                 ncat, ny, nx, ctypes.addressof(par_arr), stream)
+    if rc == _TC_ERR_LAYERS:
+        raise NotImplementedError(
+            f"therm_newton has no instance for nilyr={p.nilyr}, nslyr="
+            f"{p.nslyr} (ROADMAP queue 2 item 10)")
     if rc != 0:
         raise RuntimeError(f"therm_newton launch failed: cudaError {rc}")
     temperature_changes.launches += 1

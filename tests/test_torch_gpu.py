@@ -25,12 +25,22 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _thermo_params(nilyr=4, nslyr=1):
+    cfg = gx1_config().with_values(**{"domain.nilyr": nilyr,
+                                      "domain.nslyr": nslyr})
+    return tv.make_thermo_params(cfg, make_itd_params(cfg))
+
+
+# (nilyr, nslyr): the default, then counts of other instances of the kernel
+LAYERS = [(4, 1), (7, 1), (2, 1), (4, 2)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shape", [(5, 64, 128), (5, 116, 100), (1, 7, 33)])
-def test_therm_newton_matches_plain(cuda_device, dtype, shape):
-    cfg = gx1_config()
-    p = tv.make_thermo_params(cfg, make_itd_params(cfg))
+@pytest.mark.parametrize("layers", LAYERS, ids=lambda v: f"{v[0]}x{v[1]}")
+def test_therm_newton_matches_plain(cuda_device, dtype, shape, layers):
+    p = _thermo_params(*layers)
     args = kernel_check.make_inputs(p, *shape, seed=7, device=cuda_device,
                                     dtype=dtype)
     before = tv.temperature_changes.launches
@@ -45,9 +55,9 @@ def test_therm_newton_matches_plain(cuda_device, dtype, shape):
 @pytest.mark.gpu
 def test_therm_newton_on_a_plane_and_rejects_bad_input(cuda_device):
     """A (ny, nx) call (no category axis) equals category 0 of a batched
-    call; a wrong dtype or layer count raises."""
-    cfg = gx1_config()
-    p = tv.make_thermo_params(cfg, make_itd_params(cfg))
+    call; a wrong dtype raises; a layer count of another instance (3 ice
+    layers) agrees with the plain version."""
+    p = _thermo_params()
     args = kernel_check.make_inputs(p, 2, 40, 24, seed=3,
                                     device=cuda_device, dtype=torch.float64)
     both = tv.temperature_changes(p, 3600.0, *args)
@@ -59,9 +69,32 @@ def test_therm_newton_on_a_plane_and_rejects_bad_input(cuda_device):
     with pytest.raises(TypeError):
         tv.temperature_changes(p, 3600.0, args[0],
                                *(a.to(torch.float16) for a in args[1:]))
-    p2 = tv.ThermoParams(**{**vars(p), "nilyr": 3})
-    with pytest.raises(NotImplementedError):
+    p3 = tv.ThermoParams(**{**vars(p), "nilyr": 3})
+    args3 = kernel_check.make_inputs(p3, 2, 40, 24, seed=3,
+                                     device=cuda_device, dtype=torch.float64)
+    kern = tv.temperature_changes(p3, 3600.0, *args3)
+    plain = tv._temperature_changes_core(p3, 3600.0, *args3)
+    torch.cuda.synchronize()
+    report = kernel_check.compare(kern, plain, args3[0], torch.float64)
+    assert report["ok"], report
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layers", [(tv.TC_MAX_NILYR + 1, 1),
+                                    (4, tv.TC_MAX_NSLYR + 1), (0, 1)])
+def test_therm_newton_refuses_counts_beyond_its_instances(cuda_device,
+                                                          layers):
+    """A layer count the kernel is not built for raises and names the
+    ROADMAP item, without a launch."""
+    p = _thermo_params()
+    args = kernel_check.make_inputs(p, 2, 40, 24, seed=3,
+                                    device=cuda_device, dtype=torch.float64)
+    p2 = tv.ThermoParams(**{**vars(p), "nilyr": layers[0],
+                            "nslyr": layers[1]})
+    before = tv.temperature_changes.launches
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 10"):
         tv.temperature_changes(p2, 3600.0, *args)
+    assert tv.temperature_changes.launches == before
 
 
 # ---------------------------------------------------------------------------
@@ -199,6 +232,52 @@ def test_remap_ga_mode_matches_plain(cuda_device, dtype, shape, bcs, order):
                                          kernel_check.GSH_RTOL[dtype])
     assert kernel_check.fields_ok(report, allowed_bad=90 * 25 * flips), \
         report
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("emit_shifted", [True, False], ids=["GSH", "GA"])
+def test_remap_gsh_is_one_launch_without_scratch(cuda_device, dtype,
+                                                 emit_shifted):
+    """Each call of K0, in either mode, is one kernel launch on the card
+    (as the profiler sees it) and allocates its output and nothing else,
+    not even for a moment."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cice4_tpu_torch.ops import remap_cuda
+
+    grid = _dyn_grid((64, 128), ("cyclic", "closed"), cuda_device, dtype)
+    dx, dy, afac, _, _ = kernel_check.remap_inputs(
+        grid, seed=6, ncat=5, meta=_tracer_meta([], 4, 1), dtype=dtype)
+    fn = remap_cuda.ga_gsh if emit_shifted else remap_cuda.ga_planes
+    fn(dx, dy, afac, grid.bc, 2)            # builds and loads the library
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn(dx, dy, afac, grid.bc, 2)
+        torch.cuda.synchronize()
+    nbytes = out.numel() * out.element_size()
+    assert torch.cuda.memory_allocated() - before == nbytes
+    assert torch.cuda.max_memory_allocated() - before == nbytes
+    kernels = [(e.key, e.count) for e in prof.key_averages()
+               if "CUDA" in str(getattr(e, "device_type", ""))
+               and getattr(e, "self_device_time_total", 0) > 0]
+    assert len(kernels) == 1 and kernels[0][1] == 1, kernels
+    assert "gsh_fused" in kernels[0][0], kernels
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_remap_gsh_tile_fits(cuda_device, dtype, order):
+    """The tile K0's library picks: the deepest that fits, 8 rows in f32
+    and 4 in f64, with at least one block resident an SM."""
+    from cice4_tpu_torch.ops import remap_cuda
+
+    tile = remap_cuda.gsh_tile(order, dtype, cuda_device)
+    assert tile["rows"] == (8 if dtype == torch.float32 else 4), tile
+    assert 0 < tile["smem_bytes"] <= 232448 and tile["blocks_per_sm"] >= 1
 
 
 # the largest tracer table the reconstruction kernels take: 8 type-1

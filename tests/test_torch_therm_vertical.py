@@ -9,6 +9,8 @@ and their layer sums reach 1e-16 relative differences from the order of
 reduction.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,21 +44,30 @@ def _cfg():
         "domain.ny_global": 24, "domain.nx_global": 32})
 
 
-@pytest.fixture(scope="module")
-def params():
-    cfg = _cfg()
+@functools.lru_cache(maxsize=None)
+def _layer_params(nilyr=4, nslyr=1):
+    """(JAX, port) thermo parameters of the thermo-only gx1 cut with
+    `nilyr` ice and `nslyr` snow layers."""
+    layers = {"domain.nilyr": nilyr, "domain.nslyr": nslyr}
+    cfg = _cfg().with_values(**layers)
     jp = jtv.make_thermo_params(cfg, js.make_itd_params(cfg))
     tp = ttv.make_thermo_params(tcfg.gx1_config().with_values(
-        **{"grid.kmt_file": ""}), ts.make_itd_params(cfg))
+        **{"grid.kmt_file": "", **layers}), ts.make_itd_params(cfg))
     assert vars(jp) == vars(tp)
     return jp, tp
 
 
 @pytest.fixture(scope="module")
-def solve_case(params):
+def params():
+    return _layer_params()
+
+
+@functools.lru_cache(maxsize=None)
+def _solve_case(nilyr=4, nslyr=1):
     """The JAX package's kernel-test fixture (tests/test_thermo.py
-    :227-256): ice only in two row bands, so the ice-free branch runs."""
-    jp, tp = params
+    :227-256) at the given layer counts: ice only in two row bands, so
+    the ice-free branch runs."""
+    jp, tp = _layer_params(nilyr, nslyr)
     ny, nx = 64, 128
     rng = np.random.RandomState(3)
 
@@ -88,10 +99,24 @@ def solve_case(params):
     return has_ice, arrays, out
 
 
-@pytest.mark.parametrize("ref", ["core", "pallas_interpret"])
-def test_solve_matches_jax(params, solve_case, ref):
-    jp, _ = params
-    has_ice, arrays, out = solve_case
+@pytest.fixture(scope="module")
+def solve_case():
+    return _solve_case()
+
+
+# (reference, (nilyr, nslyr)): the gx1 counts keep their ids; 7 ice layers
+# and 2 snow layers run other instances of the port's CUDA kernel
+SOLVE_CASES = [pytest.param(ref, layers, id="-".join(
+    [ref] + ([] if layers == (4, 1) else [f"nilyr{layers[0]}",
+                                          f"nslyr{layers[1]}"])))
+    for layers in ((4, 1), (7, 1), (4, 2))
+    for ref in ("core", "pallas_interpret")]
+
+
+@pytest.mark.parametrize("ref,layers", SOLVE_CASES)
+def test_solve_matches_jax(ref, layers):
+    jp, _ = _layer_params(*layers)
+    has_ice, arrays, out = _solve_case(*layers)
     jargs = (jp, 3600.0, jnp.asarray(has_ice)) \
         + tuple(jnp.asarray(a) for a in arrays)
     if ref == "core":
