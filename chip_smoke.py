@@ -25,11 +25,16 @@ lat-lon grid without a land-mask file, f32, 320x384, 5 categories, 4 ice
 thermodynamics-only path, and the doubly-periodic box (``Config()`` on
 the all-ocean 10 km grid, cyclic on both axes, 384x320, southern row at
 55N, analytic forcing, the rest at its defaults) run through the driver
-``IceModelRun`` on both remap routes and through the CLI.  On the box the
-grid masks the top row of U points, so no velocity crosses the NS seam:
-the EVP kernel's NS wrap reads only masked zeros there, and only the
-kernel-vs-plain checks of phase 3 hold that wrap against nonzero
-neighbours; remap's reconstruction does read across the seam.
+``IceModelRun`` on both remap routes and through the CLI, and ACCESS-OM2
+on its tripole grid (``access_om_config``: the lat-lon grid folded at its
+top row, at 0.25 degree, 1440x1080, and at 1 degree, 360x300).  On the
+box the grid masks the top row of U points, so no velocity crosses the NS
+seam: the EVP kernel's NS wrap reads only masked zeros there, and only
+the kernel-vs-plain checks of phase 3 hold that wrap against nonzero
+neighbours; remap's reconstruction does read across the seam.  The
+ACCESS grid's top row is land, so its fold carries zeros; phase 3 and
+the parity of phase 10 hold the folds on the all-ocean grid, where ice
+and stresses reach the top row.
 
 Phases, each of which ends the run with a non-zero exit on failure:
 
@@ -40,11 +45,13 @@ Phases, each of which ends the run with a non-zero exit on failure:
    tolerances of ``kernel_check``: therm_newton at (5, 384, 320) and
    (5, 116, 100), and at the layer counts (7, 1), (2, 1) and (4, 2) on
    the smaller; the dynamics kernels at 384x320 and 116x100 with
-   ice-free bands, EW cyclic and closed, NS closed, open and cyclic
-   (remap_gsh at quadrature orders 1-3);
+   ice-free bands, EW cyclic and closed, NS closed, open and cyclic, and
+   the tripole and tripoleT folds on the all-ocean grid (remap_gsh at
+   quadrature orders 1-3), where the split route's kernels must refuse
+   the fold;
 4. gx1 main path: 24 one-hour steps with the analytic forcing; each of
-   the four kernels of the default route launches once per step; no
-   conservation guard fires; the state is finite, 0 <= aice <= 1, with
+   the four kernels of the default route launches once per step and no
+   plain version runs; no conservation guard fires; the state is finite, 0 <= aice <= 1, with
    ice north of 70N and south of 60S and 0 < max|u| < 2 m/s;
 5. earlier path: 4 thermodynamics-only steps, therm_newton once per step
    and no dynamics kernel;
@@ -57,11 +64,17 @@ Phases, each of which ends the run with a non-zero exit on failure:
    mode, K1 and K2 once per step and neither GSH mode nor K12; the state
    agrees with the default route's within 1e-5 of each field's scale;
 8. CLI: ``python -m cice4_tpu_torch run`` on a 48x64 box, 2 steps;
-9. small parity: 24x32 f64 cuts of the gx1 path and of the box (with
-   the damped EVP, as the tier-1 tests run it) on the card agree with the
-   CPU path (which the tier-1 tests hold against the JAX package) after 3
-   steps;
-10. timing: ms/step and cell-steps/s of the gx1 and box paths, device
+9. ACCESS-OM2 on its tripole grid, f32: at 1440x1080, 4 steps with each
+   of the four kernels of the default route once a step and no plain
+   version, physical state; the EVP launch's active cells and grid
+   barriers, ms/step by CUDA events, device time by phase, and each
+   kernel held against its plain version at this grid's inputs and timed;
+   at 360x300 the same steps, ms/step and device time;
+10. small parity: 24x32 f64 cuts of the gx1 path, of the box and of the
+   box with a U-fold (all with the damped EVP, as the tier-1 tests run
+   it) on the card agree with the CPU path (which the tier-1 tests hold
+   against the JAX package) after 3 steps;
+11. timing: ms/step and cell-steps/s of the gx1 and box paths, device
     time by phase (the box also on the split remap route), and each
     kernel against its plain version at the inputs its path gives it,
     beside the least time the card could take;
@@ -84,6 +97,7 @@ the card's name and power limit, and ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -123,6 +137,16 @@ BOX_SMALL = {"domain.ny_global": 24, "domain.nx_global": 32,
              "grid.lat_origin": 69.0, "dynamics.evp_damping": True}
 BOX_CLI = {"domain.ny_global": 48, "domain.nx_global": 64,
            "grid.lat_origin": 67.0}
+# the all-ocean box cut and given a U-fold for the card-vs-CPU parity:
+# ice, velocities and stresses reach the top row and cross the fold
+TRIPOLE_SMALL = {**BOX_SMALL, "domain.ns_boundary_type": "tripole"}
+# ACCESS-OM2 on its tripole grid (cice4_tpu/config.py access_om_config):
+# 0.25 degree, 1440x1080, driven and timed step by step, and 1 degree,
+# 360x300, timed beside it
+ACCESS025 = (1080, 1440)
+ACCESS1 = (300, 360)
+ACCESS_STEPS = 4
+ACCESS_TIMED = 4
 STEP_RTOL = 1.0e-9   # GPU f64 step vs CPU f64 step, relative to field max
 SPLIT_RTOL = 1.0e-5  # split vs default remap route, f32, to field max
 # therm_newton's (nilyr, nslyr) instances held against the plain version
@@ -424,12 +448,14 @@ def _check_pair(name, tag, kern, plain, rtol):
 
 def check_dynamics_kernels(device):
     """The dynamics kernels against their plain versions, f32 and f64,
-    gx1 and a ragged shape, EW cyclic and closed, NS closed, open and
-    cyclic: evp_subcycle (the whole-grid kernel on NS-cyclic grids),
-    remap_gsh in GSH and GA mode, remap_k12, remap_construct (K1) and
-    remap_contract (K2).  The NS-cyclic cases run on the all-ocean box
-    grid, the others on the gx1 grid; the synthetic inputs put ice and
-    velocities on both sides of every seam."""
+    gx1 and a ragged shape, EW cyclic and closed, NS closed, open, cyclic
+    and the tripole and tripoleT folds: evp_subcycle (the whole-grid
+    kernel on NS-cyclic grids), remap_gsh in GSH and GA mode, remap_k12,
+    remap_construct (K1) and remap_contract (K2); on a fold the split
+    route's three (GA mode, K1, K2) must refuse it.  The NS-cyclic and
+    fold cases run on the all-ocean box grid (ice, stresses and
+    reconstructions reach the top row), the others on the gx1 grid; the
+    synthetic inputs put ice and velocities on both sides of every seam."""
     from cice4_tpu_torch import kernel_check as kc
     from cice4_tpu_torch.config import DynamicsConfig
     from cice4_tpu_torch.grid import make_grid
@@ -441,11 +467,13 @@ def check_dynamics_kernels(device):
     p = evp_ops.make_evp_params(DynamicsConfig(), DT)
     for (ny, nx) in ((384, 320), (116, 100)):
         for ew, ns in (("cyclic", "closed"), ("closed", "open"),
-                       ("cyclic", "cyclic"), ("closed", "cyclic")):
+                       ("cyclic", "cyclic"), ("closed", "cyclic"),
+                       ("cyclic", "tripole"), ("cyclic", "tripoleT")):
             size = {"domain.ny_global": ny, "domain.nx_global": nx,
                     "domain.ew_boundary_type": ew,
                     "domain.ns_boundary_type": ns}
-            cfg = box_config(**size) if ns == "cyclic" else \
+            fold = ns in ("tripole", "tripoleT")
+            cfg = box_config(**size) if ns == "cyclic" or fold else \
                 make_config(MAIN, **size)
             for dtype in (torch.float32, torch.float64):
                 grid = make_grid(cfg, device=device, dtype=dtype)
@@ -469,8 +497,9 @@ def check_dynamics_kernels(device):
                 for order in (1, 2, 3):
                     _check_geometry("GSH", tag, dx, dy, afac, grid, dtype,
                                     True, order)
-                    _check_geometry("GA", tag, dx, dy, afac, grid, dtype,
-                                    False, order)
+                    if not fold:
+                        _check_geometry("GA", tag, dx, dy, afac, grid, dtype,
+                                        False, order)
                 gsh_p = remap_cuda.ga_gsh_plain(dx, dy, afac, grid.bc, 2)
                 div, divt = remap_cuda.k12_divergence(gsh_p, grid.hm, mm, tm,
                                                       meta, grid.bc)
@@ -481,6 +510,9 @@ def check_dynamics_kernels(device):
                             {"div": div, "divt": divt},
                             {"div": div_p, "divt": divt_p},
                             kc.K12_RTOL[dtype])
+                if fold:
+                    _check_split_refuses(dx, dy, afac, grid, mm, tm, meta)
+                    continue
 
                 mass, trc = remap_cuda.construct(grid.hm, mm, tm, meta,
                                                  grid.bc)
@@ -502,9 +534,69 @@ def check_dynamics_kernels(device):
                             kc.K2_RTOL[dtype])
 
 
+def _check_split_refuses(dx, dy, afac, grid, mm, tm, meta):
+    """On a tripole grid the split route's kernels refuse, naming ROADMAP
+    queue 2 item 5, and launch nothing."""
+    from cice4_tpu_torch.ops import remap_cuda
+
+    before = read_counts()
+    for name, call in (
+            ("remap_gsh in GA mode",
+             lambda: remap_cuda.ga_planes(dx, dy, afac, grid.bc, 2)),
+            ("remap_construct",
+             lambda: remap_cuda.construct(grid.hm, mm, tm, meta, grid.bc)),
+            ("remap_contract",
+             lambda: remap_cuda.contract(torch.zeros((9, 10) + mm.shape[1:],
+                                                     dtype=mm.dtype,
+                                                     device=mm.device),
+                                         None, None, None, meta, grid.bc))):
+        try:
+            call()
+        except NotImplementedError as exc:
+            if "ROADMAP queue 2 item 5" not in str(exc):
+                raise
+        else:
+            raise AssertionError(f"{name} took a tripole grid")
+    if read_counts() != before:
+        raise AssertionError("a split-route kernel launched on a fold")
+    log(f"  the split route (GA mode, K1, K2) refuses {grid.bc.ns}, naming "
+        f"ROADMAP queue 2 item 5")
+
+
 # ---------------------------------------------------------------------------
 # phases 4-6: the paths
 # ---------------------------------------------------------------------------
+
+
+def plain_sites():
+    """(module, name) of each plain version where its wrapper looks it up."""
+    from cice4_tpu_torch.ops import evp_cuda, remap_cuda
+    from cice4_tpu_torch.ops import therm_vertical as tv
+    return ((tv, "_temperature_changes_core"),
+            (evp_cuda, "_evp_subcycle_plain"),
+            (remap_cuda, "ga_gsh_plain"), (remap_cuda, "k12_plain"),
+            (remap_cuda, "ga_planes_plain"), (remap_cuda, "construct_plain"),
+            (remap_cuda, "contract_plain"))
+
+
+@contextlib.contextmanager
+def counting_plain_calls():
+    """Counts, by name, the calls of the kernels' plain versions made
+    through their wrappers' modules while the block runs."""
+    calls, saved = {}, []
+    for mod, attr in plain_sites():
+        fn = getattr(mod, attr)
+
+        def counted(*a, _fn=fn, _name=attr, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **k)
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, counted)
+    try:
+        yield calls
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
 
 
 def drive_path(name, cfg, device, nsteps, expect, moving):
@@ -512,13 +604,17 @@ def drive_path(name, cfg, device, nsteps, expect, moving):
     to its launches.  Returns (model, state, forcing, ridge, fluxes)."""
     model, state, forcing = make_run(cfg, device, torch.float32)
     a0 = float(state.aicen.sum())
-    reset_counts()
-    state, ridge, fluxes = run_steps(model, state, forcing, nsteps)
-    torch.cuda.synchronize()
-    counts = read_counts()
-    log(f"  {name}: launches {counts}; ridge iterations per step {ridge}")
+    with counting_plain_calls() as plain_calls:
+        reset_counts()
+        state, ridge, fluxes = run_steps(model, state, forcing, nsteps)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    log(f"  {name}: launches {counts}; plain versions called "
+        f"{plain_calls or 'none'}; ridge iterations per step {ridge}")
     if counts != expect:
         raise AssertionError(f"{name}: launches {counts}, expected {expect}")
+    if plain_calls:
+        raise AssertionError(f"{name}: plain versions ran: {plain_calls}")
     amin, amax, n_north, n_south, umax = check_physical(model.grid, state,
                                                         moving)
     log(f"  guards clean; state finite; aice in [{amin:.3g}, {amax:.6g}]; "
@@ -527,6 +623,66 @@ def drive_path(name, cfg, device, nsteps, expect, moving):
         f"{float(state.aicen.sum()):.6g}; thermo max niter last step "
         f"{int(fluxes['_thermo_niter'])}")
     return model, state, forcing, ridge, fluxes
+
+
+def phase_access(device, card, shape, detail):
+    """ACCESS-OM2 on its tripole grid (`access_om_config`, f32, the
+    analytic forcing from day 80): ACCESS_STEPS steps with the counters
+    (each of the four kernels of the default route once a step, no plain
+    version), the EVP launch's report, ms/step by CUDA events over
+    ACCESS_TIMED more steps, the device time by phase; with `detail`, each
+    kernel against its plain version at this grid's inputs and its device
+    time per launch.  Returns {kernel: (launches, ms, bound_ms, max |d|)}
+    (empty without `detail`)."""
+    from cice4_tpu_torch.config import access_om_config
+    from cice4_tpu_torch.ops import evp_cuda
+
+    ny, nx = shape
+    cfg = access_om_config(nx=nx, ny=ny)
+    tag = f"ACCESS-OM2 {ny}x{nx}"
+    model, state, forcing, ridge, _ = drive_path(
+        tag, cfg, device, ACCESS_STEPS,
+        expected(therm_newton=ACCESS_STEPS, evp_subcycle=ACCESS_STEPS,
+                 remap_gsh=ACCESS_STEPS, remap_k12=ACCESS_STEPS),
+        moving=True)
+    launches = read_counts()
+    ran = evp_cuda.last_launch()
+    resident = ran["blocks"] * ran["threads_per_block"]
+    log(f"  {tag}: grid {model.grid.bc}; the last step's EVP launch "
+        f"reported {ran}: {max(0, ran['active_t_cells'] - resident)} active "
+        f"T cells and {max(0, ran['active_u_points'] - resident)} U points "
+        f"beyond its {resident} resident threads")
+    ms_ev, ms_host, ridge_t = time_path(model, state, forcing, ACCESS_TIMED,
+                                        first=ACCESS_STEPS)
+    log(f"  {tag}: {ms_ev:.3f} ms/step (CUDA events, {ACCESS_TIMED} steps "
+        f"after {ACCESS_STEPS}), {ms_host:.3f} ms/step (host clock), "
+        f"{ny * nx / (ms_ev / 1e3):.4g} cell-steps/s; ridge iterations "
+        f"{ridge_t}; card: {card}")
+    log_profile(tag, phase_device_times(model, state, forcing), ms_ev)
+    out = {}
+    if not detail:
+        return out
+    names = ("therm_newton", "evp_subcycle", "remap_gsh", "remap_k12")
+    seen = capture_kernel_inputs(model, state, forcing, names)
+    for name in names:
+        args = seen[name]
+        kern_fn, plain_fn = kernel_and_plain(name, args)
+        kern, plain = kern_fn(), plain_fn()
+        torch.cuda.synchronize()
+        err = max_abs_err(name, kern, plain)
+        ok, worst = within_tolerance(name, args, kern, plain)
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"at the {tag} inputs: worst {worst:.3e}")
+        ms = min(device_ms(kern_fn, 20) for _ in range(2))
+        bound_ms, bound_by, nbytes, ops = bound(name, args, kern)
+        log(f"  {name} at the {tag} inputs: {ms:.4f} ms device time per "
+            f"launch; bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f}"
+            f" MB, {ops / 1e9:.4g} G operations), {100 * bound_ms / ms:.1f}% "
+            f"of it; max |kernel - plain| {err:.3e}, {worst:.3e} of the "
+            f"field's scale (within tolerance); card: {card}")
+        out[name] = (launches[name], ms, bound_ms, err)
+    return out
 
 
 def start_at(calendar, yday):
@@ -967,7 +1123,8 @@ def log_design(name, args, ms):
             f"({100 * t_free[p.ndte] / ms:.1f}%) outside the gated passes")
         entry = "evp_persistentIf" if dtype == torch.float32 \
             else "evp_persistentId"
-        log(f"    ptxas: {ptxas_lines('evp_subcycle', entry)}")
+        for fold, lb in (("", "Lb0E"), (", tripole instance", "Lb1E")):
+            log(f"    ptxas{fold}: {ptxas_lines('evp_subcycle', entry + lb)}")
     elif name in ("remap_gsh", "remap_ga"):
         from cice4_tpu_torch.ops import remap_cuda
 
@@ -988,8 +1145,10 @@ def log_design(name, args, ms):
             f"SMs; the halo's moments computed again: {100 * halo:.1f}% "
             f"more edges than cells")
         for t, tag in ((torch.float32, "If"), (torch.float64, "Id")):
-            log(f"    ptxas, gsh_fused order {order} {str(t)[6:]}: "
-                f"{ptxas_lines('remap_gsh', f'gsh_fused{tag}Li{order}E')}")
+            for fold, lb in (("", "Lb0E"), (", tripole instance", "Lb1E")):
+                entry = f"gsh_fused{tag}Li{order}E{lb}"
+                log(f"    ptxas, gsh_fused order {order} {str(t)[6:]}{fold}: "
+                    f"{ptxas_lines('remap_gsh', entry)}")
         kern = getattr(remap_cuda, sites()[name][1])
         _, _, nbytes, ops = bound(name, args, kern(*args))
         log(f"    {what_binds(nbytes, ops * (1.0 + halo), ms, dtype, device)}"
@@ -1017,7 +1176,11 @@ def log_design(name, args, ms):
             f"{blocks / (sms * tile['blocks_per_sm']):.2f} waves on {sms} "
             f"SMs")
         entry += "If" if dtype == torch.float32 else "Id"
-        log(f"    ptxas: {ptxas_lines(library, entry)}")
+        if name == "remap_k12":   # the instances without and with the fold
+            for fold, lb in (("", "Lb0E"), (", tripole instance", "Lb1E")):
+                log(f"    ptxas{fold}: {ptxas_lines(library, entry + lb)}")
+        else:
+            log(f"    ptxas: {ptxas_lines(library, entry)}")
         if name == "remap_k12":
             return
         kern = getattr(remap_cuda, sites()[name][1])
@@ -1225,12 +1388,12 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     card = card_line()
-    log(f"[1/10 device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
+    log(f"[1/11 device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
         f"torch {torch.__version__} CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     libs = cuda_build.load_all(LIBRARIES)
-    log(f"[2/10 build] {len(libs)} kernel libraries in "
+    log(f"[2/11 build] {len(libs)} kernel libraries in "
         f"{time.perf_counter() - t0:.2f} s wall, built in parallel")
     for name, lib in libs.items():
         log(f"  {name}: built={lib.built} nvcc {lib.seconds:.2f} s -> "
@@ -1241,12 +1404,12 @@ def main() -> int:
 
     cfg = make_config(MAIN)
     ny, nx = cfg.domain.ny_global, cfg.domain.nx_global
-    log("[3/10 kernels vs plain versions on the card]")
+    log("[3/11 kernels vs plain versions on the card]")
     model, _, _ = make_run(cfg, device, torch.float32)
     check_newton(model.thermo, device)
     check_dynamics_kernels(device)
 
-    log(f"[4/10 gx1 main path] gx1 default step {ny}x{nx}, ncat "
+    log(f"[4/11 gx1 main path] gx1 default step {ny}x{nx}, ncat "
         f"{cfg.domain.ncat}, nilyr {cfg.domain.nilyr}, nslyr "
         f"{cfg.domain.nslyr}, ndte {cfg.dynamics.ndte}, advection "
         f"{cfg.transport.advection}, f32, {NSTEPS} steps of {DT:.0f} s")
@@ -1258,7 +1421,7 @@ def main() -> int:
     log(f"  ridge iterations per step: {ridge} (cap 20; "
         f"{sum(r == 20 for r in ridge)} steps at the cap)")
 
-    log(f"[5/10 earlier path] gx1 thermodynamics only, f32, {THERMO_STEPS} "
+    log(f"[5/11 earlier path] gx1 thermodynamics only, f32, {THERMO_STEPS} "
         f"steps")
     thermo_run = drive_path(
         "thermo-only path", make_config(THERMO_ONLY), device, THERMO_STEPS,
@@ -1267,7 +1430,7 @@ def main() -> int:
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         bcfg = box_config()
-        log(f"[6/10 box path] IceModelRun, doubly-periodic box "
+        log(f"[6/11 box path] IceModelRun, doubly-periodic box "
             f"{bcfg.domain.ny_global}x{bcfg.domain.nx_global} ("
             f"{bcfg.grid.dx_rect / 1e3:.0f} km cells from "
             f"{bcfg.grid.lat_origin}N), EW {bcfg.domain.ew_boundary_type} NS "
@@ -1277,14 +1440,14 @@ def main() -> int:
         box_run, launches["box"], driver_step_ms = phase_box_driver(
             device, workdir / "box")
 
-        log(f"[7/10 split route] the box, {SPLIT_STEPS} steps with "
+        log(f"[7/11 split route] the box, {SPLIT_STEPS} steps with "
             f"CICE4_FORCE_PALLAS_REMAP=1 (K0 in GA mode, K1, K2)")
         launches["split"], worst_split = phase_split_route(device)
         log(f"  split vs default route after {SPLIT_STEPS} steps: worst "
             f"difference {worst_split:.3e} of the field's scale (limit "
             f"{SPLIT_RTOL})")
 
-        log(f"[8/10 CLI] python -m cice4_tpu_torch run, the box cut to "
+        log(f"[8/11 CLI] python -m cice4_tpu_torch run, the box cut to "
             f"{BOX_CLI['domain.ny_global']}x{BOX_CLI['domain.nx_global']}, "
             f"{CLI_STEPS} steps")
         (workdir / "cli").mkdir()
@@ -1292,14 +1455,21 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    log("[9/10 small parity] 24x32 f64, card vs CPU, 3 steps")
+    log(f"[9/11 ACCESS-OM2 tripole] {ACCESS025[0]}x{ACCESS025[1]} (0.25 "
+        f"degree) and {ACCESS1[0]}x{ACCESS1[1]} (1 degree), f32, analytic "
+        f"forcing from day {YDAY0:.0f}; card: {card}")
+    access = phase_access(device, card, ACCESS025, detail=True)
+    phase_access(device, card, ACCESS1, detail=False)
+
+    log("[10/11 small parity] 24x32 f64, card vs CPU, 3 steps")
     for name, pcfg in (("gx1 main path", make_config(MAIN, **SMALL)),
-                       ("box", box_config(**BOX_SMALL))):
+                       ("box", box_config(**BOX_SMALL)),
+                       ("all-ocean tripole", box_config(**TRIPOLE_SMALL))):
         worst = phase_small_parity(device, pcfg)
         log(f"  {name}: worst difference {worst:.3e} of the field's scale "
             f"(limit {STEP_RTOL})")
 
-    log(f"[10/10 timing] card: {card}")
+    log(f"[11/11 timing] card: {card}")
     ms_ev, ms_host, ridge_t = time_path(model, state, forcing, 8)
     log(f"  gx1 main path: {ms_ev:.3f} ms/step (CUDA events, 8 steps after "
         f"{NSTEPS}), {ms_host:.3f} ms/step (host clock), "
@@ -1356,6 +1526,10 @@ def main() -> int:
                  "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": bound_ms, "bound_by": bound_by,
                  "library_ms": None, "path": path}
+        if name in access:
+            (entry["access025_launches"], entry["access025_ms"],
+             entry["access025_bound_ms"], entry["access025_max_abs_err"]) = \
+                access[name]
         log_design(name, seen[name], ms)
         if name == "therm_newton":
             entry["ms_at_layers"] = time_newton_layers(

@@ -7,7 +7,7 @@
 // _evp_pallas_wholegrid :443-486), the whole-grid kernel taken on grids that
 // are cyclic north-south.  On the GPU one kernel serves both: the per-cell
 // gating below is exact on any boundary, so the whole-grid kernel is this
-// one with the NS wrap of its neighbour reads (ns_cyclic).  It computes
+// one with the NS wrap of its neighbour reads (NS code 0).  It computes
 // what the plain version cice4_tpu_torch/ops/evp.py::_evp_subcycle_plain
 // computes:
 // per subcycle, the corner strain rates from the old velocities, the
@@ -55,7 +55,17 @@
 //
 // Boundaries: EW and NS cyclic wrap (the corner read (j-1, i-1) wraps on both
 // axes), EW and NS open/closed read 0 beyond the edge (evp_pallas.py
-// KernelNbr).  Tripole folds are not handled.
+// KernelNbr).  The tripole and tripoleT folds (NS only; the JAX package
+// runs them in plain jnp, cice4_tpu/ops/evp.py:127-159) cross the fold in one
+// place: velocities are read at W, S and SW and the south edge is closed, so
+// only the momentum pass's str8 reads at N and NE of the top row reach beyond
+// the north edge.  There they read the mirror cell's paired piece, negated
+// (_STR8_PAIR: N takes piece 1 for 2 and 6 for 5 at (src, nx-1-i), NE piece 0
+// for 3 and 4 for 7 at (src, (nx-2-i) mod nx), src = ny-1 on the U-fold grid,
+// ny-2 on the T-fold one), and the NE read of the other rows wraps east-west
+// whatever the EW boundary, as cice4_tpu_torch/parallel/halo.py::Nbr.ne_str
+// does.  The U-fold symmetrization of the top row of U points happens in
+// ops/evp.py before the call.
 //
 // What bounds it on an H100: latency.  A gated subcycle does ~400
 // operations and ~20 device-memory accesses (L2 hits) per active cell,
@@ -73,7 +83,8 @@
 // C interface: evp_subcycle_f32 / evp_subcycle_f64 take a table of 38
 // pointers (the last an int32 scratch of 2 x blocks + 5 + 2 x ny x nx
 // entries, blocks as evp_subcycle_resident gives them), the grid size, the
-// EW and NS boundaries (1 = cyclic), a table of 9 double parameters, ndte,
+// EW boundary (1 = cyclic), the NS boundary (0 = cyclic, 1 = open or closed,
+// 2 = tripole, 3 = tripoleT), a table of 9 double parameters, ndte,
 // flags (bit 0 evp_damping, bit 1 hemi_turning) and the CUDA stream; they
 // return the launch's error code.  The kernel leaves in scratch[2 x blocks
 // ...] what it ran: its active T cells and U points, the grid barriers it
@@ -132,6 +143,7 @@ struct Args {
   int ny, nx, ew_cyclic, ns_cyclic, ndte;
   T dte2T, denom1, denom2, rcon, ecci, cosw, sinw, dragw, puny;
   bool damping, hemi;
+  int fold;  // 0, or the NS code of a fold: 2 tripole, 3 tripoleT
 };
 
 // one block per SM: 512 threads of up to 128 registers in f32, 256 threads
@@ -381,7 +393,7 @@ __device__ __forceinline__ void stress(const Args<T>& a, Cell<T>& s,
 
 // The momentum pass of one icy U point: the 2x2 solve from str8 at the point
 // and its E, N and NE neighbours; with FINAL also strint and strocn.
-template <typename T, bool FINAL>
+template <typename T, bool FINAL, bool FOLD>
 __device__ __forceinline__ void momentum(const Args<T>& a, Point<T>& q) {
   const int j = q.j, i = q.i, c = q.c;
   const int64_t np = (int64_t)a.ny * a.nx;
@@ -399,9 +411,28 @@ __device__ __forceinline__ void momentum(const Args<T>& a, Point<T>& q) {
   const T* s = a.str8;
   const T s0 = s[c], s4 = s[4 * np + c];
   const T s1e = at(s + 1 * np, j, i + 1, a), s6e = at(s + 6 * np, j, i + 1, a);
-  const T s2n = at(s + 2 * np, j + 1, i, a), s5n = at(s + 5 * np, j + 1, i, a);
-  const T s3ne = at(s + 3 * np, j + 1, i + 1, a),
-          s7ne = at(s + 7 * np, j + 1, i + 1, a);
+  T s2n, s5n, s3ne, s7ne;
+  if constexpr (!FOLD) {
+    s2n = at(s + 2 * np, j + 1, i, a);
+    s5n = at(s + 5 * np, j + 1, i, a);
+    s3ne = at(s + 3 * np, j + 1, i + 1, a);
+    s7ne = at(s + 7 * np, j + 1, i + 1, a);
+  } else if (j == a.ny - 1) {  // across the fold: the mirror's pair
+    const int64_t src = (int64_t)(a.fold == 2 ? a.ny - 1 : a.ny - 2) * a.nx;
+    const int64_t rn = src + (a.nx - 1 - i);
+    const int64_t rne = src + (i == a.nx - 1 ? a.nx - 1 : a.nx - 2 - i);
+    s2n = -s[1 * np + rn];
+    s5n = -s[6 * np + rn];
+    s3ne = -s[rne];
+    s7ne = -s[4 * np + rne];
+  } else {  // the fold's NE shift wraps east-west
+    const int64_t n = c + a.nx;
+    const int64_t ne = n + (i == a.nx - 1 ? 1 - a.nx : 1);
+    s2n = s[2 * np + n];
+    s5n = s[5 * np + n];
+    s3ne = s[3 * np + ne];
+    s7ne = s[7 * np + ne];
+  }
   const T strintx = q.uarear * (s0 + s1e + s2n + s3ne);
   const T strinty = q.uarear * (s4 + s5n + s6e + s7ne);
 
@@ -449,7 +480,8 @@ __device__ __forceinline__ int block_sum(int x, int* warp_sums) {
   return total;
 }
 
-template <typename T>
+// FOLD: the instance for a tripole grid; the other grids run the one without
+template <typename T, bool FOLD>
 __global__ void __launch_bounds__(Launch<T>::threads, 1)
     evp_persistent(Args<T> a) {
   constexpr int kThreads = Launch<T>::threads;
@@ -531,11 +563,11 @@ __global__ void __launch_bounds__(Launch<T>::threads, 1)
       store_stress(a, s);
     }
     sync();
-    if (own_u) momentum<T, false>(a, ps);
+    if (own_u) momentum<T, false, FOLD>(a, ps);
     for (int k = g + R; k < nu; k += R) {
       Point<T> q;
       load_point(a, ulist[k], q);
-      momentum<T, false>(a, q);
+      momentum<T, false, FOLD>(a, q);
     }
     sync();
   }
@@ -559,11 +591,11 @@ __global__ void __launch_bounds__(Launch<T>::threads, 1)
     store_stress(a, s);
   }
   sync();
-  if (own_u) momentum<T, true>(a, ps);
+  if (own_u) momentum<T, true, FOLD>(a, ps);
   for (int k = g + R; k < nu; k += R) {
     Point<T> q;
     load_point(a, ulist[k], q);
-    momentum<T, true>(a, q);
+    momentum<T, true, FOLD>(a, q);
   }
   for (int c = g; c < np; c += R) {
     if (a.iceu[c]) continue;
@@ -581,7 +613,7 @@ __global__ void __launch_bounds__(Launch<T>::threads, 1)
   }
 }
 
-template <typename T>
+template <typename T, bool FOLD = false>
 int resident(int* blocks, int* threads) {
   int dev = 0, sms = 0, per_sm = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -591,7 +623,7 @@ int resident(int* blocks, int* threads) {
     e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, evp_persistent<T>, Launch<T>::threads, 0);
+        &per_sm, evp_persistent<T, FOLD>, Launch<T>::threads, 0);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (!coop || per_sm < 1)
     return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
@@ -601,9 +633,10 @@ int resident(int* blocks, int* threads) {
 }
 
 template <typename T>
-int run(const int64_t* ptrs, int ny, int nx, int ew_cyclic, int ns_cyclic,
+int run(const int64_t* ptrs, int ny, int nx, int ew_cyclic, int ns,
         const double* par, int ndte, int flags, cudaStream_t stream) {
-  if ((int64_t)ny * nx >= (int64_t)1 << 30 || ndte < 1)
+  if ((int64_t)ny * nx >= (int64_t)1 << 30 || ndte < 1 || ns < 0 || ns > 3 ||
+      (ns >= 2 && ny < 2))
     return static_cast<int>(cudaErrorInvalidValue);
   Args<T> a;
   for (int k = 0; k < 10; ++k) a.geom[k] = reinterpret_cast<const T*>(ptrs[k]);
@@ -622,7 +655,8 @@ int run(const int64_t* ptrs, int ny, int nx, int ew_cyclic, int ns_cyclic,
   a.ny = ny;
   a.nx = nx;
   a.ew_cyclic = ew_cyclic;
-  a.ns_cyclic = ns_cyclic;
+  a.ns_cyclic = ns == 0;
+  a.fold = ns >= 2 ? ns : 0;
   a.ndte = ndte;
   a.dte2T = T(par[0]);
   a.denom1 = T(par[1]);
@@ -636,13 +670,20 @@ int run(const int64_t* ptrs, int ny, int nx, int ew_cyclic, int ns_cyclic,
   a.damping = (flags & 1) != 0;
   a.hemi = (flags & 2) != 0;
 
-  int blocks = 0, threads = 0;
-  const int rc = resident<T>(&blocks, &threads);
+  // the scratch holds the counts of the grid evp_subcycle_resident gives:
+  // the fold's instance must launch the same
+  int blocks = 0, threads = 0, fold_blocks = 0;
+  int rc = resident<T>(&blocks, &threads);
+  if (rc == 0 && ns >= 2) rc = resident<T, true>(&fold_blocks, &threads);
   if (rc != 0) return rc;
+  if (ns >= 2 && fold_blocks != blocks)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   void* args[] = {&a};
+  const void* kernel = ns >= 2
+      ? reinterpret_cast<const void*>(evp_persistent<T, true>)
+      : reinterpret_cast<const void*>(evp_persistent<T, false>);
   return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(evp_persistent<T>), dim3(blocks),
-      dim3(threads), args, 0, stream));
+      kernel, dim3(blocks), dim3(threads), args, 0, stream));
 }
 
 }  // namespace
@@ -650,16 +691,16 @@ int run(const int64_t* ptrs, int ny, int nx, int ew_cyclic, int ns_cyclic,
 extern "C" {
 
 int evp_subcycle_f32(const int64_t* ptrs, int ny, int nx, int ew_cyclic,
-                     int ns_cyclic, const double* par, int ndte, int flags,
+                     int ns, const double* par, int ndte, int flags,
                      void* stream) {
-  return run<float>(ptrs, ny, nx, ew_cyclic, ns_cyclic, par, ndte, flags,
+  return run<float>(ptrs, ny, nx, ew_cyclic, ns, par, ndte, flags,
                     static_cast<cudaStream_t>(stream));
 }
 
 int evp_subcycle_f64(const int64_t* ptrs, int ny, int nx, int ew_cyclic,
-                     int ns_cyclic, const double* par, int ndte, int flags,
+                     int ns, const double* par, int ndte, int flags,
                      void* stream) {
-  return run<double>(ptrs, ny, nx, ew_cyclic, ns_cyclic, par, ndte, flags,
+  return run<double>(ptrs, ny, nx, ew_cyclic, ns, par, ndte, flags,
                      static_cast<cudaStream_t>(stream));
 }
 

@@ -62,6 +62,20 @@
 // (the bits of the 8 corner cases, then the index of the centre case), for
 // comparison with remap_cuda.edge_cases_plain.
 //
+// The tripole and tripoleT folds (GSH mode; the JAX package runs them in its
+// XLA GA path, cice4_tpu/ops/remap.py:1139-1174).  GA never folds: its back
+// shifts are west and south.  GSH[O] = S_-off(GA[O]) reads north for the
+// offsets with dj = -1, and from the top row that read crosses the fold:
+// the ghost row is row src (ny-1 on the U-fold grid, ny-2 on the T-fold
+// one) reversed, read after the x shift, so GSH[O](ny-1, i) = GSH[O](src-1,
+// nx-1-i), an ordinary cell of the grid.  The identity above does not hold
+// across the fold, so step 3 leaves those 3 offsets of the top row, and the
+// blocks of the top tile row then compute them (step 4): a one-row tile of
+// the mirror columns (src-1, nx-32-i0 ...) staged and its moments computed
+// as in steps 1 and 2, in the same shared memory, and each top-row cell
+// assembles offsets 6-8 of its mirror cell with the unfolded identity.  The
+// other blocks never branch into it.
+//
 // What bounds it on an H100: its bytes, 3 (ny, nx) planes read and 90
 // written (45.71 MB at gx1 in f32, 0.0136 ms at 3.35 TB/s), against ~1.9 k
 // operations a cell at order 2, a third more with the halo's recompute at 32
@@ -69,10 +83,12 @@
 // at the card's non-FMA issue rate).  The 120 moment planes, 2.6 times the
 // bytes the function must move, never leave shared memory.
 //
-// C interface (ew/ns 0 = cyclic, 1 = open or closed):
+// C interface (ew/ns 0 = cyclic, 1 = open or closed; ns 2 = tripole, 3 =
+// tripoleT, in GSH mode only and with ny >= ns):
 //   remap_gsh_f32 / remap_gsh_f64 (dx, dy, afac, gsh, codes, ny, nx, ew, ns,
 //     order, emit_shifted, stream): one launch; they return the launch's
-//     error code, -1 for an order other than 1, 2, 3 or no tile that fits;
+//     error code, -1 for an order other than 1, 2, 3 or no tile that fits,
+//     cudaErrorInvalidValue for a boundary code they do not take;
 //   remap_gsh_tile_f32 / remap_gsh_tile_f64 (order, rows, smem,
 //     blocks_per_sm): the tile such a call launches with and the blocks the
 //     runtime keeps resident on an SM.
@@ -167,6 +183,7 @@ struct Quad {
 
 struct Grid2 {
   int ny, nx, ew_cyclic, ns_cyclic;
+  int fold;  // 0, or the NS code of a fold: 2 tripole, 3 tripoleT
   // flat index of (j, i), or -1 beyond an open/closed edge
   __device__ __forceinline__ int64_t idx(int j, int i) const {
     if (i < 0 || i >= nx) {
@@ -470,8 +487,10 @@ template <typename T, int O>
 __device__ __forceinline__ void assemble(const T* mom, int cells, int wm,
                                          int r, int q, int j, int i,
                                          const Grid2& g, bool emit_shifted,
-                                         T* out, int64_t np) {
+                                         bool top_of_fold, T* out,
+                                         int64_t np) {
   constexpr int di = off_of(O, 0), dj = off_of(O, 1);
+  if (dj == -1 && top_of_fold) return;  // read across the fold: step 4
   // GSH mode: GSH[O](c) = GA[O](x), x = c - off, which is 0 beyond an open
   // or closed edge
   const bool x_ok = !emit_shifted || g.ok(j - dj, i - di);
@@ -514,22 +533,13 @@ __device__ __forceinline__ void assemble(const T* mom, int cells, int wm,
   for (int k = 0; k < 10; ++k) out[(int64_t)(O * 10 + k) * np] = acc[k];
 }
 
-template <typename T, int ORDER>
-__global__ void __launch_bounds__(GshThreads<T>::value)
-    gsh_fused(const T* __restrict__ dx, const T* __restrict__ dy,
-              const T* __restrict__ afac, T* __restrict__ gsh,
-              int* __restrict__ codes, Grid2 g, int emit_shifted) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int rows = blockDim.y;
-  const GshLayout L(rows);
-  const int nthreads = kTileW * rows * kSplit;
-  const int tid = (threadIdx.z * rows + threadIdx.y) * kTileW + threadIdx.x;
-  const int j0 = blockIdx.y * rows, i0 = blockIdx.x * kTileW;
-  const int64_t np = (int64_t)g.ny * g.nx;
-
-  // 1. the inputs on the tile plus its halo
-  T* in = smem + L.in;
+// 1. the inputs of the tile of L's rows at (j0, i0) plus its halo, into `in`
+template <typename T>
+__device__ __forceinline__ void stage_inputs(const T* dx, const T* dy,
+                                             const T* afac, T* in,
+                                             const GshLayout& L, int j0,
+                                             int i0, const Grid2& g, int tid,
+                                             int nthreads) {
   for (int k = tid; k < L.in_plane; k += nthreads) {
     const int64_t x = g.idx(j0 - 2 + k / L.wi, i0 - 2 + k % L.wi);
 #pragma unroll
@@ -545,9 +555,17 @@ __global__ void __launch_bounds__(GshThreads<T>::value)
   commit_copies();
   copies_landed();
   __syncthreads();
+}
 
-  // 2. both edges' moments of the tile plus a one-cell halo
-  T* mom = smem + L.mom;
+// 2. both edges' moments of that tile plus a one-cell halo, from `in` into
+// `mom`; with `codes` not null the owned cells' case codes too
+template <typename T, int ORDER>
+__device__ __forceinline__ void tile_moments(const T* in, T* mom,
+                                             const GshLayout& L, int rows,
+                                             int j0, int i0, const Grid2& g,
+                                             int* codes, int tid,
+                                             int nthreads) {
+  const int64_t np = (int64_t)g.ny * g.nx;
   for (int k = tid; k < 2 * L.cells; k += nthreads) {
     const int e = k >= L.cells;
     const int cell = k - e * L.cells;
@@ -564,31 +582,87 @@ __global__ void __launch_bounds__(GshThreads<T>::value)
       codes[e * np + (int64_t)j * g.nx + i] = code;
   }
   __syncthreads();
+}
 
-  // 3. the 9 offsets of each owned cell, even ones by z = 0, odd by z = 1
+// FOLD: the instance for a tripole grid; the other grids run the one without
+template <typename T, int ORDER, bool FOLD>
+__global__ void __launch_bounds__(GshThreads<T>::value)
+    gsh_fused(const T* __restrict__ dx, const T* __restrict__ dy,
+              const T* __restrict__ afac, T* __restrict__ gsh,
+              int* __restrict__ codes, Grid2 g, int emit_shifted) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int rows = blockDim.y;
+  const GshLayout L(rows);
+  const int nthreads = kTileW * rows * kSplit;
+  const int tid = (threadIdx.z * rows + threadIdx.y) * kTileW + threadIdx.x;
+  const int j0 = blockIdx.y * rows, i0 = blockIdx.x * kTileW;
+  const int64_t np = (int64_t)g.ny * g.nx;
+
+  // 1. and 2.: the moments of the tile plus a one-cell halo
+  stage_inputs(dx, dy, afac, smem + L.in, L, j0, i0, g, tid, nthreads);
+  T* mom = smem + L.mom;
+  tile_moments<T, ORDER>(smem + L.in, mom, L, rows, j0, i0, g, codes, tid,
+                         nthreads);
+
+  // 3. the 9 offsets of each owned cell, even ones by z = 0, odd by z = 1;
+  // under a fold the top row's offsets with dj = -1 are left to step 4
   const int j = j0 + threadIdx.y, i = i0 + threadIdx.x;
-  if (j >= g.ny || i >= g.nx) return;
-  T* out = gsh + (int64_t)j * g.nx + i;
-  const int r = threadIdx.y + 1, q = threadIdx.x + 1;
   const bool emit = emit_shifted != 0;
+  if (j < g.ny && i < g.nx) {
+    T* out = gsh + (int64_t)j * g.nx + i;
+    const int r = threadIdx.y + 1, q = threadIdx.x + 1;
+    const bool top = FOLD && j == g.ny - 1;
+    if (threadIdx.z == 0) {
+      assemble<T, 0>(mom, L.cells, L.wm, r, q, j, i, g, emit, top, out, np);
+      assemble<T, 2>(mom, L.cells, L.wm, r, q, j, i, g, emit, top, out, np);
+      assemble<T, 4>(mom, L.cells, L.wm, r, q, j, i, g, emit, top, out, np);
+      assemble<T, 6>(mom, L.cells, L.wm, r, q, j, i, g, emit, top, out, np);
+      assemble<T, 8>(mom, L.cells, L.wm, r, q, j, i, g, emit, top, out, np);
+    } else {
+      assemble<T, 1>(mom, L.cells, L.wm, r, q, j, i, g, emit, top, out, np);
+      assemble<T, 3>(mom, L.cells, L.wm, r, q, j, i, g, emit, top, out, np);
+      assemble<T, 5>(mom, L.cells, L.wm, r, q, j, i, g, emit, top, out, np);
+      assemble<T, 7>(mom, L.cells, L.wm, r, q, j, i, g, emit, top, out, np);
+    }
+  }
+  if (!FOLD || blockIdx.y != gridDim.y - 1) return;
+
+  // 4. the fold (GSH mode, the blocks of the top row): GSH[O] = S_-off(GA[O])
+  // reads north for dj = -1, and the ghost row beyond the top row is row
+  // src = ny-1 (tripole) or ny-2 (tripoleT) reversed, so GSH[O](ny-1, i) =
+  // GSH[O](src-1, nx-1-i), an ordinary cell of the grid (the x shift comes
+  // first and the fold reverses the row for every offset alike).  The block
+  // computes those from a one-row tile of the mirror columns, 32 x 1 cells
+  // at (src-1, nx-32-i0) plus its halo, in the same shared memory.
+  __syncthreads();  // every thread is done with the tile's moments
+  const GshLayout L1(1);
+  const int jv = (g.fold == 2 ? g.ny - 1 : g.ny - 2) - 1;
+  const int iv0 = g.nx - kTileW - i0;
+  stage_inputs(dx, dy, afac, smem + L1.in, L1, jv, iv0, g, tid, nthreads);
+  T* mom1 = smem + L1.mom;
+  tile_moments<T, ORDER>(smem + L1.in, mom1, L1, 1, jv, iv0, g, nullptr, tid,
+                         nthreads);
+  if (threadIdx.y != 0 || i >= g.nx) return;
+  // the mirror cell (jv, nx-1-i) sits at column 32 - x of the one-row tile
+  T* out = gsh + (int64_t)(g.ny - 1) * g.nx + i;
+  const int q1 = kTileW - threadIdx.x, im = g.nx - 1 - i;
   if (threadIdx.z == 0) {
-    assemble<T, 0>(mom, L.cells, L.wm, r, q, j, i, g, emit, out, np);
-    assemble<T, 2>(mom, L.cells, L.wm, r, q, j, i, g, emit, out, np);
-    assemble<T, 4>(mom, L.cells, L.wm, r, q, j, i, g, emit, out, np);
-    assemble<T, 6>(mom, L.cells, L.wm, r, q, j, i, g, emit, out, np);
-    assemble<T, 8>(mom, L.cells, L.wm, r, q, j, i, g, emit, out, np);
+    assemble<T, 6>(mom1, L1.cells, L1.wm, 1, q1, jv, im, g, true, false, out,
+                   np);
+    assemble<T, 8>(mom1, L1.cells, L1.wm, 1, q1, jv, im, g, true, false, out,
+                   np);
   } else {
-    assemble<T, 1>(mom, L.cells, L.wm, r, q, j, i, g, emit, out, np);
-    assemble<T, 3>(mom, L.cells, L.wm, r, q, j, i, g, emit, out, np);
-    assemble<T, 5>(mom, L.cells, L.wm, r, q, j, i, g, emit, out, np);
-    assemble<T, 7>(mom, L.cells, L.wm, r, q, j, i, g, emit, out, np);
+    assemble<T, 7>(mom1, L1.cells, L1.wm, 1, q1, jv, im, g, true, false, out,
+                   np);
   }
 }
 
-template <typename T, int ORDER>
+// the tile of a call (the same for both instances)
+template <typename T, int ORDER, bool FOLD = false>
 int plan(int* rows, int* smem, int* blocks_per_sm) {
   return tiled::plan_tile(
-      gsh_fused<T, ORDER>, kSplit * kTileW,
+      gsh_fused<T, ORDER, FOLD>, kSplit * kTileW,
       [](int r) -> size_t {
         if (kSplit * kTileW * r > GshThreads<T>::value) return SIZE_MAX;
         return sizeof(T) * GshLayout(r).total;
@@ -596,24 +670,42 @@ int plan(int* rows, int* smem, int* blocks_per_sm) {
       rows, smem, blocks_per_sm);
 }
 
-template <typename T>
+template <typename T, bool FOLD = false>
 int plan_order(int order, int* rows, int* smem, int* blocks_per_sm) {
   switch (order) {
-    case 1: return plan<T, 1>(rows, smem, blocks_per_sm);
-    case 2: return plan<T, 2>(rows, smem, blocks_per_sm);
-    case 3: return plan<T, 3>(rows, smem, blocks_per_sm);
+    case 1: return plan<T, 1, FOLD>(rows, smem, blocks_per_sm);
+    case 2: return plan<T, 2, FOLD>(rows, smem, blocks_per_sm);
+    case 3: return plan<T, 3, FOLD>(rows, smem, blocks_per_sm);
     default: return -1;
   }
+}
+
+template <typename T, int ORDER>
+void launch_order(bool fold, dim3 grid, dim3 block, int smem,
+                  cudaStream_t stream, const T* a, const T* b, const T* c,
+                  T* o, int* k, const Grid2& g, int emit_shifted) {
+  if (fold)
+    gsh_fused<T, ORDER, true><<<grid, block, smem, stream>>>(a, b, c, o, k, g,
+                                                            emit_shifted);
+  else
+    gsh_fused<T, ORDER, false><<<grid, block, smem, stream>>>(a, b, c, o, k,
+                                                             g, emit_shifted);
 }
 
 template <typename T>
 int run(const void* dx, const void* dy, const void* afac, void* gsh,
         void* codes, int ny, int nx, int ew, int ns, int order,
         int emit_shifted, cudaStream_t stream) {
+  // a fold: GSH mode only, and a row src-1 to mirror (src = ny-1 or ny-2)
+  if (ew < 0 || ew > 1 || ns < 0 || ns > 3 ||
+      (ns >= 2 && (!emit_shifted || ny < ns)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool fold = ns >= 2;
   int rows = 0, smem = 0;
-  const int rc = plan_order<T>(order, &rows, &smem, nullptr);
+  const int rc = fold ? plan_order<T, true>(order, &rows, &smem, nullptr)
+                      : plan_order<T, false>(order, &rows, &smem, nullptr);
   if (rc != 0) return rc;
-  const Grid2 g{ny, nx, ew == 0, ns == 0};
+  const Grid2 g{ny, nx, ew == 0, ns == 0, fold ? ns : 0};
   const dim3 block(kTileW, rows, kSplit);
   const dim3 grid((nx + kTileW - 1) / kTileW, (ny + rows - 1) / rows);
   const T* a = static_cast<const T*>(dx);
@@ -622,14 +714,14 @@ int run(const void* dx, const void* dy, const void* afac, void* gsh,
   T* o = static_cast<T*>(gsh);
   int* k = static_cast<int*>(codes);
   if (order == 1)
-    gsh_fused<T, 1><<<grid, block, smem, stream>>>(a, b, c, o, k, g,
-                                                   emit_shifted);
+    launch_order<T, 1>(fold, grid, block, smem, stream, a, b, c, o, k, g,
+                       emit_shifted);
   else if (order == 2)
-    gsh_fused<T, 2><<<grid, block, smem, stream>>>(a, b, c, o, k, g,
-                                                   emit_shifted);
+    launch_order<T, 2>(fold, grid, block, smem, stream, a, b, c, o, k, g,
+                       emit_shifted);
   else
-    gsh_fused<T, 3><<<grid, block, smem, stream>>>(a, b, c, o, k, g,
-                                                   emit_shifted);
+    launch_order<T, 3>(fold, grid, block, smem, stream, a, b, c, o, k, g,
+                       emit_shifted);
   return static_cast<int>(cudaGetLastError());
 }
 

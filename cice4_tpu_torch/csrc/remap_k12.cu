@@ -42,6 +42,24 @@
 // memory (Layout below) fits a block (plan): at gx1 (T = 9, n1 = 3) 8 rows
 // and 206,112 bytes in f32, 4 rows in f64; one block, 16 warps, per SM.
 //
+// The tripole and tripoleT folds (the JAX package's XLA GA path,
+// cice4_tpu/ops/remap.py:1139-1174, shifts p = GSH . U by +off, x then y):
+// from the top row a donor (di, 1) lies across the fold, at the mirror cell
+// (src, (nx-1-i) + di), src = ny-1 (tripole) or ny-2 (tripoleT), with that
+// cell's GSH and its own reconstruction, copied as scalars, as the plain
+// version does.  So, under a fold:
+//  * the staged GSH of such a donor and its `valid` bit follow that index
+//    (recon::Shape::nb_idx);
+//  * the top row's own reconstruction reads its north neighbours across
+//    the fold, and the row above it in the reconstruction tile holds the
+//    ghost row: the mirror cells' reconstructions, in reversed order, each
+//    from its own neighbourhood (reconstructing the halo from the staged
+//    halo would give another value, since the fold swaps east and west);
+//    both are computed from device memory (FoldSrc), by the tiles that
+//    hold the top row in their tile or halo;
+//  * the top row's contraction reads the donor (di, 1) at column -di of
+//    the ghost row (tiled::contract_cell's flip_north).
+//
 // What bounds it on an H100: not bytes.  Per call it must read GSH (90
 // planes), hm, mm (C planes) and tm (C*T planes) and write div and divt
 // (C*(1+T) planes), ~104 MB at gx1 f32 (C = 6, T = 9), 0.031 ms; the
@@ -51,8 +69,9 @@
 
 // C interface: remap_k12_f32 / remap_k12_f64 (gsh, hm, mm, tm, div, divt, C,
 // T, n1, ny, nx, ew, ns, parent, stream); ew/ns 0 = cyclic, 1 = open or
-// closed; parent[T] the parent row of each type-2 tracer.  They return the
-// launch's error code (-1 for a tracer table they do not take).
+// closed, ns 2 = tripole, 3 = tripoleT (with ny >= ns); parent[T] the
+// parent row of each type-2 tracer.  They return the launch's error code
+// (-1 for a tracer table or boundary code they do not take).
 // remap_k12_tile_f32 / _f64 (T, n1, rows, smem, blocks_per_sm) give the
 // tile such a call launches with and the blocks the runtime keeps on an SM.
 
@@ -115,7 +134,39 @@ struct TileDst {
   }
 };
 
+// The inputs of one cell of row r read from device memory, for the cells
+// whose neighbourhood crosses a tripole fold: neighbour n (recon::nb_of) at
+// the flat index Args::nb_idx gives, 0 where the plain version's shift
+// brings 0.
 template <typename T>
+struct FoldSrc {
+  const T* hm_;
+  const T* mm_;  // row r's mass plane
+  const T* tm_;  // row r's first tracer plane
+  recon::Shape g;
+  int64_t np;
+  int j, i;
+  __device__ FoldSrc(const T* hm, const T* mm, const T* tm, int r,
+                     const Args& a, int jc, int ic)
+      : hm_(hm), g(a.shape()), np((int64_t)a.ny * a.nx), j(jc), i(ic) {
+    mm_ = mm + r * np;
+    tm_ = tm + (int64_t)r * a.T * np;
+  }
+  __device__ __forceinline__ T at(const T* f, int n) const {
+    const int64_t x =
+        n == 8 ? (int64_t)j * g.nx + i
+               : g.nb_idx(j, i, recon::nb_of(n, 0), recon::nb_of(n, 1));
+    return x < 0 ? T(0) : f[x];
+  }
+  __device__ __forceinline__ T hm(int n) const { return at(hm_, n); }
+  __device__ __forceinline__ T mass(int n) const { return at(mm_, n); }
+  __device__ __forceinline__ T tracer(int t, int n) const {
+    return at(tm_ + t * np, n);
+  }
+};
+
+// FOLD: the instance for a tripole grid; the other grids run the one without
+template <typename T, bool FOLD>
 __global__ void __launch_bounds__(kTileW * kMaxTileRows * kSplit)
     k12(const T* __restrict__ gsh, const T* __restrict__ hm,
         const T* __restrict__ mm, const T* __restrict__ tm,
@@ -145,7 +196,8 @@ __global__ void __launch_bounds__(kTileW * kMaxTileRows * kSplit)
   if (own) {
 #pragma unroll
     for (int o = 0; o < 9; ++o) {
-      const int64_t x = a.idx(j + off_of(o, 1), i + off_of(o, 0));
+      const int64_t x = FOLD ? a.nb_idx(j, i, off_of(o, 0), off_of(o, 1))
+                             : a.idx(j + off_of(o, 1), i + off_of(o, 0));
       if (x < 0) continue;  // the masked shift brings 0
       valid |= 1u << o;
       if (o % kSplit != h) continue;
@@ -180,25 +232,44 @@ __global__ void __launch_bounds__(kTileW * kMaxTileRows * kSplit)
                 L.w4, L.plane4, 2, j0, i0, tid, L.nthreads, a);
     for (int k = tid; k < L.plane2; k += L.nthreads) {
       const int y = k / L.w2, xx = k % L.w2;
-      if (a.idx(j0 - 1 + y, i0 - 1 + xx) < 0) continue;  // never a donor
-      const TileSrc<T> src{shm, in, L.w4, L.plane4, (y + 1) * L.w4 + xx + 1};
+      const int jy = j0 - 1 + y, ix = i0 - 1 + xx;
       const TileDst<T> dst{rec, L.plane2, k, a.T};
+      if (FOLD && jy >= a.ny - 1) {
+        // the top row reads its north neighbours across the fold, and the
+        // row above it holds the ghost row: the mirror cells (src, nx-1-i)
+        // with their own reconstruction, in reversed order
+        int64_t x = a.idx(a.ny - 1, ix);
+        if (x < 0 || jy > a.ny) continue;  // never a donor
+        int jc = a.ny - 1, ic = (int)(x - (int64_t)jc * a.nx);
+        if (jy == a.ny) {
+          jc = a.fold == 2 ? a.ny - 1 : a.ny - 2;
+          ic = a.nx - 1 - ic;
+        }
+        const FoldSrc<T> src(hm, mm, tm, r, a, jc, ic);
+        recon::reconstruct<T>(src, dst, tracers, a, parent, cent,
+                              L.nthreads);
+        continue;
+      }
+      if (a.idx(jy, ix) < 0) continue;  // never a donor
+      const TileSrc<T> src{shm, in, L.w4, L.plane4, (y + 1) * L.w4 + xx + 1};
       recon::reconstruct<T>(src, dst, tracers, a, parent, cent, L.nthreads);
     }
     __syncthreads();
     if (!own) continue;
 
-    tiled::contract_cell(sg + cell * kGshRow, rec, L.plane2, L.w2, base,
-                         valid, h, tracers, a, parent, div, divt, r, np, c);
+    tiled::contract_cell<FOLD>(sg + cell * kGshRow, rec, L.plane2, L.w2,
+                               base, valid, j == a.ny - 1, h, tracers, a,
+                               parent, div, divt, r, np, c);
   }
 }
 
-// the tile of a call with Tn tracers, n1 of type 1 (tiled::plan_tile)
-template <typename T>
+// the tile of a call with Tn tracers, n1 of type 1 (tiled::plan_tile); the
+// same for both instances
+template <typename T, bool FOLD = false>
 int plan(int Tn, int n1, int* rows, int* smem, int* blocks_per_sm) {
   if (!recon::table_ok(Tn, n1)) return -1;
   return tiled::plan_tile(
-      k12<T>, kTileW * kSplit,
+      k12<T, FOLD>, kTileW * kSplit,
       [=](int r) { return sizeof(T) * Layout(r, Tn, n1).total; }, rows, smem,
       blocks_per_sm);
 }
@@ -207,16 +278,27 @@ template <typename T>
 int run(const void* gsh, const void* hm, const void* mm, const void* tm,
         void* div, void* divt, int C, int Tn, int n1, int ny, int nx, int ew,
         int ns, const int* parent, cudaStream_t stream) {
+  // a fold needs the rows its ghost row reads (src = ny-1 or ny-2)
+  if (ew < 0 || ew > 1 || ns < 0 || ns > 3 || (ns >= 2 && ny < ns))
+    return -1;
   int rows = 0, smem = 0;
-  const int rc = plan<T>(Tn, n1, &rows, &smem, nullptr);
+  const bool fold = ns >= 2;
+  const int rc = fold ? plan<T, true>(Tn, n1, &rows, &smem, nullptr)
+                      : plan<T, false>(Tn, n1, &rows, &smem, nullptr);
   if (rc != 0) return rc;
   const Args a = recon::make_args(C, Tn, n1, ny, nx, ew, ns, parent);
   const dim3 block(kTileW, rows, kSplit);
   const dim3 grid((nx + kTileW - 1) / kTileW, (ny + rows - 1) / rows);
-  k12<T><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(gsh), static_cast<const T*>(hm),
-      static_cast<const T*>(mm), static_cast<const T*>(tm),
-      static_cast<T*>(div), static_cast<T*>(divt), a);
+  const T* g = static_cast<const T*>(gsh);
+  const T* h = static_cast<const T*>(hm);
+  const T* m = static_cast<const T*>(mm);
+  const T* t = static_cast<const T*>(tm);
+  if (fold)
+    k12<T, true><<<grid, block, smem, stream>>>(
+        g, h, m, t, static_cast<T*>(div), static_cast<T*>(divt), a);
+  else
+    k12<T, false><<<grid, block, smem, stream>>>(
+        g, h, m, t, static_cast<T*>(div), static_cast<T*>(divt), a);
   return static_cast<int>(cudaGetLastError());
 }
 

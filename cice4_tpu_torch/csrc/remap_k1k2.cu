@@ -60,7 +60,8 @@
 //
 // C interface (ew/ns 0 = cyclic, 1 = open or closed; parent[T] the parent
 // row of each type-2 tracer; they return the launch's error code, -1 for a
-// tracer table they do not take):
+// tracer table they do not take or a tripole fold, ns 2 or 3, which the
+// split route does not take):
 //   remap_construct_f32/_f64(hm, mm, tm, mass, trc, C, T, n1, ny, nx, ew,
 //                            ns, parent, stream);
 //   remap_contract_f32/_f64(ga, mass, trc, div, divt, C, T, n1, ny, nx, ew,
@@ -186,6 +187,7 @@ int run_construct(const void* hm, const void* mm, const void* tm, void* mass,
                   void* trc, int C, int Tn, int n1, int ny, int nx, int ew,
                   int ns, const int* parent, cudaStream_t stream) {
   int rows = 0, smem = 0;
+  if (ns > 1) return -1;  // the split route takes no tripole fold
   const int rc = construct_plan<T>(Tn, n1, &rows, &smem, nullptr);
   if (rc != 0) return rc;
   const Args a = recon::make_args(C, Tn, n1, ny, nx, ew, ns, parent);
@@ -301,8 +303,9 @@ __global__ void __launch_bounds__(kTileW * kMaxTileRows * kSplit)
       stage_rec(smem + L.rec + ((r + 1) & 1) * recplanes, mass, trc, r + 1,
                 L, j0, i0, tid, a);
     if (!own) continue;
-    tiled::contract_cell(sg + cell * kGshRow, rec, L.plane, L.w, base, valid,
-                         h, r > 0, a, parent, div, divt, r, np, c);
+    tiled::contract_cell<false>(sg + cell * kGshRow, rec, L.plane, L.w, base,
+                                valid, false, h, r > 0, a, parent, div, divt,
+                                r, np, c);
   }
 }
 
@@ -320,6 +323,7 @@ int run_contract(const void* ga, const void* mass, const void* trc,
                  void* div, void* divt, int C, int Tn, int n1, int ny, int nx,
                  int ew, int ns, const int* parent, cudaStream_t stream) {
   int rows = 0, smem = 0;
+  if (ns > 1) return -1;  // the split route takes no tripole fold
   const int rc = contract_plan<T>(Tn, n1, &rows, &smem, nullptr);
   if (rc != 0) return rc;
   const Args a = recon::make_args(C, Tn, n1, ny, nx, ew, ns, parent);

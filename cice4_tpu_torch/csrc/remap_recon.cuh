@@ -43,12 +43,12 @@ inline bool table_ok(int Tn, int n1) {
   return Tn >= 0 && Tn <= kMaxT && n1 >= 0 && n1 <= kMaxT1 && n1 <= Tn;
 }
 
-// grid size, boundaries and the tracer table (n1 type-1 tracers first, then
-// the type-2 tracers with the row of their parent)
-struct Args {
-  int C, T, n1, ny, nx, ew_cyclic, ns_cyclic;
-  int parent[kMaxT];
-  // flat index of (j, i), or -1 beyond an open or closed edge
+// grid size and boundaries
+struct Shape {
+  int ny, nx, ew_cyclic, ns_cyclic;
+  int fold;  // 0, or the NS code of a fold: 2 tripole, 3 tripoleT
+  // flat index of (j, i), or -1 beyond an open or closed edge (and beyond
+  // the north edge of a fold)
   __device__ __forceinline__ int64_t idx(int j, int i) const {
     if (i < 0 || i >= nx) {
       if (!ew_cyclic) return -1;
@@ -60,16 +60,52 @@ struct Args {
     }
     return (int64_t)j * nx + i;
   }
+  // flat index of what the plain version's composite shift by (di, dj), x
+  // then y (remap._shift_by), brings to (j, i), or -1 where it brings 0.
+  // Across a fold (dj = 1 from the top row) the ghost row is row src = ny-1
+  // (tripole) or ny-2 (tripoleT) reversed, read after the x shift: column
+  // (nx-1-i) + di, not the mirror of i + di.
+  __device__ __forceinline__ int64_t nb_idx(int j, int i, int di,
+                                            int dj) const {
+    if (fold && j + dj == ny) {
+      if (i < 0 || i >= nx) {
+        if (!ew_cyclic) return -1;
+        i = (i + nx) % nx;
+      }
+      return idx(fold == 2 ? ny - 1 : ny - 2, nx - 1 - i + di);
+    }
+    return idx(j + dj, i + di);
+  }
+};
+
+// grid size, boundaries and the tracer table (n1 type-1 tracers first, then
+// the type-2 tracers with the row of their parent)
+struct Args {
+  int C, T, n1, ny, nx, ew_cyclic, ns_cyclic;
+  int fold;  // 0, or the NS code of a fold: 2 tripole, 3 tripoleT
+  int parent[kMaxT];
+  __device__ __forceinline__ Shape shape() const {
+    return Shape{ny, nx, ew_cyclic, ns_cyclic, fold};
+  }
+  __device__ __forceinline__ int64_t idx(int j, int i) const {
+    return shape().idx(j, i);
+  }
+  __device__ __forceinline__ int64_t nb_idx(int j, int i, int di,
+                                            int dj) const {
+    return shape().nb_idx(j, i, di, dj);
+  }
 };
 
 // Args from the C interfaces' arguments (ew/ns 0 = cyclic, 1 = open or
-// closed); table[T] is each tracer's parent row
+// closed, ns 2 = tripole, 3 = tripoleT); table[T] is each tracer's parent
+// row
 inline Args make_args(int C, int Tn, int n1, int ny, int nx, int ew, int ns,
                       const int* table) {
   Args a;
   a.C = C; a.T = Tn; a.n1 = n1; a.ny = ny; a.nx = nx;
   a.ew_cyclic = ew == 0;
   a.ns_cyclic = ns == 0;
+  a.fold = ns >= 2 ? ns : 0;
   for (int t = 0; t < kMaxT; ++t) a.parent[t] = t < Tn ? table[t] : 0;
   return a;
 }

@@ -147,6 +147,9 @@ int plan_tile(Kernel kernel, int threads_per_row, Bytes bytes, int* rows,
 // accumulator row; rec: the row's reconstruction on the tile plus a 1-cell
 // halo, planes of width w (mc, mx, my, then tc[T], tx[T], ty[T]), the cell
 // at `base`; valid: bit o set where offset o's donor lies inside the grid.
+// flip_north (MAY_FLIP, K12 on a tripole grid; a cell of its top row): the
+// row above the cell holds the ghost row, the mirror cells in reversed
+// order, so the donor (di, 1) lies at column -di of it.
 // The tracers are looped at run time and the 9 offsets unrolled inside, so
 // each sum is one register that adds its 9 offset terms, which overlap, in
 // ALL_OFFSETS order, with the plain version's products in its order; a
@@ -154,18 +157,23 @@ int plan_tile(Kernel kernel, int threads_per_row, Bytes bytes, int* rows,
 // Without tracers (open water) the tracer divergences are 0.  Type-1
 // tracers take the polynomial of m*t without its terms that are exactly 0
 // (parent planes (1, 0, 0)).
-template <typename T>
+template <bool MAY_FLIP, typename T>
 __device__ __forceinline__ void contract_cell(
-    const T* gc, const T* rec, int P, int w, int base, unsigned valid, int h,
-    bool tracers, const Args& a, const int* parent, T* div, T* divt, int r,
-    int64_t np, int64_t c) {
+    const T* gc, const T* rec, int P, int w, int base, unsigned valid,
+    bool flip_north, int h, bool tracers, const Args& a, const int* parent,
+    T* div, T* divt, int r, int64_t np, int64_t c) {
+  // the donor of offset o in the reconstruction planes
+  auto donor = [&](int o) {
+    const int dj = off_of(o, 1), di = off_of(o, 0);
+    return base + dj * w + (MAY_FLIP && flip_north && dj == 1 ? -di : di);
+  };
   if (h == 0) {
     T d = T(0);
 #pragma unroll
     for (int o = 0; o < 9; ++o) {
       T g[kGshOff];
       load_vec(gc + o * kGshOff, g);
-      const int x = base + off_of(o, 1) * w + off_of(o, 0);
+      const int x = donor(o);
       const T mc = rec[x], mx = rec[P + x], my = rec[2 * P + x];
       const T sum = d + (g[0] * mc + g[1] * mx + g[2] * my);
       d = ((valid >> o) & 1u) ? sum : d;  // the masked shift brings 0
@@ -187,7 +195,7 @@ __device__ __forceinline__ void contract_cell(
       for (int o = 0; o < 9; ++o) {
         T g[kGshOff];
         load_vec(gc + o * kGshOff, g);
-        const int x = base + off_of(o, 1) * w + off_of(o, 0);
+        const int x = donor(o);
         const T mc = rec[x], mx = rec[P + x], my = rec[2 * P + x];
         const T c1 = rc[t * P + x], x1 = rx[t * P + x], y1 = ry[t * P + x];
         const T p1 = g[0] * (mc * c1) + g[1] * (mc * x1 + mx * c1) +
@@ -202,7 +210,7 @@ __device__ __forceinline__ void contract_cell(
       for (int o = 0; o < 9; ++o) {
         T g[kGshOff];
         load_vec(gc + o * kGshOff, g);
-        const int x = base + off_of(o, 1) * w + off_of(o, 0);
+        const int x = donor(o);
         const T mc = rec[x], mx = rec[P + x], my = rec[2 * P + x];
         const T pc = rc[p * P + x], px = rx[p * P + x], py = ry[p * P + x];
         const T c2 = rc[t * P + x], x2 = rx[t * P + x], y2 = ry[t * P + x];

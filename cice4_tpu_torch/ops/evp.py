@@ -14,9 +14,10 @@ Grid staggering (B-grid): T cell (j, i) has U corners
 NE = U(j, i), NW = U(j, i-1), SW = U(j-1, i-1), SE = U(j-1, i).
 Corner order in the stress tensors: index 0 = ne, 1 = nw, 2 = sw, 3 = se.
 
-Tripole folds (the U-fold symmetrization and the str8 fold,
-``cice4_tpu/ops/evp.py:92-159, 501-535``) are not ported yet (ROADMAP
-queue 2 item 5) and raise ``NotImplementedError``.
+On a tripole grid the str8 pieces cross the fold through the shift
+provider's `n_str`/`ne_str` (the mirror cell's paired piece, negated),
+and on the U-fold grid (``tripole``) `evp` first makes the inputs on the
+top row of U points, which lie on the fold, symmetric.
 """
 
 from __future__ import annotations
@@ -252,10 +253,8 @@ def _stepu(p: EvpParams, geom, nbr, iceumask, aiu, str8,
     ccb = fm + sgn * vrel * p.sinw
     ab2 = cca**2 + ccb**2
 
-    # on the boundaries the port supports the str8 north shifts are the
-    # plain shifts (the tripole str8 fold, evp.py:137-159, raises)
-    n2, ne3 = nbr.n(str8[2]), nbr.ne(str8[3])
-    n5, ne7 = nbr.n(str8[5]), nbr.ne(str8[7])
+    n2, ne3 = nbr.n_str(str8, 2), nbr.ne_str(str8, 3)
+    n5, ne7 = nbr.n_str(str8, 5), nbr.ne_str(str8, 7)
     strintx = geom.uarear * (str8[0] + nbr.e(str8[1]) + n2 + ne3)
     strinty = geom.uarear * (str8[4] + n5 + nbr.e(str8[6]) + ne7)
 
@@ -324,10 +323,6 @@ def evp(state: State, grid: Grid, dyn: DynamicsConfig, dt: float,
     from cice4_tpu_torch.ops.evp_cuda import evp_subcycle
 
     bc = grid.bc
-    if bc.ns in ("tripole", "tripoleT"):
-        raise NotImplementedError(
-            "EVP on a tripole grid (the U-fold symmetrization) is not "
-            "ported yet (ROADMAP queue 2 item 5)")
     p = make_evp_params(dyn, dt)
 
     # --- evp_prep1 (":586-694") -------------------------------------------
@@ -378,6 +373,41 @@ def evp(state: State, grid: Grid, dyn: DynamicsConfig, dt: float,
     # --- ice strength ------------------------------------------------------
     strength = ice_strength(dyn, aice, vice, aice0, aicen, vicen, icetmask)
 
+    if bc.ns == "tripole":
+        # The top row of U points lies ON the U-fold: (ny-1, i) and
+        # (ny-1, (nx-2-i) mod nx) are the same physical point stored twice.
+        # Make every U-point input consistent with that (scalars equal,
+        # vector components negated), as the reference's tripole halo does
+        # for NE_CORNER fields.  Each _sym builds a new tensor.
+        nxg = grid.nx
+        idx = torch.remainder(nxg - 2 - torch.arange(nxg, device=aice.device),
+                              nxg)
+
+        def _sym(f, sign):
+            top = f[..., -1, :]
+            top = 0.5 * (top + sign * top[..., idx])
+            return torch.cat([f[..., :-1, :], top[..., None, :]], dim=-2)
+
+        iceumask = torch.cat([iceumask[..., :-1, :],
+                              (iceumask[..., -1, :]
+                               & iceumask[..., -1, idx])[..., None, :]],
+                             dim=-2)
+        uvel = torch.where(iceumask, uvel, 0.0)
+        vvel = torch.where(iceumask, vvel, 0.0)
+        umassdtei = torch.where(iceumask, umassdtei, 0.0)
+        fm = torch.where(iceumask, fm, 0.0)
+        waterx = torch.where(iceumask, waterx, 0.0)
+        watery = torch.where(iceumask, watery, 0.0)
+        forcex = torch.where(iceumask, forcex, 0.0)
+        forcey = torch.where(iceumask, forcey, 0.0)
+        uvel, vvel = _sym(uvel, -1.0), _sym(vvel, -1.0)
+        uocn, vocn = _sym(uocn, -1.0), _sym(vocn, -1.0)
+        waterx, watery = _sym(waterx, -1.0), _sym(watery, -1.0)
+        forcex, forcey = _sym(forcex, -1.0), _sym(forcey, -1.0)
+        aiu = _sym(aiu, 1.0)
+        umassdtei = _sym(umassdtei, 1.0)
+        fm = _sym(fm, 1.0)
+
     # --- subcycling (":347-408") ------------------------------------------
     (uvel, vvel, stressp, stressm, stress12, d, strintx, strinty,
      strocnx, strocny) = evp_subcycle(
@@ -394,6 +424,8 @@ def evp(state: State, grid: Grid, dyn: DynamicsConfig, dt: float,
 
     # --- evp_finish (":1452-1549") ----------------------------------------
     vrel = p.dragw * torch.sqrt((uocn - uvel) ** 2 + (vocn - vvel) ** 2)
+    if p.hemi_turning:   # from fm as the fold left it
+        sgn = torch.where(fm < 0.0, -1.0, 1.0).to(fm.dtype)
     strocnx = strocnx - vrel * (uvel * p.cosw - sgn * vvel * p.sinw) * aiu
     strocny = strocny - vrel * (vvel * p.cosw + sgn * uvel * p.sinw) * aiu
     strocnxT_u = torch.where(iceumask,

@@ -20,8 +20,9 @@ new tensors made from uvel, vvel and the stresses, with velocities set
 to zero off iceumask and stresses off icetmask (the masked-zero
 invariant its activity gating relies on; `evp` always satisfies it), so
 the caller's tensors are never written.  Boundaries: cyclic, open or
-closed on both axes; tripole folds (ROADMAP queue 2 item 5) raise
-``NotImplementedError``.
+closed on both axes, and the tripole and tripoleT folds north-south (the
+kernel folds the str8 reads of the momentum pass; `evp` makes the top
+row of U points symmetric before the call).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 
 from cice4_tpu_torch import constants as cn
 from cice4_tpu_torch.ops.evp import EvpParams, _evp_subcycle_plain
+from cice4_tpu_torch.parallel.halo import KERNEL_BC_CODE
 
 _GEOM = ("cyp", "cxp", "cym", "cxm", "dxt", "dyt", "dxhy", "dyhx",
          "tinyarea", "uarear")
@@ -81,12 +83,8 @@ def _evp_subcycle_cuda(p: EvpParams, grid, strength, icetmask, iceumask,
                        umassdtei, fm, uvel, vvel, stressp, stressm,
                        stress12):
     bc = grid.bc
-    if bc.ns in ("tripole", "tripoleT"):
-        raise NotImplementedError(
-            "evp_subcycle on a tripole grid is not ported yet (ROADMAP "
-            "queue 2 item 5)")
-    edges = ("cyclic", "open", "closed")
-    if bc.ns not in edges or bc.ew not in edges:
+    if bc.ns not in KERNEL_BC_CODE or bc.ew not in ("cyclic", "open",
+                                                    "closed"):
         raise ValueError(f"unknown boundary conditions {bc}")
     dtype, device = uvel.dtype, uvel.device
     if dtype not in (torch.float32, torch.float64):
@@ -137,7 +135,7 @@ def _evp_subcycle_cuda(p: EvpParams, grid, strength, icetmask, iceumask,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(ctypes.addressof(ptr_arr), ny, nx, int(bc.ew == "cyclic"),
-                int(bc.ns == "cyclic"), ctypes.addressof(par_arr), p.ndte,
+                KERNEL_BC_CODE[bc.ns], ctypes.addressof(par_arr), p.ndte,
                 flags, stream)
     if rc != 0:
         raise RuntimeError(f"evp_subcycle launch failed: cudaError {rc}")

@@ -24,6 +24,11 @@ mode, `remap_cuda.ga_planes`), the reconstruction of every row (K1,
 `remap_cuda.construct`) and the scatter-form contraction (K2,
 `remap_cuda.contract`).  The two routes agree to roundoff.
 
+On a tripole grid every north shift folds (`parallel.halo`), as in the
+JAX package's XLA GA path, and both kernels of the default route fold
+too; the split route, which the JAX package never takes there, refuses
+it (ROADMAP queue 2 item 5).
+
 As in the reference, all local geometry is computed on the *scaled*
 grid (cell = unit square); physical areas enter only through the corner
 area factors dxu*dyu and the final 1/tarea.
@@ -44,6 +49,7 @@ from cice4_tpu_torch import constants as cn
 from cice4_tpu_torch.constants import FieldLoc, FieldType
 from cice4_tpu_torch.grid import Grid
 from cice4_tpu_torch.ops.itd import TRACER_DEPEND
+from cice4_tpu_torch.parallel.halo import FOLDS
 from cice4_tpu_torch.state import State
 
 NGROUPS = 6
@@ -475,12 +481,13 @@ def _update_category(mm, tm, div, divt, tmask_land, tarear, meta):
     return mm_new, tm_new, (mm_mid, mt)
 
 
-def use_split_kernels(device) -> bool:
+def use_split_kernels(device, bc) -> bool:
     """Whether `transport_remap` takes the split route by default: on a
-    CUDA device when ``CICE4_FORCE_PALLAS_REMAP`` is set, as the JAX
-    package takes its K0 -> K1 -> K2 route on its accelerator
-    (``cice4_tpu/ops/remap.py:992-1018``)."""
+    CUDA device when ``CICE4_FORCE_PALLAS_REMAP`` is set and the grid has
+    no tripole fold, as the JAX package takes its K0 -> K1 -> K2 route on
+    its accelerator (``cice4_tpu/ops/remap.py:992-1018``)."""
     return (torch.device(device).type == "cuda"
+            and bc.ns not in FOLDS
             and bool(os.environ.get("CICE4_FORCE_PALLAS_REMAP")))
 
 
@@ -544,7 +551,7 @@ def transport_remap(state: State, grid: Grid, dt,
     mm_ext = torch.cat([aice0[None], state.aicen], dim=0)
     tm_ext = torch.cat([torch.zeros_like(tm[:1]), tm], dim=0)
     if split_kernels is None:
-        split_kernels = use_split_kernels(dx.device)
+        split_kernels = use_split_kernels(dx.device, bc)
     if split_kernels:
         # K0 in GA mode, K1 (reconstruction of every row), K2 (scatter-form
         # contraction; the parents' planes are rows of trc)

@@ -36,8 +36,11 @@ The split route (K0 in GA mode, then K1 and K2; the JAX package's
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 the plain version for CPU tensors; ``<wrapper>.launches`` counts its
-kernel launches.  Boundaries: cyclic, open or closed on both axes; the
-tripole fold raises (ROADMAP queue 2 item 5).
+kernel launches.  Boundaries: cyclic, open or closed on both axes, and
+on the default route the tripole and tripoleT folds north-south, which
+the plain versions take through `Nbr`.  The split route refuses a
+tripole grid, as the JAX package never takes it there (ROADMAP queue 2
+item 5).
 """
 
 from __future__ import annotations
@@ -50,22 +53,27 @@ from cice4_tpu_torch import constants as cn
 from cice4_tpu_torch.ops.remap import (ALL_OFFSETS, _flux_divergence_ga,
                                        _geom_accumulators, _n_type1,
                                        _shift_by)
-from cice4_tpu_torch.parallel.halo import Nbr
+from cice4_tpu_torch.parallel.halo import FOLDS, KERNEL_BC_CODE, Nbr
 
 AXES = ((1, 0), (-1, 0), (0, 1), (0, -1))
 DIAGS = ((1, 1), (-1, 1), (1, -1), (-1, -1))
 
-_BC_CODE = {"cyclic": 0, "open": 1, "closed": 1}
 
-
-def _check_bc(bc):
+def _check_bc(bc, fold_ok=True):
+    """Raise on a boundary pair the remap kernels do not take: an unknown
+    one, a fold east-west, and (``fold_ok`` False: the split route) a
+    fold north-south."""
     for edge in (bc.ew, bc.ns):
-        if edge in ("tripole", "tripoleT"):
-            raise NotImplementedError(
-                "remap on a tripole grid is not ported yet (ROADMAP queue 2 "
-                "item 5)")
-        if edge not in _BC_CODE:
+        if edge not in KERNEL_BC_CODE:
             raise ValueError(f"unknown boundary {edge!r}")
+    if bc.ew in FOLDS:
+        raise ValueError(f"a tripole fold is a north-south boundary, not "
+                         f"east-west ({bc})")
+    if bc.ns in FOLDS and not fold_ok:
+        raise NotImplementedError(
+            "the split remap route (K0 in GA mode, K1, K2) on a tripole grid "
+            "is not ported (ROADMAP queue 2 item 5); the default route takes "
+            "it")
 
 
 # ---------------------------------------------------------------------------
@@ -339,7 +347,7 @@ def _stream(device):
 
 def _ga_gsh_cuda(dx, dy, afac, bc, order, case_codes=None,
                  emit_shifted=True):
-    _check_bc(bc)
+    _check_bc(bc, fold_ok=emit_shifted)
     if order not in (1, 2, 3):
         raise ValueError(f"integral_order must be 1, 2 or 3, not {order}")
     dtype, device = _dtype_device(dx, "remap_gsh")
@@ -358,7 +366,7 @@ def _ga_gsh_cuda(dx, dy, afac, bc, order, case_codes=None,
     fn = _fn("remap_gsh", "remap_gsh", dtype,
              [_VOIDP] * 5 + [_INT] * 6 + [_VOIDP])
     rc = fn(dx.data_ptr(), dy.data_ptr(), afac.data_ptr(), gsh.data_ptr(),
-            codes, ny, nx, _BC_CODE[bc.ew], _BC_CODE[bc.ns], order,
+            codes, ny, nx, KERNEL_BC_CODE[bc.ew], KERNEL_BC_CODE[bc.ns], order,
             int(emit_shifted), _stream(device))
     if rc != 0:
         raise RuntimeError(f"remap_gsh launch failed: cudaError {rc}")
@@ -387,7 +395,8 @@ ga_gsh.launches = 0
 def ga_planes(dx, dy, afac, bc, order=2):
     """The GA divergence accumulators (9, 10, ny, nx), not back-shifted:
     kernel ``remap_gsh`` in GA mode on CUDA tensors, :func:`ga_planes_plain`
-    on CPU tensors."""
+    on CPU tensors.  Not on a tripole grid (the split route)."""
+    _check_bc(bc, fold_ok=False)
     if dx.device.type == "cuda":
         return _ga_gsh_cuda(dx, dy, afac, bc, order, emit_shifted=False)
     if dx.device.type == "cpu":
@@ -502,7 +511,7 @@ def _k12_cuda(gsh, hm, mm_ext, tm_ext, meta, bc):
              [_VOIDP] * 6 + [_INT] * 7 + [_VOIDP] * 2)
     rc = fn(gsh.data_ptr(), hm.data_ptr(), mm_ext.data_ptr(),
             tm_ext.data_ptr(), div.data_ptr(), divt.data_ptr(), C, T, n1, ny,
-            nx, _BC_CODE[bc.ew], _BC_CODE[bc.ns], ctypes.addressof(par_arr),
+            nx, KERNEL_BC_CODE[bc.ew], KERNEL_BC_CODE[bc.ns], ctypes.addressof(par_arr),
             _stream(device))
     if rc != 0:
         raise RuntimeError(f"remap_k12 launch failed: cudaError {rc}")
@@ -541,7 +550,7 @@ def _construct_cuda(hm, mm_ext, tm_ext, meta, bc):
              [_VOIDP] * 5 + [_INT] * 7 + [_VOIDP] * 2)
     rc = fn(hm.data_ptr(), mm_ext.data_ptr(), tm_ext.data_ptr(),
             mass.data_ptr(), trc.data_ptr(), C, T, n1, ny, nx,
-            _BC_CODE[bc.ew], _BC_CODE[bc.ns], ctypes.addressof(par_arr),
+            KERNEL_BC_CODE[bc.ew], KERNEL_BC_CODE[bc.ns], ctypes.addressof(par_arr),
             _stream(device))
     if rc != 0:
         raise RuntimeError(f"remap_construct launch failed: cudaError {rc}")
@@ -552,7 +561,9 @@ def _construct_cuda(hm, mm_ext, tm_ext, meta, bc):
 def construct(hm, mm_ext, tm_ext, meta, bc):
     """(mass (C, 3, ny, nx), trc (C, T, 3, ny, nx)): the reconstruction of
     every row of the extended category batch.  Kernel ``remap_construct``
-    (K1) on CUDA tensors, :func:`construct_plain` on CPU tensors."""
+    (K1) on CUDA tensors, :func:`construct_plain` on CPU tensors.  Not on
+    a tripole grid (the split route)."""
+    _check_bc(bc, fold_ok=False)
     if hm.device.type == "cuda":
         return _construct_cuda(hm, mm_ext, tm_ext, meta, bc)
     if hm.device.type == "cpu":
@@ -578,8 +589,8 @@ def _contract_cuda(ga, mass, trc, meta, bc):
     fn = _fn("remap_k1k2", "remap_contract", dtype,
              [_VOIDP] * 5 + [_INT] * 7 + [_VOIDP] * 2)
     rc = fn(ga.data_ptr(), mass.data_ptr(), trc.data_ptr(), div.data_ptr(),
-            divt.data_ptr(), C, T, n1, ny, nx, _BC_CODE[bc.ew],
-            _BC_CODE[bc.ns], ctypes.addressof(par_arr), _stream(device))
+            divt.data_ptr(), C, T, n1, ny, nx, KERNEL_BC_CODE[bc.ew],
+            KERNEL_BC_CODE[bc.ns], ctypes.addressof(par_arr), _stream(device))
     if rc != 0:
         raise RuntimeError(f"remap_contract launch failed: cudaError {rc}")
     contract.launches += 1
@@ -592,7 +603,8 @@ def contract(ga, mass, trc, par, meta, bc):
     reconstruction.  `par` is ``gather_parents(trc, meta)`` or None: the
     kernel reads the parents' planes from `trc` and ignores it.  Kernel
     ``remap_contract`` (K2) on CUDA tensors, :func:`contract_plain` on CPU
-    tensors."""
+    tensors.  Not on a tripole grid (the split route)."""
+    _check_bc(bc, fold_ok=False)
     if mass.device.type == "cuda":
         return _contract_cuda(ga, mass, trc, meta, bc)
     if mass.device.type == "cpu":

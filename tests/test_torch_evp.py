@@ -19,6 +19,8 @@ The wrapper `evp_subcycle` runs the plain version on CPU tensors and
 counts no kernel launch there.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -35,7 +37,7 @@ from cice4_tpu.state import zeros_state
 from cice4_tpu_torch import convert, kernel_check
 from cice4_tpu_torch.config import DynamicsConfig as TDyn
 from cice4_tpu_torch.ops import evp as tevp
-from cice4_tpu_torch.ops import evp_cuda
+from cice4_tpu_torch.ops import evp_cuda, remap_cuda
 from cice4_tpu_torch.ops.mechred_strength import ice_strength as t_ice_strength
 
 torch.set_num_threads(1)
@@ -272,9 +274,19 @@ def test_principal_stress_matches_jax():
 
 
 def test_unported_boundaries_raise():
-    """The tripole fold is the one boundary the kernel does not take."""
-    _, tgrid = _grids(8, 8, ew="cyclic", ns="tripole")
+    """An unknown boundary is refused before any launch, and the split
+    remap route refuses the tripole fold, which the JAX package never
+    takes there, naming its ROADMAP item (the EVP kernel and the default
+    remap route take the fold: tests/test_torch_tripole.py)."""
+    _, tgrid = _grids(8, 8, ew="cyclic", ns="closed")
+    bad = dataclasses.replace(
+        tgrid, bc=convert.BoundaryConditions(ew="cyclic", ns="mirror"))
     tp = tevp.make_evp_params(TDyn(ndte=2), 3600.0)
     args = [_t(a) for a in _subcycle_args(8, 8, 0, False)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        evp_cuda._evp_subcycle_cuda(tp, tgrid, *args)
+    with pytest.raises(ValueError, match="boundary"):
+        evp_cuda._evp_subcycle_cuda(tp, bad, *args)
+
+    _, fold = _grids(8, 8, ew="cyclic", ns="tripole")
+    zeros = torch.zeros(8, 8, dtype=F64)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 5"):
+        remap_cuda.ga_planes(zeros, zeros, zeros + 1.0, fold.bc, 2)

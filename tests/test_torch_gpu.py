@@ -102,36 +102,53 @@ def test_therm_newton_refuses_counts_beyond_its_instances(cuda_device,
 # and remap_contract
 # ---------------------------------------------------------------------------
 
+FOLDS = ("tripole", "tripoleT")
+# the tripole folds, which the default route's kernels take (the last three
+# cases) and the split route's refuse
 DYN_CASES = [((64, 128), ("cyclic", "closed")),
              ((116, 100), ("closed", "open")), ((7, 33), ("cyclic", "open")),
              ((64, 128), ("cyclic", "cyclic")),
-             ((116, 100), ("closed", "cyclic")), ((7, 33), ("cyclic", "cyclic"))]
+             ((116, 100), ("closed", "cyclic")), ((7, 33), ("cyclic", "cyclic")),
+             ((64, 128), ("cyclic", "tripole")),
+             ((116, 100), ("cyclic", "tripoleT")),
+             ((7, 33), ("closed", "tripole"))]
+SPLIT_DYN_CASES = [c for c in DYN_CASES if c[1][1] not in FOLDS]
 
 
 def _dyn_grid(shape, bcs, device, dtype):
+    """The gx1 lat-lon grid cut to `shape`; with a fold the all-ocean
+    10 km grid, on which ice and stresses reach the top row."""
+    from cice4_tpu_torch.config import Config
     from cice4_tpu_torch.grid import make_grid
 
-    cfg = gx1_config().with_values(**{
-        "grid.kmt_file": "", "domain.ny_global": shape[0],
-        "domain.nx_global": shape[1], "domain.ew_boundary_type": bcs[0],
-        "domain.ns_boundary_type": bcs[1]})
+    size = {"domain.ny_global": shape[0], "domain.nx_global": shape[1],
+            "domain.ew_boundary_type": bcs[0],
+            "domain.ns_boundary_type": bcs[1]}
+    if bcs[1] in FOLDS:
+        cfg = Config().with_values(**size, **{
+            "grid.grid_type": "column", "grid.lat_origin": 55.0,
+            "grid.dx_rect": 10.0e3, "grid.dy_rect": 10.0e3})
+    else:
+        cfg = gx1_config().with_values(**{"grid.kmt_file": "", **size})
     return make_grid(cfg, device=device, dtype=dtype)
 
 
-# every boundary pair the kernels take
+# every boundary pair the kernels take (the folds only on the default route)
 ALL_BCS = [(ew, ns) for ew in ("cyclic", "open", "closed")
            for ns in ("cyclic", "open", "closed")]
+FOLD_BCS = [(ew, ns) for ew in ("cyclic", "closed") for ns in FOLDS]
 # (shape, boundaries, ice pattern of kernel_check.ice_mask, ndte): the
 # shapes above with ice in bands, then a ragged shape with no ice, one
 # icy cell at each seam and ice everywhere, on every boundary pair, at 1
 # and 120 subcycles; "overflow" sizes an all-icy grid with more active
 # cells than the persistent kernel has resident threads
 EVP_CASES = ([(shape, bcs, "bands", 40) for shape, bcs in DYN_CASES]
-             + [((37, 61), bcs, ice, ndte) for bcs in ALL_BCS
+             + [((37, 61), bcs, ice, ndte) for bcs in ALL_BCS + FOLD_BCS
                 for ice, ndte in (("none", 40), ("seams", 120),
                                   ("all", 1))]
              + [("overflow", ("cyclic", "closed"), "all", 3),
-                ("overflow", ("closed", "cyclic"), "all", 3)])
+                ("overflow", ("closed", "cyclic"), "all", 3),
+                ("overflow", ("cyclic", "tripole"), "all", 3)])
 
 
 @pytest.mark.gpu
@@ -208,7 +225,7 @@ def test_remap_gsh_matches_plain(cuda_device, dtype, shape, bcs, order):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape,bcs", DYN_CASES)
+@pytest.mark.parametrize("shape,bcs", SPLIT_DYN_CASES)
 @pytest.mark.parametrize("order", [1, 2, 3])
 def test_remap_ga_mode_matches_plain(cuda_device, dtype, shape, bcs, order):
     """K0 in GA mode (no back-shift), with its case codes."""
@@ -289,7 +306,7 @@ WIDE_META = ([(f"a{k}", 1, -1) for k in range(8)]
 # nor of its rows) with no ice, one icy cell at each seam and ice
 # everywhere on every boundary pair, and the widest table
 K12_CASES = ([(shape, bcs, "bands", "gx1") for shape, bcs in DYN_CASES]
-             + [((37, 61), bcs, ice, "gx1") for bcs in ALL_BCS
+             + [((37, 61), bcs, ice, "gx1") for bcs in ALL_BCS + FOLD_BCS
                 for ice in ("none", "seams", "all")]
              + [((45, 70), bcs, "bands", "wide")
                 for bcs in (("cyclic", "cyclic"), ("open", "closed"))])
@@ -300,7 +317,7 @@ TABLES = {"gx1": _tracer_meta(["iage"], 4, 1), "wide": WIDE_META,
           "type1": [("hi", 1, -1), ("hs", 1, -1), ("Tsfc", 1, -1)],
           "none": []}
 # K12's cases, and the tables without type-2 tracers or without tracers
-SPLIT_CASES = K12_CASES + [
+SPLIT_CASES = [c for c in K12_CASES if c[1][1] not in FOLDS] + [
     ((37, 61), bcs, "bands", table)
     for bcs in (("cyclic", "cyclic"), ("open", "closed"))
     for table in ("type1", "none")]
@@ -474,3 +491,68 @@ def test_box_split_route_launches_its_kernels(cuda_device, monkeypatch):
     assert [getattr(w, a) - b for (w, a), b in zip(counts, before)] == \
         [2, 2, 2, 2, 0, 0]
     assert bool(torch.isfinite(state.aicen).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ns", FOLDS)
+def test_split_route_refuses_the_fold(cuda_device, ns):
+    """K0 in GA mode, K1 and K2 refuse a tripole grid on the card, naming
+    the ROADMAP item, without a launch; `transport_remap` takes the default
+    route there even with CICE4_FORCE_PALLAS_REMAP set."""
+    from cice4_tpu_torch.ops import remap as remap_ops
+    from cice4_tpu_torch.ops import remap_cuda
+
+    grid = _dyn_grid((24, 32), ("cyclic", ns), cuda_device, torch.float32)
+    meta = TABLES["gx1"]
+    dx, dy, afac, mm, tm = kernel_check.remap_inputs(
+        grid, seed=9, ncat=5, meta=meta, dtype=torch.float32)
+    wrappers = (remap_cuda.ga_planes, remap_cuda.construct,
+                remap_cuda.contract)
+    before = [w.launches for w in wrappers]
+    ga = torch.zeros((9, 10, 24, 32), device=cuda_device)
+    for call in (lambda: remap_cuda.ga_planes(dx, dy, afac, grid.bc, 2),
+                 lambda: remap_cuda.construct(grid.hm, mm, tm, meta, grid.bc),
+                 lambda: remap_cuda.contract(ga, None, None, None, meta,
+                                             grid.bc)):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 2 item 5"):
+            call()
+    assert [w.launches for w in wrappers] == before
+    assert not remap_ops.use_split_kernels(cuda_device, grid.bc)
+
+
+TRIPOLE_SMALL = {**BOX_SMALL, "domain.ns_boundary_type": "tripole",
+                 "dynamics.evp_damping": True}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["all-ocean-tripole", "access-om-40x32"])
+def test_tripole_step_launches_every_kernel(cuda_device, case):
+    """Two steps on a tripole grid at 24x32 (all ocean) or 40x32 (ACCESS-OM2's
+    lat-lon grid) on the card: each of the four kernels of the default
+    route once per step, finite state, moving ice."""
+    from cice4_tpu_torch.config import Config, access_om_config
+    from cice4_tpu_torch.io.forcing_data import AnalyticForcing
+    from cice4_tpu_torch.model import Model
+    from cice4_tpu_torch.ops import evp_cuda, remap_cuda
+    from cice4_tpu_torch.state import init_state
+
+    cfg = (Config().with_values(**TRIPOLE_SMALL)
+           if case == "all-ocean-tripole"
+           else access_om_config(nx=40, ny=32))
+    model = Model.create(cfg, device=cuda_device, dtype=torch.float32)
+    assert model.grid.bc.ns == "tripole"
+    state = init_state(cfg, model.grid, model.itd, device=cuda_device,
+                       dtype=torch.float32)
+    forcing = AnalyticForcing(cfg, model.grid, device=cuda_device,
+                              dtype=torch.float32)
+    wrappers = (tv.temperature_changes, evp_cuda.evp_subcycle,
+                remap_cuda.ga_gsh, remap_cuda.k12_divergence)
+    before = [w.launches for w in wrappers]
+    for n in range(2):
+        yday = 80.0 + n / 24.0
+        state, _ = model(state, forcing(yday, 0.0), yday, 0.0)
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [2] * 4
+    assert bool(torch.isfinite(state.aicen).all())
+    assert 0.0 < float(state.uvel.abs().max()) < 2.0

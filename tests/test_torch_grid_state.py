@@ -154,35 +154,41 @@ def test_default_forcing_equal():
                                           np.asarray(a), err_msg=k)
 
 
+# the location and type of a field, by kind: the first two are the
+# shifts' defaults and the EVP's corner velocities; the fold reads another
+# row, another index map and another sign for each
+HALO_KINDS = {"center scalar": ("CENTER", "SCALAR"),
+              "corner vector": ("NE_CORNER", "VECTOR"),
+              "center vector": ("CENTER", "VECTOR"),
+              "corner scalar": ("NE_CORNER", "SCALAR"),
+              "n_face scalar": ("N_FACE", "SCALAR"),
+              "n_face vector": ("N_FACE", "VECTOR"),
+              "e_face scalar": ("E_FACE", "SCALAR"),
+              "e_face angle": ("E_FACE", "ANGLE")}
+
+
 @pytest.mark.parametrize("ew,ns", [("cyclic", "closed"), ("closed", "open"),
-                                   ("cyclic", "cyclic"), ("open", "open")])
+                                   ("cyclic", "cyclic"), ("open", "open"),
+                                   ("cyclic", "tripole"),
+                                   ("cyclic", "tripoleT")])
 @pytest.mark.parametrize("fn", ["nbr_e", "nbr_w", "nbr_n", "nbr_s",
                                 "nbr_ne", "nbr_nw", "nbr_se", "nbr_sw"])
-@pytest.mark.parametrize("kind", ["center scalar", "corner vector"])
+@pytest.mark.parametrize("kind", list(HALO_KINDS))
 def test_halo_neighbours_equal(fn, ew, ns, kind):
-    """Also with the NE-corner vector location the EVP and remap shifts
-    pass (it matters only for the tripole fold)."""
+    """Bit-equal to the JAX package's shifts at every field location and
+    type, which on the tripole and tripoleT folds pick the ghost row's
+    source row, index map and sign."""
     f = np.random.RandomState(0).standard_normal((2, 5, 6))
-    kw_j, kw_t = {}, {}
-    if kind == "corner vector":
-        kw_j = dict(loc=jhalo.FieldLoc.NE_CORNER,
-                    ftype=jhalo.FieldType.VECTOR)
-        kw_t = dict(loc=thalo.FieldLoc.NE_CORNER,
-                    ftype=thalo.FieldType.VECTOR)
+    loc, ftype = HALO_KINDS[kind]
+    kw_j = dict(loc=getattr(jhalo.FieldLoc, loc),
+                ftype=getattr(jhalo.FieldType, ftype))
+    kw_t = dict(loc=getattr(thalo.FieldLoc, loc),
+                ftype=getattr(thalo.FieldType, ftype))
     out_j = getattr(jhalo, fn)(jnp.asarray(f),
                                jhalo.BoundaryConditions(ew=ew, ns=ns), **kw_j)
     out_t = getattr(thalo, fn)(torch.from_numpy(f),
                                thalo.BoundaryConditions(ew=ew, ns=ns), **kw_t)
     np.testing.assert_array_equal(out_t.numpy(), np.asarray(out_j))
-
-
-@pytest.mark.parametrize("ns", ["tripole", "tripoleT"])
-def test_tripole_raises(ns):
-    for kw in ({}, dict(loc=thalo.FieldLoc.NE_CORNER,
-                        ftype=thalo.FieldType.VECTOR)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            thalo.nbr_n(torch.zeros(3, 4),
-                        thalo.BoundaryConditions(ew="cyclic", ns=ns), **kw)
 
 
 @pytest.mark.parametrize("name", ["to_ugrid", "to_tgrid"])

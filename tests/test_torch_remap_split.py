@@ -39,6 +39,7 @@ from cice4_tpu.state import init_state
 from cice4_tpu_torch import convert, kernel_check
 from cice4_tpu_torch.ops import remap as tremap
 from cice4_tpu_torch.ops import remap_cuda
+from cice4_tpu_torch.parallel import halo as thalo
 
 torch.set_num_threads(1)
 F64 = torch.float64
@@ -316,8 +317,14 @@ def test_split_route_matches_k12_route(setup, order):
 
 
 def test_split_route_is_chosen_on_cuda_only(monkeypatch):
+    """... and, as the JAX package's `_use_pallas_remap`, never on a
+    tripole grid."""
+    bc = thalo.BoundaryConditions(ew="cyclic", ns="closed")
     monkeypatch.delenv("CICE4_FORCE_PALLAS_REMAP", raising=False)
-    assert not tremap.use_split_kernels("cuda")
+    assert not tremap.use_split_kernels("cuda", bc)
     monkeypatch.setenv("CICE4_FORCE_PALLAS_REMAP", "1")
-    assert tremap.use_split_kernels(torch.device("cuda", 0))
-    assert not tremap.use_split_kernels("cpu")
+    assert tremap.use_split_kernels(torch.device("cuda", 0), bc)
+    assert not tremap.use_split_kernels("cpu", bc)
+    for ns in ("tripole", "tripoleT"):
+        fold = thalo.BoundaryConditions(ew="cyclic", ns=ns)
+        assert not tremap.use_split_kernels("cuda", fold)
