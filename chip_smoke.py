@@ -27,7 +27,11 @@ the all-ocean 10 km grid, cyclic on both axes, 384x320, southern row at
 55N, analytic forcing, the rest at its defaults) run through the driver
 ``IceModelRun`` on both remap routes and through the CLI, and ACCESS-OM2
 on its tripole grid (``access_om_config``: the lat-lon grid folded at its
-top row, at 0.25 degree, 1440x1080, and at 1 degree, 360x300).  On the
+top row, at 0.25 degree, 1440x1080, and at 1 degree, 360x300), and gx1
+under the column options of ROADMAP 1.4: delta-Eddington shortwave with
+the melt-pond tracer (from ``kernel_check.ponded_state``: the analytic
+forcing grows no pond), and the coupled radiation order with constant
+albedos, ``atmbndy='constant'`` and ``kitd=0``.  On the
 box the grid masks the top row of U points, so no velocity crosses the NS
 seam: the EVP kernel's NS wrap reads only masked zeros there, and only
 the kernel-vs-plain checks of phase 3 hold that wrap against nonzero
@@ -70,11 +74,24 @@ Phases, each of which ends the run with a non-zero exit on failure:
    barriers, ms/step by CUDA events, device time by phase, and each
    kernel held against its plain version at this grid's inputs and timed;
    at 360x300 the same steps, ms/step and device time;
-10. small parity: 24x32 f64 cuts of the gx1 path, of the box and of the
+10. dEdd path: gx1 at 320x384, f32, delta-Eddington shortwave and melt
+    ponds from the ponded state, 12 steps from day 80 (the analytic
+    forcing's shortwave and the orbital sun agree near the equinoxes):
+    each of the four kernels of the default route once a step and no
+    plain version, physical state, pond volume >= 0 and > 0 somewhere,
+    and at the last state per category albedos in [0, 1], the shortwave
+    closing within ``CLOSURE_RTOL`` of the incoming over sunlit ice,
+    snow-layer absorption and ponded cells; ms/step, device time and
+    launches by phase (radiation apart), and each kernel held against its
+    plain version at this path's inputs and timed;
+11. coupled path: gx1, f32, the coupled order with constant albedos,
+    ``atmbndy='constant'`` and ``kitd=0``, 4 steps with the counters;
+12. small parity: 24x32 f64 cuts of the gx1 path, of the box, of the
    box with a U-fold (all with the damped EVP, as the tier-1 tests run
-   it) on the card agree with the CPU path (which the tier-1 tests hold
-   against the JAX package) after 3 steps;
-11. timing: ms/step and cell-steps/s of the gx1 and box paths, device
+   it) and of the two gx1 option paths of phases 10 and 11 on the card
+   agree with the CPU path (which the tier-1 tests hold against the JAX
+   package) after 3 steps;
+13. timing: ms/step and cell-steps/s of the gx1 and box paths, device
     time by phase (the box also on the split remap route), and each
     kernel against its plain version at the inputs its path gives it,
     beside the least time the card could take;
@@ -147,6 +164,24 @@ ACCESS025 = (1080, 1440)
 ACCESS1 = (300, 360)
 ACCESS_STEPS = 4
 ACCESS_TIMED = 4
+# gx1 with delta-Eddington shortwave and the melt-pond tracer, from the
+# ponded state of kernel_check.ponded_state (the analytic forcing grows no
+# pond), and gx1 with the coupled ordering, constant albedos, the
+# constant-coefficient boundary layer and no linear ITD; both from day 80,
+# where the analytic forcing's shortwave and the orbital sun agree
+DEDD = {"grid.kmt_file": "", "radiation.shortwave": "dEdd",
+        "tracers.tr_pond": True}
+COUPLED = {"grid.kmt_file": "", "radiation.prep_radiation": True,
+           "radiation.albedo_type": "constant", "thermo.atmbndy": "constant",
+           "thermo.kitd": 0}
+DEDD_STEPS = 12
+DEDD_TIMED = 4
+COUPLED_STEPS = 4
+# per category, |absorbed + reflected - incoming| shortwave over sunlit
+# ice, relative to the incoming: the dEdd fluxes close by construction up
+# to the rounding of about a dozen f32 operations on fluxes of the
+# incoming's size (fixed before the first run on the card)
+CLOSURE_RTOL = 1.0e-5
 STEP_RTOL = 1.0e-9   # GPU f64 step vs CPU f64 step, relative to field max
 SPLIT_RTOL = 1.0e-5  # split vs default remap route, f32, to field max
 # therm_newton's (nilyr, nslyr) instances held against the plain version
@@ -599,10 +634,13 @@ def counting_plain_calls():
             setattr(mod, attr, fn)
 
 
-def drive_path(name, cfg, device, nsteps, expect, moving):
+def drive_path(name, cfg, device, nsteps, expect, moving, prepare=None):
     """Counts to 0, `nsteps` steps, counts read; `expect` maps each kernel
-    to its launches.  Returns (model, state, forcing, ridge, fluxes)."""
+    to its launches; `prepare` maps the initial state to the one to start
+    from.  Returns (model, state, forcing, ridge, fluxes)."""
     model, state, forcing = make_run(cfg, device, torch.float32)
+    if prepare is not None:
+        state = prepare(state)
     a0 = float(state.aicen.sum())
     with counting_plain_calls() as plain_calls:
         reset_counts()
@@ -659,12 +697,22 @@ def phase_access(device, card, shape, detail):
         f"{ny * nx / (ms_ev / 1e3):.4g} cell-steps/s; ridge iterations "
         f"{ridge_t}; card: {card}")
     log_profile(tag, phase_device_times(model, state, forcing), ms_ev)
-    out = {}
     if not detail:
-        return out
-    names = ("therm_newton", "evp_subcycle", "remap_gsh", "remap_k12")
-    seen = capture_kernel_inputs(model, state, forcing, names)
-    for name in names:
+        return {}
+    return check_at_path_inputs(tag, model, state, forcing, launches, card)
+
+
+DEFAULT_ROUTE = ("therm_newton", "evp_subcycle", "remap_gsh", "remap_k12")
+
+
+def check_at_path_inputs(tag, model, state, forcing, launches, card):
+    """Each kernel of the default route against its plain version at the
+    arguments one step of a path gives it, within its ``kernel_check``
+    tolerance, and its device time per launch.  Returns {kernel:
+    (launches, ms, bound_ms, max |kernel - plain|)}."""
+    out = {}
+    seen = capture_kernel_inputs(model, state, forcing, DEFAULT_ROUTE)
+    for name in DEFAULT_ROUTE:
         args = seen[name]
         kern_fn, plain_fn = kernel_and_plain(name, args)
         kern, plain = kern_fn(), plain_fn()
@@ -681,8 +729,122 @@ def phase_access(device, card, shape, detail):
             f" MB, {ops / 1e9:.4g} G operations), {100 * bound_ms / ms:.1f}% "
             f"of it; max |kernel - plain| {err:.3e}, {worst:.3e} of the "
             f"field's scale (within tolerance); card: {card}")
+        if name == "therm_newton":
+            sabs, iabs = args[12], args[13]
+            log(f"    its inputs: Sswabs max {float(sabs.max()):.4g} W/m^2 on "
+                f"{int((sabs > 0).sum())} category cells, Iswabs max "
+                f"{float(iabs.max()):.4g} W/m^2")
         out[name] = (launches[name], ms, bound_ms, err)
     return out
+
+
+def shortwave_closure(model, state, forcing, yday):
+    """The path's radiation at `state`: per category, |absorbed + reflected
+    - incoming| relative to the incoming over sunlit ice, and what shows
+    that the scheme acts (albedo range, sunlit and ponded category cells,
+    largest snow-layer absorption)."""
+    import cice4_tpu_torch.model as M
+    from cice4_tpu_torch import constants as cn
+
+    f = forcing(yday, 0.0)
+    sw = M._step_radiation(model, state, model.grid, f, yday, 0.0, DT)
+    incoming = f.swvdr + f.swvdf + f.swidr + f.swidf
+    absorbed = sw["fswsfc"] + sw["fswint"] + sw["fswthru"]
+    reflected = (sw["alvdrn"] * f.swvdr + sw["alvdfn"] * f.swvdf
+                 + sw["alidrn"] * f.swidr + sw["alidfn"] * f.swidf)
+    lit = (state.aicen > cn.puny) & (sw["coszen"] > cn.puny) & (incoming > 0)
+    err = (absorbed + reflected - incoming).abs()[lit] \
+        / incoming.expand_as(absorbed)[lit]
+    albs = torch.stack([sw[k] for k in ("alvdrn", "alvdfn", "alidrn",
+                                        "alidfn", "albin", "albsn",
+                                        "albpn")])
+    return dict(worst=float(err.max()), alb_min=float(albs.min()),
+                alb_max=float(albs.max()), lit=int(lit.sum()),
+                ponded=int((sw["albpn"] > 0).sum()),
+                sswabs=float(sw["Sswabs"].max()),
+                fswint=float(sw["fswint"].max()))
+
+
+def phase_dedd(device, card):
+    """gx1 with delta-Eddington shortwave and melt ponds, f32, from the
+    ponded state (`kernel_check.ponded_state`): DEDD_STEPS steps with the
+    counters (each of the four kernels of the default route once a step,
+    no plain version), a physical state that shows the options act (pond
+    volume >= 0 and > 0 somewhere; per category albedos in [0, 1], the
+    shortwave closing within CLOSURE_RTOL, snow-layer absorption and
+    ponded cells at the last state), ms/step by CUDA events over
+    DEDD_TIMED more steps, device time and launches by phase, and each
+    kernel against its plain version at this path's inputs, timed.
+    Returns {kernel: (launches, ms, bound_ms, max |d|)}."""
+    from cice4_tpu_torch import kernel_check
+
+    cfg = make_config(DEDD)
+    ny, nx = cfg.domain.ny_global, cfg.domain.nx_global
+    tag = f"dEdd path {ny}x{nx}"
+    model, state, forcing, _, _ = drive_path(
+        tag, cfg, device, DEDD_STEPS,
+        expected(therm_newton=DEDD_STEPS, evp_subcycle=DEDD_STEPS,
+                 remap_gsh=DEDD_STEPS, remap_k12=DEDD_STEPS),
+        moving=True, prepare=kernel_check.ponded_state)
+    launches = read_counts()
+    volpn = state.trcrn["volpn"]
+    vmin, vmax = float(volpn.min()), float(volpn.max())
+    if vmin < 0.0 or vmax <= 0.0:
+        raise AssertionError(f"{tag}: pond volume in [{vmin}, {vmax}]")
+    rad = shortwave_closure(model, state, forcing,
+                            YDAY0 + DEDD_STEPS * DT / 86400.0)
+    log(f"  {tag}: pond volume in [{vmin:.4g}, {vmax:.4g}] m on "
+        f"{int((volpn > 0).sum())} category cells; the next step's radiation: "
+        f"{rad['lit']} sunlit icy category cells, {rad['ponded']} ponded, "
+        f"albedos in [{rad['alb_min']:.4g}, {rad['alb_max']:.4g}], Sswabs max "
+        f"{rad['sswabs']:.4g} W/m^2, fswint max {rad['fswint']:.4g} W/m^2, "
+        f"worst closure |absorbed + reflected - incoming| {rad['worst']:.3e} "
+        f"of the incoming (limit {CLOSURE_RTOL})")
+    if not 0.0 <= rad["alb_min"] <= rad["alb_max"] <= 1.0:
+        raise AssertionError(f"{tag}: albedos outside [0, 1]: {rad}")
+    if rad["worst"] > CLOSURE_RTOL:
+        raise AssertionError(f"{tag}: shortwave closure {rad['worst']:.3e} "
+                             f"beyond {CLOSURE_RTOL}")
+    if rad["sswabs"] <= 0.0 or rad["ponded"] == 0 or rad["lit"] == 0:
+        raise AssertionError(f"{tag}: dEdd does not act: {rad}")
+    ms_ev, ms_host, ridge_t = time_path(model, state, forcing, DEDD_TIMED,
+                                        first=DEDD_STEPS)
+    log(f"  {tag}: {ms_ev:.3f} ms/step (CUDA events, {DEDD_TIMED} steps "
+        f"after {DEDD_STEPS}), {ms_host:.3f} ms/step (host clock), "
+        f"{ny * nx / (ms_ev / 1e3):.4g} cell-steps/s; ridge iterations "
+        f"{ridge_t}; card: {card}")
+    log_profile(tag, phase_device_times(model, state, forcing), ms_ev)
+    compare_dense_passes(tag, model, state, forcing, card)
+    return check_at_path_inputs(tag, model, state, forcing, launches, card)
+
+
+def compare_dense_passes(tag, model, state, forcing, card):
+    """The radiation's surface-type passes on the gathered active cells
+    (the port's) against dense passes over every category cell (the JAX
+    package's layout, `_compute_dedd` in the gathered pass's place):
+    ms/step by CUDA events over DEDD_TIMED steps each, in the order
+    gathered, dense, dense, gathered, and each one's device time and
+    launches by phase."""
+    from cice4_tpu_torch.ops import shortwave_dedd as td
+
+    gathered = td._compute_dedd_gathered
+    order = []
+    for dense in (False, True, True, False):
+        td._compute_dedd_gathered = td._compute_dedd if dense else gathered
+        try:
+            order.append((dense, time_path(model, state, forcing,
+                                           DEDD_TIMED, first=DEDD_STEPS)[0]))
+            if len(order) in (2, 4):
+                log_profile(f"{tag}, {'dense' if dense else 'gathered'} "
+                            f"passes", phase_device_times(model, state,
+                                                          forcing),
+                            order[-1][1])
+        finally:
+            td._compute_dedd_gathered = gathered
+    log(f"  {tag}: ms/step (CUDA events, {DEDD_TIMED} steps each) with the "
+        + "; ".join(f"{'dense' if d else 'gathered'} passes {ms:.3f}"
+                    for d, ms in order)
+        + f" (in this order); card: {card}")
 
 
 def start_at(calendar, yday):
@@ -825,12 +987,14 @@ def phase_cli(workdir):
     return tail
 
 
-def phase_small_parity(device, cfg):
+def phase_small_parity(device, cfg, prepare=None):
     """A 24x32 cut in f64: the card (kernels) against the CPU (plain
-    versions), 3 steps."""
+    versions), 3 steps, from the initial state or `prepare` of it."""
     out = []
     for dev in (device, torch.device("cpu")):
         model, state, forcing = make_run(cfg, dev, torch.float64)
+        if prepare is not None:
+            state = prepare(state)
         state, _, _ = run_steps(model, state, forcing, 3)
         out.append(state)
     return compare_states(out[0], out[1], STEP_RTOL, "GPU vs CPU step")
@@ -1288,11 +1452,11 @@ def measure_kernel(name, args, card):
 
 
 def phase_device_times(model, state, forcing):
-    """Device time by phase of one step of a path: each phase is profiled
-    (torch.profiler, device kernels only) in a step of its own, between
-    synchronisations, and the whole step once.  Returns (by phase, step
-    total, number of kernel kinds, top kernels) or None when the profiler
-    saw no device time."""
+    """Device time and launches by phase of one step of a path: each phase
+    is profiled (torch.profiler, device kernels only) in a step of its
+    own, between synchronisations, and the whole step once.  Returns ({phase:
+    (ms, launches)}, step total ms, number of kernel kinds, top kernels,
+    the step's launches) or None when the profiler saw no device time."""
     import cice4_tpu_torch.model as M
     from torch.profiler import ProfilerActivity, profile
 
@@ -1328,7 +1492,7 @@ def phase_device_times(model, state, forcing):
               "coupling": [(M, "_coupling_prep")]}
     by_phase = {}
     for phase, sites in phases.items():
-        acc = [0.0]
+        acc = [0.0, 0]
         in_dynamics = [False]
         saved = [(mod, attr, getattr(mod, attr)) for mod, attr in sites]
         saved.append((M, "_step_dynamics", M._step_dynamics))
@@ -1340,6 +1504,7 @@ def phase_device_times(model, state, forcing):
                     return orig(*a, **k)
                 out, prow = profiled(lambda: orig(*a, **k))
                 acc[0] += sum(r[1] for r in prow)
+                acc[1] += sum(r[2] for r in prow)
                 return out
             return run
 
@@ -1359,22 +1524,26 @@ def phase_device_times(model, state, forcing):
         finally:
             for mod, attr, orig in saved:
                 setattr(mod, attr, orig)
-        by_phase[phase] = acc[0]
+        by_phase[phase] = tuple(acc)
+    launches = sum(r[2] for r in rows)
     rows.sort(key=lambda r: -r[1])
-    return by_phase, total, len(rows), rows[:10]
+    return by_phase, total, len(rows), rows[:10], launches
 
 
 def log_profile(name, prof, ms_step):
     if prof is None:
         log(f"  {name} profiler: no device time recorded (not measured)")
         return
-    by_phase, total, nkinds, top = prof
+    by_phase, total, nkinds, top, launches = prof
     log(f"  {name} profiler, one step: {total:.3f} ms device time in "
-        f"{nkinds} kernel kinds ({100 * total / ms_step:.1f}% of the step's "
-        f"{ms_step:.3f} ms); by phase:")
-    for phase, ms in by_phase.items():
-        log(f"    {phase:10s} {ms:9.3f} ms ({100 * ms / total:.1f}%)")
-    log(f"    {'other':10s} {total - sum(by_phase.values()):9.3f} ms")
+        f"{launches} launches of {nkinds} kernel kinds "
+        f"({100 * total / ms_step:.1f}% of the step's {ms_step:.3f} ms); by "
+        f"phase (device ms, launches):")
+    for phase, (ms, n) in by_phase.items():
+        log(f"    {phase:10s} {ms:9.3f} ms ({100 * ms / total:.1f}%) {n:6d}")
+    rest_ms = total - sum(v[0] for v in by_phase.values())
+    rest_n = launches - sum(v[1] for v in by_phase.values())
+    log(f"    {'other':10s} {rest_ms:9.3f} ms        {rest_n:6d}")
     for key, ms, count in top:
         log(f"    {ms:9.3f} ms  x{count:5d}  {key[:90]}")
 
@@ -1388,12 +1557,12 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     card = card_line()
-    log(f"[1/11 device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
+    log(f"[1/13 device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
         f"torch {torch.__version__} CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     libs = cuda_build.load_all(LIBRARIES)
-    log(f"[2/11 build] {len(libs)} kernel libraries in "
+    log(f"[2/13 build] {len(libs)} kernel libraries in "
         f"{time.perf_counter() - t0:.2f} s wall, built in parallel")
     for name, lib in libs.items():
         log(f"  {name}: built={lib.built} nvcc {lib.seconds:.2f} s -> "
@@ -1404,12 +1573,12 @@ def main() -> int:
 
     cfg = make_config(MAIN)
     ny, nx = cfg.domain.ny_global, cfg.domain.nx_global
-    log("[3/11 kernels vs plain versions on the card]")
+    log("[3/13 kernels vs plain versions on the card]")
     model, _, _ = make_run(cfg, device, torch.float32)
     check_newton(model.thermo, device)
     check_dynamics_kernels(device)
 
-    log(f"[4/11 gx1 main path] gx1 default step {ny}x{nx}, ncat "
+    log(f"[4/13 gx1 main path] gx1 default step {ny}x{nx}, ncat "
         f"{cfg.domain.ncat}, nilyr {cfg.domain.nilyr}, nslyr "
         f"{cfg.domain.nslyr}, ndte {cfg.dynamics.ndte}, advection "
         f"{cfg.transport.advection}, f32, {NSTEPS} steps of {DT:.0f} s")
@@ -1421,7 +1590,7 @@ def main() -> int:
     log(f"  ridge iterations per step: {ridge} (cap 20; "
         f"{sum(r == 20 for r in ridge)} steps at the cap)")
 
-    log(f"[5/11 earlier path] gx1 thermodynamics only, f32, {THERMO_STEPS} "
+    log(f"[5/13 earlier path] gx1 thermodynamics only, f32, {THERMO_STEPS} "
         f"steps")
     thermo_run = drive_path(
         "thermo-only path", make_config(THERMO_ONLY), device, THERMO_STEPS,
@@ -1430,7 +1599,7 @@ def main() -> int:
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         bcfg = box_config()
-        log(f"[6/11 box path] IceModelRun, doubly-periodic box "
+        log(f"[6/13 box path] IceModelRun, doubly-periodic box "
             f"{bcfg.domain.ny_global}x{bcfg.domain.nx_global} ("
             f"{bcfg.grid.dx_rect / 1e3:.0f} km cells from "
             f"{bcfg.grid.lat_origin}N), EW {bcfg.domain.ew_boundary_type} NS "
@@ -1440,14 +1609,14 @@ def main() -> int:
         box_run, launches["box"], driver_step_ms = phase_box_driver(
             device, workdir / "box")
 
-        log(f"[7/11 split route] the box, {SPLIT_STEPS} steps with "
+        log(f"[7/13 split route] the box, {SPLIT_STEPS} steps with "
             f"CICE4_FORCE_PALLAS_REMAP=1 (K0 in GA mode, K1, K2)")
         launches["split"], worst_split = phase_split_route(device)
         log(f"  split vs default route after {SPLIT_STEPS} steps: worst "
             f"difference {worst_split:.3e} of the field's scale (limit "
             f"{SPLIT_RTOL})")
 
-        log(f"[8/11 CLI] python -m cice4_tpu_torch run, the box cut to "
+        log(f"[8/13 CLI] python -m cice4_tpu_torch run, the box cut to "
             f"{BOX_CLI['domain.ny_global']}x{BOX_CLI['domain.nx_global']}, "
             f"{CLI_STEPS} steps")
         (workdir / "cli").mkdir()
@@ -1455,21 +1624,45 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    log(f"[9/11 ACCESS-OM2 tripole] {ACCESS025[0]}x{ACCESS025[1]} (0.25 "
+    log(f"[9/13 ACCESS-OM2 tripole] {ACCESS025[0]}x{ACCESS025[1]} (0.25 "
         f"degree) and {ACCESS1[0]}x{ACCESS1[1]} (1 degree), f32, analytic "
         f"forcing from day {YDAY0:.0f}; card: {card}")
     access = phase_access(device, card, ACCESS025, detail=True)
     phase_access(device, card, ACCESS1, detail=False)
 
-    log("[10/11 small parity] 24x32 f64, card vs CPU, 3 steps")
-    for name, pcfg in (("gx1 main path", make_config(MAIN, **SMALL)),
-                       ("box", box_config(**BOX_SMALL)),
-                       ("all-ocean tripole", box_config(**TRIPOLE_SMALL))):
-        worst = phase_small_parity(device, pcfg)
+    log(f"[10/13 dEdd path] gx1 {ny}x{nx} with delta-Eddington shortwave "
+        f"and melt ponds, f32, {DEDD_STEPS} steps from day {YDAY0:.0f} from "
+        f"the ponded state; card: {card}")
+    dedd = phase_dedd(device, card)
+
+    log(f"[11/13 coupled path] gx1 {ny}x{nx} with the coupled radiation "
+        f"order, constant albedos, atmbndy='constant' and kitd=0, f32, "
+        f"{COUPLED_STEPS} steps")
+    _, cstate, _, _, _ = drive_path(
+        "coupled path", make_config(COUPLED), device, COUPLED_STEPS,
+        expected(therm_newton=COUPLED_STEPS, evp_subcycle=COUPLED_STEPS,
+                 remap_gsh=COUPLED_STEPS, remap_k12=COUPLED_STEPS),
+        moving=True)
+    carried = float(cstate.swn["fswsfcn"].max())
+    if not carried > 0.0:
+        raise AssertionError("coupled path: no shortwave carried to the "
+                             "next step")
+    log(f"  coupled path: shortwave carried to the next step, fswsfcn max "
+        f"{carried:.4g} W/m^2")
+
+    log("[12/13 small parity] 24x32 f64, card vs CPU, 3 steps")
+    from cice4_tpu_torch.kernel_check import ponded_state
+    for name, pcfg, prepare in (
+            ("gx1 main path", make_config(MAIN, **SMALL), None),
+            ("box", box_config(**BOX_SMALL), None),
+            ("all-ocean tripole", box_config(**TRIPOLE_SMALL), None),
+            ("gx1 dEdd and ponds", make_config(DEDD, **SMALL), ponded_state),
+            ("gx1 coupled options", make_config(COUPLED, **SMALL), None)):
+        worst = phase_small_parity(device, pcfg, prepare)
         log(f"  {name}: worst difference {worst:.3e} of the field's scale "
             f"(limit {STEP_RTOL})")
 
-    log(f"[11/11 timing] card: {card}")
+    log(f"[13/13 timing] card: {card}")
     ms_ev, ms_host, ridge_t = time_path(model, state, forcing, 8)
     log(f"  gx1 main path: {ms_ev:.3f} ms/step (CUDA events, 8 steps after "
         f"{NSTEPS}), {ms_host:.3f} ms/step (host clock), "
@@ -1526,10 +1719,11 @@ def main() -> int:
                  "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": bound_ms, "bound_by": bound_by,
                  "library_ms": None, "path": path}
-        if name in access:
-            (entry["access025_launches"], entry["access025_ms"],
-             entry["access025_bound_ms"], entry["access025_max_abs_err"]) = \
-                access[name]
+        for key, at in (("access025", access), ("dedd", dedd)):
+            if name in at:
+                (entry[f"{key}_launches"], entry[f"{key}_ms"],
+                 entry[f"{key}_bound_ms"], entry[f"{key}_max_abs_err"]) = \
+                    at[name]
         log_design(name, seen[name], ms)
         if name == "therm_newton":
             entry["ms_at_layers"] = time_newton_layers(

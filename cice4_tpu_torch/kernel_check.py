@@ -85,6 +85,28 @@ def make_inputs(p: tv.ThermoParams, ncat: int, ny: int, nx: int, seed: int,
         + tuple(t(a) for a in arrays)
 
 
+def ponded_state(state, seed: int = 1):
+    """`state` (a cold start) with the snow taken off about half of its
+    icy category cells and a pond volume (m per unit ice area: none, and
+    ponds below, inside and above the shallow-pond transition of the
+    delta-Eddington scheme) on each icy one, drawn with numpy from
+    `seed`.  From it the dEdd ponded pass and the snow-layer absorption
+    both act, and the pond tracer is nonzero: the analytic forcing keeps
+    the Arctic below freezing, so a cold start grows no pond."""
+    rng = np.random.RandomState(seed)
+    icy = (state.aicen > 0.0).cpu().numpy()
+    bare = icy & (rng.rand(*icy.shape) < 0.5)
+    volpn = np.where(icy, rng.choice([0.0, 1e-3, 0.02, 0.06, 0.12],
+                                     icy.shape), 0.0)
+    device, dtype = state.aicen.device, state.aicen.dtype
+    bare = torch.as_tensor(bare, device=device)
+    return state.replace(
+        vsnon=torch.where(bare, 0.0, state.vsnon),
+        esnon=torch.where(bare.unsqueeze(-3), 0.0, state.esnon),
+        trcrn={**state.trcrn,
+               "volpn": torch.as_tensor(volpn, dtype=dtype, device=device)})
+
+
 def compare(kern: dict, plain: dict, has_ice, dtype) -> dict:
     """Hold the kernel's outputs against the plain version's.  Returns a
     report dict; ``report["ok"]`` says whether the tolerances hold."""

@@ -1,18 +1,22 @@
 """The model: one time step composing the column physics and dynamics.
 
 Port of :mod:`cice4_tpu.model` (``source/ice_step_mod.F90`` +
-``CICE_RunMod.F90 ice_step:164-242``) for the default
-gx1 step: CCSM3 radiation, the Monin-Obukhov boundary layer, the Newton
-column thermodynamics (the therm_newton kernel on the GPU), linear ITD,
-new ice, lateral melt, EVP dynamics (the evp_subcycle kernel),
-incremental remapping (the remap_gsh and remap_k12 kernels), ridging,
-cleanup, the slab ocean and the in-step conservation guards.  Dynamics
-may be off (``kdyn=0``) and transport may be ``"none"``; the options
-not ported yet raise ``NotImplementedError`` naming their ROADMAP item.
+``CICE_RunMod.F90 ice_step:164-242``): CCSM3 (default or constant
+albedos) or delta-Eddington radiation with the explicit melt-pond
+tracer, the Monin-Obukhov or constant-coefficient boundary layer, the
+Newton column thermodynamics (the therm_newton kernel on the GPU),
+linear ITD (or none, ``kitd=0``), new ice, lateral melt, EVP dynamics
+(the evp_subcycle kernel), incremental remapping (the remap_gsh and
+remap_k12 kernels), ridging, cleanup, the slab ocean and the in-step
+conservation guards.  Dynamics may be off (``kdyn=0``) and transport may
+be ``"none"``; the options not ported yet raise ``NotImplementedError``
+naming their ROADMAP item.
 
 Categories are an explicit leading ``ncat`` axis where the JAX package
 vmaps.  Radiation runs at the start of the step from the current
-forcing (the standalone ordering of the JAX package).
+forcing (the standalone ordering of the JAX package) or, with
+``radiation.prep_radiation``, at its end, with last step's absorbed
+shortwave rescaled at its start (the coupled ordering).
 """
 
 from __future__ import annotations
@@ -26,12 +30,14 @@ from cice4_tpu_torch.forcing import Forcing
 from cice4_tpu_torch.grid import GRID_FIELDS, Grid, make_grid
 from cice4_tpu_torch.ops import itd as itd_ops
 from cice4_tpu_torch.ops import mechred, therm_itd
-from cice4_tpu_torch.ops.atmo import atmo_boundary_layer
+from cice4_tpu_torch.ops.atmo import atmo_boundary_const, atmo_boundary_layer
 from cice4_tpu_torch.ops.evp import evp, principal_stress
+from cice4_tpu_torch.ops.meltpond import compute_ponds, pond_geometry
 from cice4_tpu_torch.ops.ocean import ocean_mixed_layer
 from cice4_tpu_torch.ops.orbital import compute_coszen
 from cice4_tpu_torch.ops.remap import transport_remap
 from cice4_tpu_torch.ops.shortwave import shortwave_ccsm3
+from cice4_tpu_torch.ops.shortwave_dedd import shortwave_dEdd
 from cice4_tpu_torch.ops.therm_vertical import (frzmlt_bottom_lateral,
                                                 make_thermo_params,
                                                 thermo_vertical_category)
@@ -54,20 +60,6 @@ def _check_supported(cfg: Config):
                 raise NotImplementedError(
                     f"transport.{name}=True is not ported yet (ROADMAP "
                     "queue 1 item 4)")
-    if cfg.radiation.shortwave != "default":
-        raise NotImplementedError(
-            "dEdd shortwave is not ported yet (ROADMAP queue 1 item 4)")
-    if cfg.radiation.prep_radiation:
-        raise NotImplementedError(
-            "the coupled prep_radiation ordering is not ported yet "
-            "(ROADMAP queue 1 item 4)")
-    if cfg.thermo.atmbndy != "default":
-        raise NotImplementedError(
-            "atmbndy='constant' is not ported yet (ROADMAP queue 1 item 4)")
-    if cfg.thermo.kitd != 1:
-        raise NotImplementedError(
-            "kitd=0 (delta-function ITD) is not ported yet (ROADMAP queue 1 "
-            "item 4)")
 
 
 class Model(nn.Module):
@@ -103,16 +95,45 @@ class Model(nn.Module):
 
 def _step_radiation(model: Model, state: State, grid: Grid, f: Forcing,
                     yday, sec, dt):
-    """Zenith angle + per-category CCSM3 shortwave
+    """Zenith angle + per-category shortwave
     (``ice_step_mod.F90 step_radiation:764-973``)."""
     cfg = model.cfg
     coszen = compute_coszen(grid.tlat, grid.tlon, yday, sec, dt)
-    sw = shortwave_ccsm3(cfg.radiation, model.itd.nilyr, model.itd.nslyr,
-                         cfg.thermo.heat_capacity, state.aicen, state.vicen,
-                         state.vsnon, state.tsfcn,
-                         f.swvdr, f.swvdf, f.swidr, f.swidf)
+    if cfg.radiation.shortwave == "dEdd":
+        apond = hpond = None
+        if "volpn" in state.trcrn:
+            apond, hpond = pond_geometry(state.trcrn["volpn"])
+        sw = shortwave_dEdd(cfg.radiation, model.itd.nilyr, model.itd.nslyr,
+                            state.aicen, state.vicen, state.vsnon,
+                            state.tsfcn, coszen,
+                            f.swvdr, f.swvdf, f.swidr, f.swidf,
+                            apond=apond, hpond=hpond)
+    else:
+        sw = shortwave_ccsm3(cfg.radiation, model.itd.nilyr,
+                             model.itd.nslyr, cfg.thermo.heat_capacity,
+                             state.aicen, state.vicen, state.vsnon,
+                             state.tsfcn, f.swvdr, f.swvdf, f.swidr, f.swidf)
     sw["coszen"] = coszen
     return sw
+
+
+def _prep_radiation(model: Model, state: State, f: Forcing):
+    """Coupled-mode SW rescale at step start (``ice_step_mod.F90
+    prep_radiation:84-218``): multiply last step's absorbed-SW
+    components (carried in state.swn) by netsw_new / scale_factor."""
+    swn = state.swn
+    aice = state.aicen.sum(0)
+    netsw = (f.swvdr * (1.0 - swn["alvdr_gbm"])
+             + f.swvdf * (1.0 - swn["alvdf_gbm"])
+             + f.swidr * (1.0 - swn["alidr_gbm"])
+             + f.swidf * (1.0 - swn["alidf_gbm"]))
+    ok = (aice > 0.0) & (state.scale_factor > cn.puny)
+    scale = torch.where(ok, netsw / torch.clamp(state.scale_factor,
+                                                min=cn.puny), 1.0)
+    return dict(fswsfc=scale * swn["fswsfcn"], fswint=scale * swn["fswintn"],
+                fswthru=scale * swn["fswthrun"],
+                Sswabs=scale * swn["Sswabsn"], Iswabs=scale * swn["Iswabsn"],
+                fswfac=scale)
 
 
 _MERGED = [
@@ -142,9 +163,13 @@ def _step_therm1(model: Model, state: State, grid: Grid, f: Forcing,
         model.thermo, dt, agg["aice"], state.frzmlt, state.eicen,
         state.esnon, state.sst, Tf, state.strocnxT, state.strocnyT)
 
-    bl = atmo_boundary_layer("ice", state.tsfcn, f.potT, f.uatm, f.vatm,
-                             f.wind, f.zlvl, f.Qa, f.rhoa,
-                             cfg.thermo.calc_strair)
+    if cfg.thermo.atmbndy == "constant":
+        bl = atmo_boundary_const("ice", f.uatm, f.vatm, f.wind, f.rhoa,
+                                 cfg.thermo.calc_strair)
+    else:
+        bl = atmo_boundary_layer("ice", state.tsfcn, f.potT, f.uatm,
+                                 f.vatm, f.wind, f.zlvl, f.Qa, f.rhoa,
+                                 cfg.thermo.calc_strair)
     st, fx = thermo_vertical_category(
         model.thermo, dt, state.aicen, state.vicen, state.vsnon,
         state.tsfcn, state.eicen, state.esnon,
@@ -171,6 +196,12 @@ def _step_therm1(model: Model, state: State, grid: Grid, f: Forcing,
         # increment_age (ice_age.F90:87-123)
         trcrn["iage"] = torch.where(st["aicen"] > cn.puny,
                                     trcrn["iage"] + dt, 0.0)
+    ponds_active = "volpn" in trcrn and cfg.radiation.shortwave == "dEdd"
+    if ponds_active:
+        # explicit melt ponds (ice_meltpond.F90 compute_ponds:88-230)
+        trcrn["volpn"], _, _ = compute_ponds(
+            dt, fx["meltt"], fx["melts"], f.frain, st["aicen"], st["vicen"],
+            st["vsnon"], st["tsfcn"], trcrn["volpn"])
 
     state = state.replace(aicen=st["aicen"], vicen=st["vicen"],
                           vsnon=st["vsnon"], tsfcn=st["tsfcn"],
@@ -188,8 +219,10 @@ def _step_therm1(model: Model, state: State, grid: Grid, f: Forcing,
     # the coupler-facing flwout includes the REFLECTED downwelling LW
     # (ice_flux.F90 merge_fluxes:739-740)
     merged["flwout"] = merged["flwout"] - (1.0 - cn.emissivity) * f.flw * wsum
-    # rain over ice passes through to the ocean (melt ponds are off)
-    merged["fresh"] = merged["fresh"] + f.frain * wsum
+    if not ponds_active:
+        # rain over ice passes through to the ocean; with the ponds on,
+        # the reference stores part of it in the pond volume instead
+        merged["fresh"] = merged["fresh"] + f.frain * wsum
     merged["rside"] = rside
     merged["fbot"] = fbot
     merged["frzmlt_init"] = state.frzmlt
@@ -210,15 +243,17 @@ def _step_therm2(model: Model, state: State, grid: Grid, fluxes,
                  init, Tf, dt):
     """ITD conversions (``ice_step_mod.F90 step_therm2:239-516``)."""
     cfg, itd = model.cfg, model.itd
-    vice_before = state.vicen.sum(0)
-    state = therm_itd.linear_itd(state, itd, init["aicen_init"],
-                                 init["vicen_init"])
-    if cfg.run.guards:
-        # column_conservation_check (ice_itd.F90:1409-1473) after linear_itd
-        from cice4_tpu_torch.guards import check_column_conservation
-        fluxes["_guards"]["column conservation: vice after "
-                          "linear_itd"] = check_column_conservation(
-            vice_before, state.vicen.sum(0), grid.tmask)
+    if cfg.thermo.kitd == 1:
+        vice_before = state.vicen.sum(0)
+        state = therm_itd.linear_itd(state, itd, init["aicen_init"],
+                                     init["vicen_init"])
+        if cfg.run.guards:
+            # column_conservation_check (ice_itd.F90:1409-1473) after
+            # linear_itd
+            from cice4_tpu_torch.guards import check_column_conservation
+            fluxes["_guards"]["column conservation: vice after "
+                              "linear_itd"] = check_column_conservation(
+                vice_before, state.vicen.sum(0), grid.tmask)
     state, dg = therm_itd.add_new_ice(state, itd, cfg, dt,
                                       state.frzmlt, Tf, grid.tmask)
     fluxes["frazil"] = dg["frazil"]
@@ -325,7 +360,18 @@ def _coupling_prep(model: Model, state: State, grid: Grid, f: Forcing,
         fluxes.update({k: v for k, v in ml.items()
                        if k not in ("sst", "frzmlt", "qdp")})
 
-    state = state.replace(sst=sst, frzmlt=frzmlt, scale_factor=scale_factor)
+    swn = state.swn
+    if cfg.radiation.prep_radiation:
+        # carry the absorbed-SW components + gridbox albedos to the
+        # next step's prep_radiation rescale
+        swn = dict(fswsfcn=sw["fswsfc"], fswintn=sw["fswint"],
+                   fswthrun=sw["fswthru"], Sswabsn=sw["Sswabs"],
+                   Iswabsn=sw["Iswabs"],
+                   alvdr_gbm=albs["alvdr"], alvdf_gbm=albs["alvdf"],
+                   alidr_gbm=albs["alidr"], alidf_gbm=albs["alidf"])
+
+    state = state.replace(sst=sst, frzmlt=frzmlt, scale_factor=scale_factor,
+                          swn=swn)
     fluxes.update(albs)
     fluxes["coszen"] = sw["coszen"]
     fluxes["albice"] = (sw["albin"] * state.aicen).sum(0)
@@ -367,7 +413,13 @@ def ice_step(model: Model, state: State, grid: Grid, f: Forcing,
         dt = cfg.run.dt
     Tf = freezing_temperature(cfg, f.sss)
 
-    sw = _step_radiation(model, state, grid, f, yday, sec, dt)
+    prep = cfg.radiation.prep_radiation
+    if prep:
+        # coupled ordering (CICE_RunMod.F90 ice_step:164-242): rescale
+        # last step's absorbed SW now, run radiation at the end
+        sw = _prep_radiation(model, state, f)
+    else:
+        sw = _step_radiation(model, state, grid, f, yday, sec, dt)
     state, fluxes, init = _step_therm1(model, state, grid, f, sw, Tf,
                                        yday, dt)
     state, fluxes = _step_therm2(model, state, grid, fluxes, init, Tf, dt)
@@ -380,6 +432,8 @@ def ice_step(model: Model, state: State, grid: Grid, f: Forcing,
     # dynamic tendencies (init_history_dyn)
     fluxes["daidtd"] = (state.aicen.sum(0) - aice_mid) / dt
     fluxes["dvidtd"] = (state.vicen.sum(0) - vice_mid) / dt
+    if prep:
+        sw = _step_radiation(model, state, grid, f, yday, sec, dt)
     state, fluxes = _coupling_prep(model, state, grid, f, sw, fluxes,
                                    Tf, dt)
     return state, fluxes

@@ -1,10 +1,10 @@
 """Atmospheric surface boundary layer over ice and ocean.
 
-Port of the Monin-Obukhov part of :mod:`cice4_tpu.ops.atmo`
-(``source/ice_atmo.F90 atmo_boundary_layer:56-376``, fixed 5
-iterations).  Elementwise over any leading axes.  The constant-
-coefficient variant (``atmbndy='constant'``) waits for ROADMAP queue 1
-item 4.
+Port of :mod:`cice4_tpu.ops.atmo` (``source/ice_atmo.F90``):
+Monin-Obukhov stability iteration (`atmo_boundary_layer:56-376`, fixed 5
+iterations) and the constant-coefficient variant
+(`atmo_boundary_const:386-509`, ``atmbndy='constant'``).  Elementwise
+over any leading axes.
 """
 
 from __future__ import annotations
@@ -111,3 +111,21 @@ def atmo_boundary_layer(sfctype, Tsf, potT, uatm, vatm, wind, zlvl,
 
     return dict(strx=strx, stry=stry, Tref=Tref, Qref=Qref,
                 delt=delt, delq=delq, shcoef=shcoef, lhcoef=lhcoef)
+
+
+def atmo_boundary_const(sfctype, uatm, vatm, wind, rhoa,
+                        calc_strair=True):
+    """Constant-coefficient boundary layer (``atmo_boundary_const``)."""
+    Lheat = cn.Lsub if sfctype == "ice" else cn.Lvap
+    if calc_strair:
+        tau = rhoa * 0.0012 * wind
+        strx = tau * uatm
+        stry = tau * vatm
+    else:
+        strx = torch.zeros_like(wind)
+        stry = torch.zeros_like(wind)
+    shcoef = 1.20e-3 * cn.cp_air * rhoa * wind
+    lhcoef = 1.50e-3 * Lheat * rhoa * wind
+    zero = torch.zeros_like(wind)
+    return dict(strx=strx, stry=stry, shcoef=shcoef, lhcoef=lhcoef,
+                Tref=zero, Qref=zero, delt=zero, delq=zero)

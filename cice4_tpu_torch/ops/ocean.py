@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from cice4_tpu_torch import constants as cn
-from cice4_tpu_torch.ops.atmo import atmo_boundary_layer
+from cice4_tpu_torch.ops.atmo import atmo_boundary_const, atmo_boundary_layer
 
 frzmlt_max = 1000.0
 cprho = cn.cp_ocn * cn.rhow
@@ -24,11 +24,15 @@ def ocean_mixed_layer(dt, tmask, aice, sst, Tf, qdp, hmix,
     """One mixed-layer update.  Returns dict(sst, frzmlt, qdp, and the
     open-ocean fluxes for history)."""
     if atmbndy == "constant":
-        raise NotImplementedError(
-            "atmbndy='constant' is not ported yet (ROADMAP queue 1 item 4)")
-    bl = atmo_boundary_layer("ocn", sst, potT, uatm, vatm, wind,
-                             zlvl, Qa, rhoa)
-    delt, delq = bl["delt"], bl["delq"]
+        # the JAX package takes the ice coefficients (Lsub) over the
+        # ocean too; the port keeps the reference's choice (ROADMAP §3)
+        bl = atmo_boundary_const("ice", uatm, vatm, wind, rhoa)
+        delt = torch.zeros_like(sst)
+        delq = torch.zeros_like(sst)
+    else:
+        bl = atmo_boundary_layer("ocn", sst, potT, uatm, vatm, wind,
+                                 zlvl, Qa, rhoa)
+        delt, delq = bl["delt"], bl["delq"]
 
     swabs = ((1.0 - cn.albocn) * (swvdr + swidr + swvdf + swidf))
     TsfK = sst + cn.Tffresh

@@ -1,11 +1,12 @@
 """Shortwave radiation: CCSM3 albedos and Beer's-law absorption.
 
 Port of :mod:`cice4_tpu.ops.shortwave` (the CCSM3 path of
-``source/ice_shortwave.F90``).  Every function is elementwise over any
-leading axes, so the model passes all categories at once as
-``(ncat, ny, nx)``; layer outputs put the layer axis third from last:
-``(..., nilyr, ny, nx)``.  The delta-Eddington option waits for ROADMAP
-queue 1 item 4.
+``source/ice_shortwave.F90``: `compute_albedos`, `constant_albedos` and
+`absorbed_solar`).  Every function is elementwise over any leading axes,
+so the model passes all categories at once as ``(ncat, ny, nx)``; layer
+outputs put the layer axis third from last: ``(..., nilyr, ny, nx)``.
+The delta-Eddington option lives in
+:mod:`cice4_tpu_torch.ops.shortwave_dedd`.
 """
 
 from __future__ import annotations
@@ -80,6 +81,24 @@ def compute_albedos(rad: RadiationConfig, aicen, vicen, vsnon, tsfcn):
     return out
 
 
+def constant_albedos(rad: RadiationConfig, aicen, vsnon, tsfcn):
+    """`albedo_type = 'constant'` variant (``constant_albedos``)."""
+    has = aicen > cn.puny
+    hs = torch.where(has, vsnon / torch.clamp(aicen, min=cn.puny), 0.0)
+    snow = hs > cn.puny
+    awi = 0.44  # constant warm ice albedo (ice_shortwave.F90 constant path)
+    aws = 0.75
+    alb_i = torch.where(has, torch.full_like(aicen, awi), cn.albocn)
+    alb_s = torch.where(has & snow, torch.full_like(aicen, aws), cn.albocn)
+    asnow = torch.where(snow & has, hs / (hs + cn.snowpatch), 0.0)
+    comb = alb_i * (1.0 - asnow) + alb_s * asnow
+    return dict(alvdrni=alb_i, alidrni=alb_i, alvdfni=alb_i, alidfni=alb_i,
+                alvdrns=alb_s, alidrns=alb_s, alvdfns=alb_s, alidfns=alb_s,
+                alvdrn=comb, alidrn=comb, alvdfn=comb, alidfn=comb,
+                albin=torch.where(has, alb_i, 0.0),
+                albsn=torch.where(has, alb_s, 0.0), asnow=asnow)
+
+
 def absorbed_solar(nilyr, heat_capacity, aicen, vicen, vsnon,
                    swvdr, swvdf, swidr, swidf, alb):
     """Partition absorbed SW between surface, interior layers and
@@ -138,10 +157,9 @@ def shortwave_ccsm3(rad: RadiationConfig, nilyr, nslyr, heat_capacity,
     absorbs no SW inside snow, so Sswabs is zero (only dEdd populates
     it)."""
     if rad.albedo_type == "constant":
-        raise NotImplementedError(
-            "albedo_type='constant' is not ported yet (ROADMAP queue 1 "
-            "item 4)")
-    alb = compute_albedos(rad, aicen, vicen, vsnon, tsfcn)
+        alb = constant_albedos(rad, aicen, vsnon, tsfcn)
+    else:
+        alb = compute_albedos(rad, aicen, vicen, vsnon, tsfcn)
     absorbed = absorbed_solar(nilyr, heat_capacity, aicen, vicen, vsnon,
                               swvdr, swvdf, swidr, swidf, alb)
     shape = aicen.shape[:-2] + (nslyr,) + aicen.shape[-2:]

@@ -89,6 +89,8 @@ def test_port_imports_no_jax():
         import cice4_tpu_torch.diagnostics, cice4_tpu_torch.driver
         import cice4_tpu_torch.cli, cice4_tpu_torch.io.history
         import cice4_tpu_torch.io.restart, cice4_tpu_torch.ops.restoring
+        import cice4_tpu_torch.ops.shortwave_dedd, cice4_tpu_torch.ops.meltpond
+        import cice4_tpu_torch.ops._dedd_tables
         import chip_smoke
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "cice4_tpu."))

@@ -309,11 +309,15 @@ K12_CASES = ([(shape, bcs, "bands", "gx1") for shape, bcs in DYN_CASES]
              + [((37, 61), bcs, ice, "gx1") for bcs in ALL_BCS + FOLD_BCS
                 for ice in ("none", "seams", "all")]
              + [((45, 70), bcs, "bands", "wide")
-                for bcs in (("cyclic", "cyclic"), ("open", "closed"))])
+                for bcs in (("cyclic", "cyclic"), ("open", "closed"))]
+             + [((37, 61), bcs, "bands", "ponds")
+                for bcs in (("cyclic", "closed"), ("cyclic", "tripole"))])
 # the tracer tables by name: the model's (gx1: 9 tracers, 3 of type 1), the
-# widest, one without type-2 tracers (its gathered parents are one zero
-# row) and none at all
+# model's with the melt-pond volume (10, 4 of type 1), the widest, one
+# without type-2 tracers (its gathered parents are one zero row) and none
+# at all
 TABLES = {"gx1": _tracer_meta(["iage"], 4, 1), "wide": WIDE_META,
+          "ponds": _tracer_meta(["iage", "volpn"], 4, 1),
           "type1": [("hi", 1, -1), ("hs", 1, -1), ("Tsfc", 1, -1)],
           "none": []}
 # K12's cases, and the tables without type-2 tracers or without tracers
@@ -556,3 +560,81 @@ def test_tripole_step_launches_every_kernel(cuda_device, case):
     assert [w.launches - b for w, b in zip(wrappers, before)] == [2] * 4
     assert bool(torch.isfinite(state.aicen).all())
     assert 0.0 < float(state.uvel.abs().max()) < 2.0
+
+
+DEDD_SMALL = {"grid.kmt_file": "", "domain.ny_global": 24,
+              "domain.nx_global": 32, "radiation.shortwave": "dEdd",
+              "tracers.tr_pond": True}
+
+
+def _dedd_run(device, dtype):
+    """(model, ponded state, forcing) of the 24x32 gx1 cut with dEdd
+    shortwave and melt ponds."""
+    from cice4_tpu_torch.io.forcing_data import AnalyticForcing
+    from cice4_tpu_torch.model import Model
+    from cice4_tpu_torch.state import init_state
+
+    cfg = gx1_config().with_values(**DEDD_SMALL)
+    model = Model.create(cfg, device=device, dtype=dtype)
+    state = init_state(cfg, model.grid, model.itd, device=device,
+                       dtype=dtype)
+    return model, kernel_check.ponded_state(state), \
+        AnalyticForcing(cfg, model.grid, device=device, dtype=dtype)
+
+
+@pytest.mark.gpu
+def test_dedd_step_launches_every_kernel(cuda_device, monkeypatch):
+    """Two dEdd steps with melt ponds at 24x32 on the card: each of the
+    four kernels of the default route once per step and no plain version;
+    the pond volume stays nonnegative and nonzero, the albedos physical."""
+    from cice4_tpu_torch.ops import evp_cuda, remap_cuda
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card's path")
+
+    for mod, name in ((tv, "_temperature_changes_core"),
+                      (evp_cuda, "_evp_subcycle_plain"),
+                      (remap_cuda, "ga_gsh_plain"),
+                      (remap_cuda, "k12_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    model, state, forcing = _dedd_run(cuda_device, torch.float32)
+    wrappers = (tv.temperature_changes, evp_cuda.evp_subcycle,
+                remap_cuda.ga_gsh, remap_cuda.k12_divergence)
+    before = [w.launches for w in wrappers]
+    for n in range(2):
+        yday = 80.0 + n / 24.0
+        state, fluxes = model(state, forcing(yday, 0.0), yday, 0.0)
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [2] * 4
+    assert bool(torch.isfinite(state.aicen).all())
+    volpn = state.trcrn["volpn"]
+    assert float(volpn.min()) >= 0.0 and float(volpn.max()) > 0.0
+    for k in ("alvdr", "alidr", "alvdf", "alidf"):
+        assert 0.0 <= float(fluxes[k].min()) and float(fluxes[k].max()) <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_therm_newton_matches_plain_at_dedd_inputs(cuda_device, dtype,
+                                                   monkeypatch):
+    """therm_newton against its plain version at the arguments a dEdd step
+    with ponds gives it: snow-layer absorption (Sswabs) nonzero."""
+    model, state, forcing = _dedd_run(cuda_device, dtype)
+    seen = []
+    real = tv.temperature_changes
+
+    def record(*args):
+        seen.append(args)
+        return real(*args)
+
+    record.launches = 0     # the kernel's wrapper counts on its own name
+    monkeypatch.setattr(tv, "temperature_changes", record)
+    model(state, forcing(80.0, 0.0), 80.0, 0.0)
+    monkeypatch.undo()
+    p, dt, *args = seen[0]
+    assert float(args[10].max()) > 0.0          # Sswabs
+    kern = tv.temperature_changes(p, dt, *args)
+    plain = tv._temperature_changes_core(p, dt, *args)
+    torch.cuda.synchronize()
+    report = kernel_check.compare(kern, plain, args[0], dtype)
+    assert report["ok"], report

@@ -107,7 +107,9 @@ def _assert_state_equal(jst, tst):
     col_config().with_values(**{"domain.nx_global": 8,
                                 "domain.ny_global": 6,
                                 "grid.grid_type": "rectangular"}),
-], ids=["latlon", "latlon-lvl", "rect"])
+    _slice_cfg().with_values(**{"thermo.kitd": 0, "tracers.tr_pond": True,
+                                "radiation.prep_radiation": True}),
+], ids=["latlon", "latlon-lvl", "rect", "latlon-kitd0-ponds-coupled"])
 def test_init_state_equal(cfg):
     jgrid = jg.make_grid(cfg, dtype=jnp.float64)
     tgrid = tg.make_grid(cfg, device=CPU, dtype=F64)
@@ -120,11 +122,13 @@ def test_init_state_equal(cfg):
 
 
 def test_itd_params_equal():
-    cfg = _slice_cfg()
-    j, t = js.make_itd_params(cfg), ts.make_itd_params(cfg)
-    for k in ("hin_max", "salin", "tmlt"):
-        np.testing.assert_array_equal(getattr(t, k), getattr(j, k))
-    assert (j.ncat, j.nilyr, j.nslyr) == (t.ncat, t.nilyr, t.nslyr)
+    for kitd in (1, 0):   # linear ITD, and the delta-function bounds
+        cfg = _slice_cfg().with_values(**{"thermo.kitd": kitd})
+        j, t = js.make_itd_params(cfg), ts.make_itd_params(cfg)
+        for k in ("hin_max", "salin", "tmlt"):
+            np.testing.assert_array_equal(getattr(t, k), getattr(j, k))
+        assert (j.ncat, j.nilyr, j.nslyr) == (t.ncat, t.nilyr, t.nslyr)
+    assert j.hin_max[0] == 0.01
 
 
 @pytest.mark.parametrize("yday", [1.0, 80.0, 172.5, 300.25])
@@ -230,3 +234,47 @@ def test_convert_roundtrip():
                                     dtype=torch.float32)
     assert f32.aicen.dtype == torch.float32
     assert f32.iceumask.dtype == torch.bool
+
+
+def test_convert_carries_swn():
+    """The coupled order's carried shortwave (`swn`) goes both ways."""
+    cfg = _slice_cfg().with_values(**{"radiation.prep_radiation": True})
+    jgrid = jg.make_grid(cfg, dtype=jnp.float64)
+    jst = js.init_state(cfg, jgrid, js.make_itd_params(cfg),
+                        dtype=jnp.float64)
+    rng = np.random.RandomState(2)
+    jst = jst.replace(swn={k: jnp.asarray(rng.rand(*np.shape(v)))
+                           for k, v in jst.swn.items()})
+    tst = convert.state_from_arrays(_state_arrays(jst), device=CPU,
+                                    dtype=F64)
+    assert set(tst.swn) == set(jst.swn) == {
+        "fswsfcn", "fswintn", "fswthrun", "Sswabsn", "Iswabsn",
+        "alvdr_gbm", "alvdf_gbm", "alidr_gbm", "alidf_gbm"}
+    back = convert.to_arrays(tst)["swn"]
+    for k, v in jst.swn.items():
+        np.testing.assert_array_equal(tst.swn[k].numpy(), np.asarray(v))
+        np.testing.assert_array_equal(back[k], np.asarray(v))
+
+
+def test_restart_carries_swn_across_packages(tmp_path):
+    """Both packages' restarts write the coupled order's `swn` (as
+    ``swn.*`` entries) and each reads the other's."""
+    from cice4_tpu.io import restart as jrestart
+    from cice4_tpu_torch.io import restart as trestart
+
+    cfg = _slice_cfg().with_values(**{"radiation.prep_radiation": True})
+    jgrid = jg.make_grid(cfg, dtype=jnp.float64)
+    jst = js.init_state(cfg, jgrid, js.make_itd_params(cfg),
+                        dtype=jnp.float64)
+    rng = np.random.RandomState(4)
+    jst = jst.replace(swn={k: jnp.asarray(rng.rand(*np.shape(v)))
+                           for k, v in jst.swn.items()})
+    template = ts.init_state(cfg, tg.make_grid(cfg, device=CPU, dtype=F64),
+                             ts.make_itd_params(cfg), device=CPU, dtype=F64)
+    jpath = jrestart.dump_restart(jst, str(tmp_path / "j.npz"), 1, 0.0)
+    tst, _ = trestart.load_restart(jpath, template)
+    _assert_state_equal(jst, tst)
+    tpath = trestart.dump_restart(tst, str(tmp_path / "t.npz"), 1, 0.0)
+    back, _ = jrestart.load_restart(tpath, jst)
+    for k, v in jst.swn.items():
+        np.testing.assert_array_equal(np.asarray(back.swn[k]), np.asarray(v))
