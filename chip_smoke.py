@@ -31,7 +31,12 @@ top row, at 0.25 degree, 1440x1080, and at 1 degree, 360x300), and gx1
 under the column options of ROADMAP 1.4: delta-Eddington shortwave with
 the melt-pond tracer (from ``kernel_check.ponded_state``: the analytic
 forcing grows no pond), and the coupled radiation order with constant
-albedos, ``atmbndy='constant'`` and ``kitd=0``.  On the
+albedos, ``atmbndy='constant'`` and ``kitd=0``; and gx1 under the rest of
+ROADMAP 1.4: the transport options (the departure-point midpoint with the
+conservation and monotonicity checks, the fixed-area remap, upwind
+transport), the thermo options (no heat capacity, ``calc_Tsfc=False``,
+both) and grids read from files (POP binary and netCDF, pan-Arctic).  On
+the
 box the grid masks the top row of U points, so no velocity crosses the NS
 seam: the EVP kernel's NS wrap reads only masked zeros there, and only
 the kernel-vs-plain checks of phase 3 hold that wrap against nonzero
@@ -86,12 +91,39 @@ Phases, each of which ends the run with a non-zero exit on failure:
     plain version at this path's inputs and timed;
 11. coupled path: gx1, f32, the coupled order with constant albedos,
     ``atmbndy='constant'`` and ``kitd=0``, 4 steps with the counters;
-12. small parity: 24x32 f64 cuts of the gx1 path, of the box, of the
+12. transport options at gx1, f32, 8 steps a path, each with its launches
+    and no plain version, physical state, ms/step and device time by
+    phase: (a) ``l_dp_midpt`` with the conservation and monotonicity
+    checks (the four kernels of the default route once a step, the
+    transport guard records clean each step, the largest relative change
+    of a global sum logged), remap_gsh and remap_k12 held against their
+    plain versions at its inputs; (b) ``l_fixed_area`` (therm_newton,
+    evp_subcycle and remap_k12 once a step, remap_gsh never: the
+    area-matched geometry is plain PyTorch, as the JAX package computes
+    it under XLA), the fixed-area property logged, remap_k12 held against
+    its plain version at its inputs; (c) upwind transport (therm_newton
+    and evp_subcycle, no remap kernel); (d) 2 box steps on the split
+    route with ``l_dp_midpt`` (K0 in GA mode, K1 and K2 once a step);
+13. thermo and grid variants at gx1, f32, 8 steps each with its launches
+    and no plain version, ms/step and device time by phase: (e)
+    ``heat_capacity=False``, (f) ``calc_Tsfc=False`` with the explicit
+    surface scheme, (g) both (evp_subcycle, remap_gsh and remap_k12 once a
+    step, therm_newton never; the solve's iterations, its host syncs,
+    logged by step); (h) a POP binary grid and (i) the same as netCDF,
+    written here from the gx1 lat-lon metrics with a KMT whose first and
+    last rows and an Arctic block are land, each read back equal to the
+    grid built in memory within 1e-12 (f64) and driven with the four
+    kernels of the default route; (j) a pan-Arctic grid file (8 km cells
+    from 60N, its land mask inside, open edges) through ``IceModelRun``
+    with ice restoring, the four kernels once a step;
+14. small parity: 24x32 f64 cuts of the gx1 path, of the box, of the
    box with a U-fold (all with the damped EVP, as the tier-1 tests run
-   it) and of the two gx1 option paths of phases 10 and 11 on the card
-   agree with the CPU path (which the tier-1 tests hold against the JAX
-   package) after 3 steps;
-13. timing: ms/step and cell-steps/s of the gx1 and box paths, device
+   it), of the two gx1 option paths of phases 10 and 11 and of the three
+   whole-step option sets of tier-1 (the four remap options; upwind
+   without heat capacity; ``calc_Tsfc=False``) on the card agree with
+   the CPU path (which the tier-1 tests hold against the JAX package)
+   after 3 steps;
+15. timing: ms/step and cell-steps/s of the gx1 and box paths, device
     time by phase (the box also on the split remap route), and each
     kernel against its plain version at the inputs its path gives it,
     beside the least time the card could take;
@@ -177,6 +209,37 @@ COUPLED = {"grid.kmt_file": "", "radiation.prep_radiation": True,
 DEDD_STEPS = 12
 DEDD_TIMED = 4
 COUPLED_STEPS = 4
+# the rest of ROADMAP 1.4 at gx1 (f32, 320x384, from day 80), OPT_STEPS
+# steps a path, then OPT_TIMED timed: the transport options, (a) the
+# departure-point midpoint with the conservation and monotonicity checks,
+# (b) the fixed-area remap, (c) upwind transport, and (d) the split route
+# with the midpoint on the box; the thermo options, (e) no heat capacity,
+# (f) calc_Tsfc=False (the explicit surface scheme, no coupler), (g) both;
+# the grid files, (h) and (i) a POP grid at gx1's size as binary and
+# netCDF, and (j) a pan-Arctic grid, its land mask in the file
+OPT_STEPS = 8
+OPT_TIMED = 4
+SPLIT_MIDPT_STEPS = 2
+MIDPT_CHECKS = {"grid.kmt_file": "", "transport.l_dp_midpt": True,
+                "transport.conservation_check": True,
+                "transport.monotonicity_check": True}
+FIXED_AREA = {"grid.kmt_file": "", "transport.l_fixed_area": True}
+UPWIND = {"grid.kmt_file": "", "transport.advection": "upwind"}
+ZERO_LAYER = {"grid.kmt_file": "", "thermo.heat_capacity": False}
+EXPLICIT = {"grid.kmt_file": "", "thermo.calc_Tsfc": False}
+PRESCRIBED_ZERO = {**EXPLICIT, "thermo.heat_capacity": False}
+# the whole-step option sets of tier-1 (tests/test_torch_transport_options.py,
+# tests/test_torch_thermo_options.py), for the card-vs-CPU parity
+REMAP_OPTIONS = {**MIDPT_CHECKS, "transport.l_fixed_area": True}
+UPWIND_ZERO_LAYER = {**UPWIND, "thermo.heat_capacity": False}
+# a land block in the Arctic of the POP grid files' land mask (rows,
+# columns), and the pan-Arctic grid: uniform 8 km cells from 60N, so that
+# the top row (near 87.6N) stays south of the pole, an island
+POP_LAND = (slice(350, 370), slice(40, 80))
+PANARCTIC_DX = 8.0e3
+PANARCTIC_LAT0, PANARCTIC_LON0 = 60.0, -150.0
+PANARCTIC_LAND = (slice(100, 140), slice(150, 200))
+GRID_RTOL = 1.0e-12   # a grid read from a file vs built in memory, f64
 # per category, |absorbed + reflected - incoming| shortwave over sunlit
 # ice, relative to the incoming: the dEdd fluxes close by construction up
 # to the rounding of about a dozen f32 operations on fluxes of the
@@ -234,7 +297,13 @@ OPS_K12_MASS, OPS_K12_T1, OPS_K12_T2 = 100, 111, 113
 OPS_K12_OFF_MASS, OPS_K12_OFF_T1, OPS_K12_OFF_T2 = 6, 24, 73
 
 
+T0 = time.perf_counter()
+
+
 def log(*args):
+    if args and str(args[0]).startswith("["):
+        # a phase's header: the seconds since the start of the run
+        args = (f"{args[0]} (at {time.perf_counter() - T0:.0f} s)",) + args[1:]
     print(*args, flush=True)
 
 
@@ -269,9 +338,10 @@ def make_run(cfg, device, dtype):
                                          dtype=dtype)
 
 
-def run_steps(model, state, forcing, nsteps, first=0, check=True):
+def run_steps(model, state, forcing, nsteps, first=0, check=True,
+              on_step=None):
     """Advance `nsteps` steps; return (state, per-step ridge iterations,
-    last fluxes)."""
+    last fluxes).  `on_step(n, fluxes)` sees each step's fluxes."""
     from cice4_tpu_torch.guards import raise_on_violation
 
     ridge = []
@@ -282,6 +352,8 @@ def run_steps(model, state, forcing, nsteps, first=0, check=True):
         ridge.append(fluxes["_ridge_niter"])
         if check:
             raise_on_violation(fluxes["_guards"])
+        if on_step is not None:
+            on_step(n, fluxes)
     return state, ridge, fluxes
 
 
@@ -634,17 +706,21 @@ def counting_plain_calls():
             setattr(mod, attr, fn)
 
 
-def drive_path(name, cfg, device, nsteps, expect, moving, prepare=None):
+def drive_path(name, cfg, device, nsteps, expect, moving, prepare=None,
+               south=True, on_step=None):
     """Counts to 0, `nsteps` steps, counts read; `expect` maps each kernel
     to its launches; `prepare` maps the initial state to the one to start
-    from.  Returns (model, state, forcing, ridge, fluxes)."""
+    from; `south`: whether ice must lie south of 60S; `on_step(n,
+    fluxes)` sees each step's fluxes.  Returns (model, state, forcing,
+    ridge, fluxes)."""
     model, state, forcing = make_run(cfg, device, torch.float32)
     if prepare is not None:
         state = prepare(state)
     a0 = float(state.aicen.sum())
     with counting_plain_calls() as plain_calls:
         reset_counts()
-        state, ridge, fluxes = run_steps(model, state, forcing, nsteps)
+        state, ridge, fluxes = run_steps(model, state, forcing, nsteps,
+                                         on_step=on_step)
         torch.cuda.synchronize()
         counts = read_counts()
     log(f"  {name}: launches {counts}; plain versions called "
@@ -654,7 +730,7 @@ def drive_path(name, cfg, device, nsteps, expect, moving, prepare=None):
     if plain_calls:
         raise AssertionError(f"{name}: plain versions ran: {plain_calls}")
     amin, amax, n_north, n_south, umax = check_physical(model.grid, state,
-                                                        moving)
+                                                        moving, south)
     log(f"  guards clean; state finite; aice in [{amin:.3g}, {amax:.6g}]; "
         f"icy cells north of 70N {n_north}, south of 60S {n_south}; max "
         f"|u|,|v| {umax:.4g} m/s; sum aice {a0:.6g} -> "
@@ -678,7 +754,7 @@ def phase_access(device, card, shape, detail):
     ny, nx = shape
     cfg = access_om_config(nx=nx, ny=ny)
     tag = f"ACCESS-OM2 {ny}x{nx}"
-    model, state, forcing, ridge, _ = drive_path(
+    model, state, forcing, _, _ = drive_path(
         tag, cfg, device, ACCESS_STEPS,
         expected(therm_newton=ACCESS_STEPS, evp_subcycle=ACCESS_STEPS,
                  remap_gsh=ACCESS_STEPS, remap_k12=ACCESS_STEPS),
@@ -690,13 +766,8 @@ def phase_access(device, card, shape, detail):
         f"reported {ran}: {max(0, ran['active_t_cells'] - resident)} active "
         f"T cells and {max(0, ran['active_u_points'] - resident)} U points "
         f"beyond its {resident} resident threads")
-    ms_ev, ms_host, ridge_t = time_path(model, state, forcing, ACCESS_TIMED,
-                                        first=ACCESS_STEPS)
-    log(f"  {tag}: {ms_ev:.3f} ms/step (CUDA events, {ACCESS_TIMED} steps "
-        f"after {ACCESS_STEPS}), {ms_host:.3f} ms/step (host clock), "
-        f"{ny * nx / (ms_ev / 1e3):.4g} cell-steps/s; ridge iterations "
-        f"{ridge_t}; card: {card}")
-    log_profile(tag, phase_device_times(model, state, forcing), ms_ev)
+    time_and_profile(tag, model, state, forcing, card, first=ACCESS_STEPS,
+                     nsteps=ACCESS_TIMED)
     if not detail:
         return {}
     return check_at_path_inputs(tag, model, state, forcing, launches, card)
@@ -705,14 +776,15 @@ def phase_access(device, card, shape, detail):
 DEFAULT_ROUTE = ("therm_newton", "evp_subcycle", "remap_gsh", "remap_k12")
 
 
-def check_at_path_inputs(tag, model, state, forcing, launches, card):
-    """Each kernel of the default route against its plain version at the
-    arguments one step of a path gives it, within its ``kernel_check``
-    tolerance, and its device time per launch.  Returns {kernel:
-    (launches, ms, bound_ms, max |kernel - plain|)}."""
+def check_at_path_inputs(tag, model, state, forcing, launches, card,
+                         names=DEFAULT_ROUTE):
+    """Each kernel `names` (by default those of the default route) against
+    its plain version at the arguments one step of a path gives it, within
+    its ``kernel_check`` tolerance, and its device time per launch.
+    Returns {kernel: (launches, ms, bound_ms, max |kernel - plain|)}."""
     out = {}
-    seen = capture_kernel_inputs(model, state, forcing, DEFAULT_ROUTE)
-    for name in DEFAULT_ROUTE:
+    seen = capture_kernel_inputs(model, state, forcing, names)
+    for name in names:
         args = seen[name]
         kern_fn, plain_fn = kernel_and_plain(name, args)
         kern, plain = kern_fn(), plain_fn()
@@ -807,13 +879,8 @@ def phase_dedd(device, card):
                              f"beyond {CLOSURE_RTOL}")
     if rad["sswabs"] <= 0.0 or rad["ponded"] == 0 or rad["lit"] == 0:
         raise AssertionError(f"{tag}: dEdd does not act: {rad}")
-    ms_ev, ms_host, ridge_t = time_path(model, state, forcing, DEDD_TIMED,
-                                        first=DEDD_STEPS)
-    log(f"  {tag}: {ms_ev:.3f} ms/step (CUDA events, {DEDD_TIMED} steps "
-        f"after {DEDD_STEPS}), {ms_host:.3f} ms/step (host clock), "
-        f"{ny * nx / (ms_ev / 1e3):.4g} cell-steps/s; ridge iterations "
-        f"{ridge_t}; card: {card}")
-    log_profile(tag, phase_device_times(model, state, forcing), ms_ev)
+    time_and_profile(tag, model, state, forcing, card, first=DEDD_STEPS,
+                     nsteps=DEDD_TIMED)
     compare_dense_passes(tag, model, state, forcing, card)
     return check_at_path_inputs(tag, model, state, forcing, launches, card)
 
@@ -823,8 +890,8 @@ def compare_dense_passes(tag, model, state, forcing, card):
     (the port's) against dense passes over every category cell (the JAX
     package's layout, `_compute_dedd` in the gathered pass's place):
     ms/step by CUDA events over DEDD_TIMED steps each, in the order
-    gathered, dense, dense, gathered, and each one's device time and
-    launches by phase."""
+    gathered, dense, dense, gathered, and the dense passes' device time
+    and launches by phase (the gathered passes' are the path's own)."""
     from cice4_tpu_torch.ops import shortwave_dedd as td
 
     gathered = td._compute_dedd_gathered
@@ -834,7 +901,7 @@ def compare_dense_passes(tag, model, state, forcing, card):
         try:
             order.append((dense, time_path(model, state, forcing,
                                            DEDD_TIMED, first=DEDD_STEPS)[0]))
-            if len(order) in (2, 4):
+            if len(order) == 2:
                 log_profile(f"{tag}, {'dense' if dense else 'gathered'} "
                             f"passes", phase_device_times(model, state,
                                                           forcing),
@@ -998,6 +1065,265 @@ def phase_small_parity(device, cfg, prepare=None):
         state, _, _ = run_steps(model, state, forcing, 3)
         out.append(state)
     return compare_states(out[0], out[1], STEP_RTOL, "GPU vs CPU step")
+
+
+def time_and_profile(tag, model, state, forcing, card, first=OPT_STEPS,
+                     nsteps=OPT_TIMED):
+    """ms/step by CUDA events over `nsteps` steps after step `first`, and
+    device time and launches by phase of one step."""
+    ms_ev, ms_host, ridge = time_path(model, state, forcing, nsteps,
+                                      first=first)
+    ny, nx = model.grid.ny, model.grid.nx
+    log(f"  {tag}: {ms_ev:.3f} ms/step (CUDA events, {nsteps} steps "
+        f"after {first}), {ms_host:.3f} ms/step (host clock), "
+        f"{ny * nx / (ms_ev / 1e3):.4g} cell-steps/s; ridge iterations "
+        f"{ridge}; card: {card}")
+    log_profile(tag, phase_device_times(model, state, forcing), ms_ev)
+    return ms_ev
+
+
+def fixed_area_flux_error(model, state):
+    """The ``l_fixed_area`` property (the JAX package's
+    tests/test_transport_checks.py:81-100): the area divergence of a
+    uniform unit mass (the contraction of the fixed-area GSH with a
+    constant) equals the divergence of the prescribed edge areas.  At the
+    velocities of `state` (those of its last step): (largest |difference|
+    over ocean cells in m^2, largest |divergence of the edge areas|)."""
+    from cice4_tpu_torch.ops import remap
+    from cice4_tpu_torch.parallel.halo import Nbr
+
+    grid = model.grid
+    sh = Nbr(grid.bc)
+    ea_e, ea_n = remap.edge_areas(state.uvel, state.vvel, grid, DT, sh)
+    gsh = remap.geometry_gsh(-DT * state.uvel / grid.dxu,
+                             -DT * state.vvel / grid.dyu, grid.dxu * grid.dyu,
+                             grid.bc, model.cfg.transport.integral_order,
+                             ea_e, ea_n)
+    area_div = sum(remap._shift_by(sh, gsh[o, 0], off)
+                   for o, off in enumerate(remap.ALL_OFFSETS))
+    want = ea_e - sh.w(ea_e) + ea_n - sh.s(ea_n)
+    ocean = grid.tmask
+    return (float((area_div - want)[ocean].abs().max()),
+            float(want[ocean].abs().max()))
+
+
+def phase_transport_options(device, card):
+    """Paths (a)-(d): the transport options, each with its launches and no
+    plain version; (a) reads its transport guards clean each step and logs
+    the largest relative change of a global sum, (b) the fixed-area
+    property; (a)-(c) timed and profiled, and at (a)'s inputs remap_gsh
+    and remap_k12, at (b)'s remap_k12, held against their plain versions
+    and timed.  Returns {path: {kernel: (launches, ms, bound_ms, max
+    |d|)}}."""
+    cfg = make_config(MIDPT_CHECKS)
+    ny, nx = cfg.domain.ny_global, cfg.domain.nx_global
+    column = dict(therm_newton=OPT_STEPS, evp_subcycle=OPT_STEPS)
+    out = {}
+
+    tag = f"(a) l_dp_midpt with both transport checks, gx1 {ny}x{nx}"
+    largest = []
+
+    def conservation(n, fluxes):
+        guards = fluxes["_guards"]
+        if {"transport monotonicity",
+                "transport global conservation"} - set(guards):
+            raise AssertionError(f"{tag}: transport guards missing: "
+                                 f"{sorted(guards)}")
+        largest.append(float(guards["transport global conservation"]
+                             ["largest"]))
+    model, state, forcing, _, _ = drive_path(
+        tag, cfg, device, OPT_STEPS,
+        expected(**column, remap_gsh=OPT_STEPS, remap_k12=OPT_STEPS),
+        moving=True, on_step=conservation)
+    launches = read_counts()
+    log(f"  {tag}: transport guard records clean at every step; the largest "
+        f"relative change of a global sum of mass or mass*tracer, by step: "
+        f"{', '.join(f'{v:.3e}' for v in largest)} (threshold 1e-4 in f32)")
+    time_and_profile(tag, model, state, forcing, card)
+    out["midpt"] = check_at_path_inputs(tag, model, state, forcing, launches,
+                                        card, names=("remap_gsh",
+                                                     "remap_k12"))
+
+    tag = f"(b) l_fixed_area, gx1 {ny}x{nx}"
+    model, state, forcing, _, _ = drive_path(
+        tag, make_config(FIXED_AREA), device, OPT_STEPS,
+        expected(**column, remap_k12=OPT_STEPS), moving=True)
+    launches = read_counts()
+    err, scale = fixed_area_flux_error(model, state)
+    if not math.isfinite(err):
+        raise AssertionError(f"{tag}: fixed-area flux error {err}")
+    log(f"  {tag}: at the last step's velocities, max |area divergence of a "
+        f"uniform unit mass - divergence of the prescribed edge areas| "
+        f"{err:.4e} m^2 over ocean cells, {err / scale:.3e} of the largest "
+        f"edge-area divergence ({scale:.4e} m^2); card: {card}")
+    time_and_profile(tag, model, state, forcing, card)
+    out["fixed_area"] = check_at_path_inputs(tag, model, state, forcing,
+                                             launches, card,
+                                             names=("remap_k12",))
+
+    tag = f"(c) upwind transport, gx1 {ny}x{nx}"
+    model, state, forcing, _, _ = drive_path(
+        tag, make_config(UPWIND), device, OPT_STEPS, expected(**column),
+        moving=True)
+    time_and_profile(tag, model, state, forcing, card)
+
+    tag = (f"(d) the split route with l_dp_midpt, the box, "
+           f"{SPLIT_MIDPT_STEPS} steps")
+    os.environ["CICE4_FORCE_PALLAS_REMAP"] = "1"
+    try:
+        n = SPLIT_MIDPT_STEPS
+        drive_path(tag, box_config(**{"transport.l_dp_midpt": True}),
+                   device, n,
+                   expected(therm_newton=n, evp_subcycle=n, evp_wholegrid=n,
+                            remap_ga=n, remap_construct=n, remap_contract=n),
+                   moving=True, south=False)
+    finally:
+        del os.environ["CICE4_FORCE_PALLAS_REMAP"]
+    return out
+
+
+def grid_field_error(got, want):
+    """Worst |got - want| over the grid's fields relative to each float
+    field's scale; masks must be equal."""
+    from cice4_tpu_torch.grid import GRID_FIELDS
+
+    worst = 0.0
+    for k in GRID_FIELDS:
+        a, b = getattr(got, k), getattr(want, k)
+        if not a.is_floating_point():
+            if not torch.equal(a, b):
+                raise AssertionError(f"grid field {k} differs")
+            continue
+        scale = max(float(b.abs().max()), 1e-300)
+        worst = max(worst, float((a - b).abs().max()) / scale)
+    return worst
+
+
+def grid_from_records(src, kmt, bc):
+    """The grid of `src`'s metrics and the land mask `kmt`, built in
+    memory in f64 on the CPU."""
+    from cice4_tpu_torch import grid as G
+
+    def host(t):
+        return t.numpy().astype(np.float64)
+
+    fields = G._derive_metrics(host(src.htn), host(src.hte), host(src.ulat),
+                               host(src.ulon), host(src.angle),
+                               (kmt >= 1).astype(np.float64), bc)
+    return G._make_grid(fields, bc, torch.device("cpu"), torch.float64)
+
+
+def check_loaded(tag, cfg, built):
+    """The grid `cfg` reads from its file(s), f64 on the CPU, against
+    `built` within GRID_RTOL."""
+    from cice4_tpu_torch.grid import make_grid
+
+    worst = grid_field_error(make_grid(cfg, device=torch.device("cpu"),
+                                       dtype=torch.float64), built)
+    log(f"  {tag}: read from {Path(cfg.grid.grid_file).name}, every field "
+        f"within {worst:.3e} of its scale of the grid built in memory "
+        f"(limit {GRID_RTOL}), masks equal")
+    if worst > GRID_RTOL:
+        raise AssertionError(f"{tag}: the grid read differs by {worst:.3e}")
+
+
+def phase_thermo_and_grids(device, card, workdir):
+    """Paths (e)-(j), each with its launches and no plain version, timed
+    and profiled: the thermo options (the solve's iterations, which are
+    its host syncs, logged by step) and the grids read from files written
+    here (each held against the grid built in memory first); (j) runs
+    through ``IceModelRun`` with ice restoring at its open edges."""
+    from cice4_tpu_torch import kernel_check
+    from cice4_tpu_torch import grid as G
+    from cice4_tpu_torch.driver import IceModelRun
+    from cice4_tpu_torch.parallel.halo import BoundaryConditions
+
+    cfg = make_config(MAIN)
+    ny, nx = cfg.domain.ny_global, cfg.domain.nx_global
+    dyn = dict(evp_subcycle=OPT_STEPS, remap_gsh=OPT_STEPS,
+               remap_k12=OPT_STEPS)
+    for tag, over in (("(e) heat_capacity=False", ZERO_LAYER),
+                      ("(f) calc_Tsfc=False, the explicit surface scheme",
+                       EXPLICIT),
+                      ("(g) calc_Tsfc=False and heat_capacity=False",
+                       PRESCRIBED_ZERO)):
+        tag = f"{tag}, gx1 {ny}x{nx}"
+        niter = []
+        model, state, forcing, _, _ = drive_path(
+            tag, make_config(over), device, OPT_STEPS, expected(**dyn),
+            moving=True,
+            on_step=lambda n, fl: niter.append(int(fl["_thermo_niter"])))
+        log(f"  {tag}: the temperature solve's iterations, each one host "
+            f"sync, by step: {niter}")
+        time_and_profile(tag, model, state, forcing, card)
+
+    default = expected(therm_newton=OPT_STEPS, **dyn)
+    bc = BoundaryConditions(cfg.domain.ew_boundary_type,
+                            cfg.domain.ns_boundary_type)
+    src = G.make_latlon_grid(nx, ny, bc, device=torch.device("cpu"),
+                             dtype=torch.float64)
+    kmt = np.where(src.hm.numpy() > 0.5, 30, 0).astype(np.int32)
+    kmt[0] = kmt[-1] = 0
+    kmt[POP_LAND] = 0
+    built = grid_from_records(src, kmt, bc)
+    rec = kernel_check.grid_records(src)
+    for fmt, tag in (("bin", "(h) a POP binary grid"),
+                     ("nc", "(i) a POP netCDF grid")):
+        tag = f"{tag}, {ny}x{nx}"
+        (workdir / fmt).mkdir()
+        grid_file, kmt_file = kernel_check.write_pop_grid(workdir / fmt, rec,
+                                                          kmt, fmt)
+        pcfg = make_config(MAIN, **{"grid.grid_type": "displaced_pole",
+                                    "grid.grid_format": fmt,
+                                    "grid.grid_file": grid_file,
+                                    "grid.kmt_file": kmt_file})
+        check_loaded(tag, pcfg, built)
+        model, state, forcing, _, _ = drive_path(tag, pcfg, device,
+                                                 OPT_STEPS, default,
+                                                 moving=True)
+        time_and_profile(tag, model, state, forcing, card)
+
+    tag = (f"(j) a pan-Arctic grid, {ny}x{nx}, {PANARCTIC_DX / 1e3:.0f} km "
+           f"cells from {PANARCTIC_LAT0:.0f}N, open edges, ice restoring, "
+           f"IceModelRun")
+    obc = BoundaryConditions("open", "open")
+    src = G.make_rect_grid(nx, ny, obc, dx=PANARCTIC_DX, dy=PANARCTIC_DX,
+                           lat_origin=PANARCTIC_LAT0,
+                           lon_origin=PANARCTIC_LON0, land_edges=False,
+                           device=torch.device("cpu"), dtype=torch.float64)
+    kmt = np.ones((ny, nx), dtype=np.int32)
+    kmt[PANARCTIC_LAND] = 0
+    pcfg = make_config(MAIN, **{
+        "domain.ew_boundary_type": "open", "domain.ns_boundary_type": "open",
+        "grid.grid_type": "panarctic",
+        "grid.grid_file": kernel_check.write_panarctic_grid(
+            workdir / "panarctic.grid", kernel_check.grid_records(src), kmt),
+        "forcing.restore_ice": True,
+        "run.history_dir": str(workdir / "history"),
+        "run.restart_dir": str(workdir / "restart"),
+        "run.pointer_file": str(workdir / "restart" / "pointer"),
+        "run.diagfreq": 0})
+    check_loaded(tag, pcfg, grid_from_records(src, kmt, obc))
+    run = IceModelRun(pcfg, dtype=torch.float32, device=device,
+                      log=lambda line: None).initialize()
+    start_at(run.calendar, YDAY0)
+    top = float(torch.rad2deg(run.grid.tlat).max())
+    with counting_plain_calls() as plain_calls:
+        reset_counts()
+        run.run(OPT_STEPS)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    log(f"  {tag}: top row at {top:.2f}N; launches {counts}; plain versions "
+        f"called {plain_calls or 'none'}")
+    if counts != default:
+        raise AssertionError(f"{tag}: launches {counts}, expected {default}")
+    if plain_calls:
+        raise AssertionError(f"{tag}: plain versions ran: {plain_calls}")
+    amin, amax, n_north, _, umax = check_physical(run.grid, run.state, True,
+                                                  south=False)
+    log(f"  guards clean; state finite; aice in [{amin:.3g}, {amax:.6g}]; "
+        f"icy cells north of 70N {n_north}; max |u|,|v| {umax:.4g} m/s")
+    time_and_profile(tag, run.model, run.state, run.forcing_provider, card)
 
 
 # ---------------------------------------------------------------------------
@@ -1486,7 +1812,8 @@ def phase_device_times(model, state, forcing):
 
     phases = {"radiation": [(M, "_step_radiation")],
               "thermo": [(M, "_step_therm1"), (M, "_step_therm2")],
-              "EVP": [(M, "evp")], "remap": [(M, "transport_remap")],
+              "EVP": [(M, "evp")],
+              "transport": [(M, "transport_remap"), (M, "transport_upwind")],
               "ridging": [(mechred, "ridge_ice")],
               "cleanup": [(itd_ops, "cleanup_itd")],
               "coupling": [(M, "_coupling_prep")]}
@@ -1557,12 +1884,12 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     card = card_line()
-    log(f"[1/13 device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
+    log(f"[1/15 device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
         f"torch {torch.__version__} CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     libs = cuda_build.load_all(LIBRARIES)
-    log(f"[2/13 build] {len(libs)} kernel libraries in "
+    log(f"[2/15 build] {len(libs)} kernel libraries in "
         f"{time.perf_counter() - t0:.2f} s wall, built in parallel")
     for name, lib in libs.items():
         log(f"  {name}: built={lib.built} nvcc {lib.seconds:.2f} s -> "
@@ -1573,12 +1900,12 @@ def main() -> int:
 
     cfg = make_config(MAIN)
     ny, nx = cfg.domain.ny_global, cfg.domain.nx_global
-    log("[3/13 kernels vs plain versions on the card]")
+    log("[3/15 kernels vs plain versions on the card]")
     model, _, _ = make_run(cfg, device, torch.float32)
     check_newton(model.thermo, device)
     check_dynamics_kernels(device)
 
-    log(f"[4/13 gx1 main path] gx1 default step {ny}x{nx}, ncat "
+    log(f"[4/15 gx1 main path] gx1 default step {ny}x{nx}, ncat "
         f"{cfg.domain.ncat}, nilyr {cfg.domain.nilyr}, nslyr "
         f"{cfg.domain.nslyr}, ndte {cfg.dynamics.ndte}, advection "
         f"{cfg.transport.advection}, f32, {NSTEPS} steps of {DT:.0f} s")
@@ -1590,7 +1917,7 @@ def main() -> int:
     log(f"  ridge iterations per step: {ridge} (cap 20; "
         f"{sum(r == 20 for r in ridge)} steps at the cap)")
 
-    log(f"[5/13 earlier path] gx1 thermodynamics only, f32, {THERMO_STEPS} "
+    log(f"[5/15 earlier path] gx1 thermodynamics only, f32, {THERMO_STEPS} "
         f"steps")
     thermo_run = drive_path(
         "thermo-only path", make_config(THERMO_ONLY), device, THERMO_STEPS,
@@ -1599,7 +1926,7 @@ def main() -> int:
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         bcfg = box_config()
-        log(f"[6/13 box path] IceModelRun, doubly-periodic box "
+        log(f"[6/15 box path] IceModelRun, doubly-periodic box "
             f"{bcfg.domain.ny_global}x{bcfg.domain.nx_global} ("
             f"{bcfg.grid.dx_rect / 1e3:.0f} km cells from "
             f"{bcfg.grid.lat_origin}N), EW {bcfg.domain.ew_boundary_type} NS "
@@ -1609,14 +1936,14 @@ def main() -> int:
         box_run, launches["box"], driver_step_ms = phase_box_driver(
             device, workdir / "box")
 
-        log(f"[7/13 split route] the box, {SPLIT_STEPS} steps with "
+        log(f"[7/15 split route] the box, {SPLIT_STEPS} steps with "
             f"CICE4_FORCE_PALLAS_REMAP=1 (K0 in GA mode, K1, K2)")
         launches["split"], worst_split = phase_split_route(device)
         log(f"  split vs default route after {SPLIT_STEPS} steps: worst "
             f"difference {worst_split:.3e} of the field's scale (limit "
             f"{SPLIT_RTOL})")
 
-        log(f"[8/13 CLI] python -m cice4_tpu_torch run, the box cut to "
+        log(f"[8/15 CLI] python -m cice4_tpu_torch run, the box cut to "
             f"{BOX_CLI['domain.ny_global']}x{BOX_CLI['domain.nx_global']}, "
             f"{CLI_STEPS} steps")
         (workdir / "cli").mkdir()
@@ -1624,18 +1951,18 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    log(f"[9/13 ACCESS-OM2 tripole] {ACCESS025[0]}x{ACCESS025[1]} (0.25 "
+    log(f"[9/15 ACCESS-OM2 tripole] {ACCESS025[0]}x{ACCESS025[1]} (0.25 "
         f"degree) and {ACCESS1[0]}x{ACCESS1[1]} (1 degree), f32, analytic "
         f"forcing from day {YDAY0:.0f}; card: {card}")
     access = phase_access(device, card, ACCESS025, detail=True)
     phase_access(device, card, ACCESS1, detail=False)
 
-    log(f"[10/13 dEdd path] gx1 {ny}x{nx} with delta-Eddington shortwave "
+    log(f"[10/15 dEdd path] gx1 {ny}x{nx} with delta-Eddington shortwave "
         f"and melt ponds, f32, {DEDD_STEPS} steps from day {YDAY0:.0f} from "
         f"the ponded state; card: {card}")
     dedd = phase_dedd(device, card)
 
-    log(f"[11/13 coupled path] gx1 {ny}x{nx} with the coupled radiation "
+    log(f"[11/15 coupled path] gx1 {ny}x{nx} with the coupled radiation "
         f"order, constant albedos, atmbndy='constant' and kitd=0, f32, "
         f"{COUPLED_STEPS} steps")
     _, cstate, _, _, _ = drive_path(
@@ -1650,19 +1977,41 @@ def main() -> int:
     log(f"  coupled path: shortwave carried to the next step, fswsfcn max "
         f"{carried:.4g} W/m^2")
 
-    log("[12/13 small parity] 24x32 f64, card vs CPU, 3 steps")
+    log(f"[12/15 transport options] gx1 {ny}x{nx}, f32, {OPT_STEPS} steps a "
+        f"path from day {YDAY0:.0f}: (a) l_dp_midpt with the conservation "
+        f"and monotonicity checks, (b) l_fixed_area, (c) upwind; (d) the "
+        f"box on the split route with l_dp_midpt, {SPLIT_MIDPT_STEPS} steps; "
+        f"card: {card}")
+    options = phase_transport_options(device, card)
+
+    log(f"[13/15 thermo and grid variants] gx1 {ny}x{nx}, f32, {OPT_STEPS} "
+        f"steps a path: (e) heat_capacity=False, (f) calc_Tsfc=False, (g) "
+        f"both; (h) a POP binary grid, (i) the same as netCDF, (j) a "
+        f"pan-Arctic grid; card: {card}")
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_grids_"))
+    try:
+        phase_thermo_and_grids(device, card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    log("[14/15 small parity] 24x32 f64, card vs CPU, 3 steps")
     from cice4_tpu_torch.kernel_check import ponded_state
     for name, pcfg, prepare in (
             ("gx1 main path", make_config(MAIN, **SMALL), None),
             ("box", box_config(**BOX_SMALL), None),
             ("all-ocean tripole", box_config(**TRIPOLE_SMALL), None),
             ("gx1 dEdd and ponds", make_config(DEDD, **SMALL), ponded_state),
-            ("gx1 coupled options", make_config(COUPLED, **SMALL), None)):
+            ("gx1 coupled options", make_config(COUPLED, **SMALL), None),
+            ("gx1 remap options (l_dp_midpt, l_fixed_area, both checks)",
+             make_config(REMAP_OPTIONS, **SMALL), None),
+            ("gx1 upwind, heat_capacity=False",
+             make_config(UPWIND_ZERO_LAYER, **SMALL), None),
+            ("gx1 calc_Tsfc=False", make_config(EXPLICIT, **SMALL), None)):
         worst = phase_small_parity(device, pcfg, prepare)
         log(f"  {name}: worst difference {worst:.3e} of the field's scale "
             f"(limit {STEP_RTOL})")
 
-    log(f"[13/13 timing] card: {card}")
+    log(f"[15/15 timing] card: {card}")
     ms_ev, ms_host, ridge_t = time_path(model, state, forcing, 8)
     log(f"  gx1 main path: {ms_ev:.3f} ms/step (CUDA events, 8 steps after "
         f"{NSTEPS}), {ms_host:.3f} ms/step (host clock), "
@@ -1719,7 +2068,9 @@ def main() -> int:
                  "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": bound_ms, "bound_by": bound_by,
                  "library_ms": None, "path": path}
-        for key, at in (("access025", access), ("dedd", dedd)):
+        for key, at in (("access025", access), ("dedd", dedd),
+                        ("midpt", options["midpt"]),
+                        ("fixed_area", options["fixed_area"])):
             if name in at:
                 (entry[f"{key}_launches"], entry[f"{key}_ms"],
                  entry[f"{key}_bound_ms"], entry[f"{key}_max_abs_err"]) = \

@@ -9,9 +9,9 @@ Grid conventions (B-grid, ``ice_transport_remap.F90:73-75``): scalars at
 T points (cell centers), velocities at U points (NE cell corners).
 ``ulat[j, i]`` is the U point at the NE corner of T cell ``(j, i)``.
 
-Only the analytic grids are ported (``latlon``, ``rectangular``,
-``column``); the POP and pan-Arctic file loaders wait for ROADMAP
-queue 1 item 4.
+The grids: the analytic ones (``latlon``, ``rectangular``, ``column``)
+and those read from files, the POP displaced-pole or tripole grid in its
+binary or netCDF form and the pan-Arctic regional grid.
 """
 
 from __future__ import annotations
@@ -242,6 +242,60 @@ def make_rect_grid(nx: int, ny: int, bc: BoundaryConditions,
     return _make_grid(fields, bc, device, dtype)
 
 
+def load_pop_grid(grid_file: str, kmt_file: str, nx: int, ny: int,
+                  bc: BoundaryConditions, *, device,
+                  dtype=torch.float32) -> Grid:
+    """Read a POP displaced-pole or tripole binary grid
+    (``ice_grid.F90 popgrid:497-607``): 7 big-endian float64 records of
+    (ny, nx), ULAT (rad), ULON (rad), HTN (cm), HTE (cm), HUS (cm), HUW
+    (cm), ANGLE (rad); the KMT file is one big-endian int32 record."""
+    raw = np.fromfile(grid_file, dtype=">f8", count=7 * nx * ny)
+    ulat, ulon, htn, hte, _hus, _huw, angle = \
+        raw.reshape(7, ny, nx).astype(np.float64)
+    kmt = np.fromfile(kmt_file, dtype=">i4", count=nx * ny).reshape(ny, nx)
+    hm = (kmt >= 1).astype(np.float64)
+    fields = _derive_metrics(htn * cn.cm_to_m, hte * cn.cm_to_m, ulat, ulon,
+                             angle, hm, bc)
+    return _make_grid(fields, bc, device, dtype)
+
+
+def load_pop_grid_nc(grid_file: str, kmt_file: str, bc: BoundaryConditions,
+                     *, device, dtype=torch.float32) -> Grid:
+    """Read a POP grid from netCDF (``ice_grid.F90 popgrid_nc:617-839``):
+    variables ulat/ulon (rad), htn/hte (cm) and angle (rad), and kmt
+    (int) in the KMT file."""
+    from scipy.io import netcdf_file
+
+    with netcdf_file(grid_file, "r", mmap=False) as f:
+        ulat, ulon, htn, hte, angle = (
+            np.array(f.variables[k][:], dtype=np.float64)
+            for k in ("ulat", "ulon", "htn", "hte", "angle"))
+    with netcdf_file(kmt_file, "r", mmap=False) as f:
+        kmt = np.array(f.variables["kmt"][:])
+    hm = (kmt >= 1).astype(np.float64)
+    fields = _derive_metrics(htn * cn.cm_to_m, hte * cn.cm_to_m, ulat, ulon,
+                             angle, hm, bc)
+    return _make_grid(fields, bc, device, dtype)
+
+
+def load_panarctic_grid(grid_file: str, nx: int, ny: int,
+                        bc: BoundaryConditions, *, device,
+                        dtype=torch.float32) -> Grid:
+    """Read the pan-Arctic (PIPS rotated-spherical) regional grid
+    (``ice_grid.F90 panarctic_grid:848-967``): one big-endian float64
+    file of 8 records of (ny, nx), KMT (the land mask, in the file), ULAT
+    (rad), ULON (rad), HTN (cm), HTE (cm), HUS (cm), HUW (cm), ANGLE
+    (rad).  Regional: open boundaries, with ice restoring at the edges
+    (``forcing.restore_ice``)."""
+    raw = np.fromfile(grid_file, dtype=">f8", count=8 * nx * ny)
+    kmt, ulat, ulon, htn, hte, _hus, _huw, angle = \
+        raw.reshape(8, ny, nx).astype(np.float64)
+    hm = np.where(np.minimum(kmt, 1.0) >= 1.0, 1.0, 0.0)
+    fields = _derive_metrics(htn * cn.cm_to_m, hte * cn.cm_to_m, ulat, ulon,
+                             angle, hm, bc)
+    return _make_grid(fields, bc, device, dtype)
+
+
 def make_latlon_grid(nx: int, ny: int, bc: BoundaryConditions,
                      kmt_file: str | None = None,
                      lat_south: float = -79.0, lat_north: float = 89.0,
@@ -278,10 +332,17 @@ def make_grid(cfg: Config, *, device, dtype=torch.float32) -> Grid:
     bc = BoundaryConditions(ew=cfg.domain.ew_boundary_type,
                             ns=cfg.domain.ns_boundary_type)
     g = cfg.grid
-    if g.grid_type in ("displaced_pole", "tripole", "panarctic"):
-        raise NotImplementedError(
-            f"grid_type={g.grid_type!r}: the POP and pan-Arctic grid "
-            "loaders are not ported yet (ROADMAP queue 1 item 4)")
+    if g.grid_type in ("displaced_pole", "tripole"):
+        if g.grid_format == "nc":
+            return load_pop_grid_nc(g.grid_file, g.kmt_file, bc,
+                                    device=device, dtype=dtype)
+        return load_pop_grid(g.grid_file, g.kmt_file, cfg.domain.nx_global,
+                             cfg.domain.ny_global, bc, device=device,
+                             dtype=dtype)
+    if g.grid_type == "panarctic":
+        return load_panarctic_grid(g.grid_file, cfg.domain.nx_global,
+                                   cfg.domain.ny_global, bc, device=device,
+                                   dtype=dtype)
     if g.grid_type in ("rectangular", "column"):
         return make_rect_grid(cfg.domain.nx_global, cfg.domain.ny_global, bc,
                               dx=g.dx_rect, dy=g.dy_rect,

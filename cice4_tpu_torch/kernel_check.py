@@ -1,7 +1,8 @@
 """Seeded inputs and the kernel-versus-plain comparisons of the port's
 CUDA kernels, shared by ``chip_smoke.py`` and the GPU tests: the Newton
 temperature solve first, the dynamics kernels (EVP, remap K0 in both
-modes, K12, K1 and K2) at the end of the module.
+modes, K12, K1 and K2) after it, and at the end of the module writers of
+grid files in the reference's layouts, which the grid loaders read.
 
 The inputs follow the JAX package's own kernel test
 (``tests/test_thermo.py::test_pallas_thermo_matches_jnp``): ice only in
@@ -301,3 +302,64 @@ def remap_inputs(grid, seed: int, ncat: int, meta, *, dtype,
     tm[:, :2] = np.abs(tm[:, :2])
     tm = np.concatenate([np.zeros_like(tm[:1]), tm])
     return dx, dy, grid.dxu * grid.dyu, t(mm), t(tm)
+
+
+# ---------------------------------------------------------------------------
+# grid files in the reference's layouts (for the loaders)
+# ---------------------------------------------------------------------------
+
+
+def grid_records(grid) -> dict:
+    """The records a POP grid file holds, from a port Grid, as float64
+    numpy arrays: ULAT and ULON (rad), HTN and HTE (cm), ANGLE (rad)."""
+    def host(t):
+        return t.detach().cpu().numpy().astype(np.float64)
+
+    return dict(ulat=host(grid.ulat), ulon=host(grid.ulon),
+                htn=host(grid.htn) / cn.cm_to_m,
+                hte=host(grid.hte) / cn.cm_to_m, angle=host(grid.angle))
+
+
+def _pop_records(rec):
+    """The 7 records of a POP binary grid: HUS and HUW (not read by the
+    loaders) stand in as HTE and HTN."""
+    return [rec["ulat"], rec["ulon"], rec["htn"], rec["hte"], rec["hte"],
+            rec["htn"], rec["angle"]]
+
+
+def write_pop_grid(directory, rec: dict, kmt, fmt: str = "bin"):
+    """Write `rec` (:func:`grid_records`) and the land mask `kmt` (ny, nx
+    ints) as a POP grid: ``bin``, 7 big-endian float64 records and a
+    big-endian int32 KMT file (``popgrid``), or ``nc``, netCDF variables
+    ulat, ulon, htn, hte, angle and kmt (``popgrid_nc``).  Returns
+    (grid_file, kmt_file)."""
+    from pathlib import Path
+
+    directory = Path(directory)
+    if fmt == "bin":
+        grid_file, kmt_file = directory / "pop.grid", directory / "pop.kmt"
+        np.stack(_pop_records(rec)).astype(">f8").tofile(grid_file)
+        np.asarray(kmt).astype(">i4").tofile(kmt_file)
+        return str(grid_file), str(kmt_file)
+    from scipy.io import netcdf_file
+
+    grid_file, kmt_file = directory / "pop_grid.nc", directory / "pop_kmt.nc"
+    ny, nx = rec["ulat"].shape
+    with netcdf_file(str(grid_file), "w") as f:
+        f.createDimension("nj", ny)
+        f.createDimension("ni", nx)
+        for name in ("ulat", "ulon", "htn", "hte", "angle"):
+            f.createVariable(name, "d", ("nj", "ni"))[:] = rec[name]
+    with netcdf_file(str(kmt_file), "w") as f:
+        f.createDimension("nj", ny)
+        f.createDimension("ni", nx)
+        f.createVariable("kmt", "i", ("nj", "ni"))[:] = np.asarray(kmt)
+    return str(grid_file), str(kmt_file)
+
+
+def write_panarctic_grid(path, rec: dict, kmt) -> str:
+    """Write `rec` and `kmt` as a pan-Arctic grid file (``panarctic_grid``):
+    8 big-endian float64 records, KMT first.  Returns the path."""
+    np.stack([np.asarray(kmt, dtype=np.float64)]
+             + _pop_records(rec)).astype(">f8").tofile(path)
+    return str(path)

@@ -7,10 +7,12 @@ tracer, the Monin-Obukhov or constant-coefficient boundary layer, the
 Newton column thermodynamics (the therm_newton kernel on the GPU),
 linear ITD (or none, ``kitd=0``), new ice, lateral melt, EVP dynamics
 (the evp_subcycle kernel), incremental remapping (the remap_gsh and
-remap_k12 kernels), ridging, cleanup, the slab ocean and the in-step
-conservation guards.  Dynamics may be off (``kdyn=0``) and transport may
-be ``"none"``; the options not ported yet raise ``NotImplementedError``
-naming their ROADMAP item.
+remap_k12 kernels; or first-order upwind transport), ridging, cleanup,
+the slab ocean and the in-step conservation guards.  Dynamics may be off
+(``kdyn=0``) and transport may be ``"none"``.  Without a heat capacity the
+column runs the zero-layer solve; with ``calc_Tsfc=False`` the surface
+fluxes are the coupler's (``Forcing.fsurfn_f`` and the rest) or, without
+them, the explicit surface scheme's.
 
 Categories are an explicit leading ``ncat`` axis where the JAX package
 vmaps.  Radiation runs at the start of the step from the current
@@ -38,28 +40,19 @@ from cice4_tpu_torch.ops.orbital import compute_coszen
 from cice4_tpu_torch.ops.remap import transport_remap
 from cice4_tpu_torch.ops.shortwave import shortwave_ccsm3
 from cice4_tpu_torch.ops.shortwave_dedd import shortwave_dEdd
-from cice4_tpu_torch.ops.therm_vertical import (frzmlt_bottom_lateral,
+from cice4_tpu_torch.ops.therm_vertical import (explicit_calc_tsfc,
+                                                frzmlt_bottom_lateral,
                                                 make_thermo_params,
                                                 thermo_vertical_category)
+from cice4_tpu_torch.ops.transport import transport_upwind
 from cice4_tpu_torch.state import State, freezing_temperature, make_itd_params
 
 
 def _check_supported(cfg: Config):
     if cfg.dynamics.kdyn not in (0, 1):
         raise ValueError(f"unknown kdyn {cfg.dynamics.kdyn}")
-    tr = cfg.transport
-    if tr.advection == "upwind":
-        raise NotImplementedError(
-            "advection='upwind' is not ported yet (ROADMAP queue 1 item 4)")
-    if tr.advection not in ("none", "remap"):
-        raise ValueError(f"unknown advection {tr.advection!r}")
-    if tr.advection == "remap":
-        for name in ("l_dp_midpt", "l_fixed_area", "conservation_check",
-                     "monotonicity_check"):
-            if getattr(tr, name):
-                raise NotImplementedError(
-                    f"transport.{name}=True is not ported yet (ROADMAP "
-                    "queue 1 item 4)")
+    if cfg.transport.advection not in ("none", "remap", "upwind"):
+        raise ValueError(f"unknown advection {cfg.transport.advection!r}")
 
 
 class Model(nn.Module):
@@ -170,12 +163,34 @@ def _step_therm1(model: Model, state: State, grid: Grid, f: Forcing,
         bl = atmo_boundary_layer("ice", state.tsfcn, f.potT, f.uatm,
                                  f.vatm, f.wind, f.zlvl, f.Qa, f.rhoa,
                                  cfg.thermo.calc_strair)
+    tsfcn = state.tsfcn
+    pre = {}
+    ex = None
+    if not cfg.thermo.calc_Tsfc:
+        if f.fsurfn_f is not None:
+            # coupler-supplied per-category fluxes (set_sfcflux,
+            # CICE_RunMod.F90:787-920; raicen=1 standalone)
+            pre = dict(fsurfn_pre=f.fsurfn_f, fcondtopn_pre=f.fcondtopn_f,
+                       flatn_pre=f.flatn_f)
+        else:
+            # ice-only testing mode: the explicit surface scheme
+            # (CICE_RunMod.F90:465-499)
+            ex = explicit_calc_tsfc(
+                model.thermo, dt, state.aicen, state.vicen, state.vsnon,
+                tsfcn, state.eicen, state.esnon, f.rhoa, f.flw, f.potT,
+                f.Qa, bl["shcoef"], bl["lhcoef"], sw["fswsfc"])
+            tsfcn = ex["Tsf"]
+            pre = dict(fsurfn_pre=ex["fsurfn"], fcondtopn_pre=ex["fcondtopn"],
+                       flatn_pre=ex["flatn"])
     st, fx = thermo_vertical_category(
         model.thermo, dt, state.aicen, state.vicen, state.vsnon,
-        state.tsfcn, state.eicen, state.esnon,
+        tsfcn, state.eicen, state.esnon,
         f.flw, f.potT, f.Qa, f.rhoa, f.fsnow, fbot, Tbot, Tf,
         bl["lhcoef"], bl["shcoef"], sw["fswsfc"], sw["fswint"],
-        sw["fswthru"], sw["Sswabs"], sw["Iswabs"])
+        sw["fswthru"], sw["Sswabs"], sw["Iswabs"], **pre)
+    if ex is not None:
+        fx["fsensn"] = ex["fsensn"]
+        fx["flwoutn"] = ex["flwoutn"]
     fx["strairxn"] = bl["strx"]
     fx["strairyn"] = bl["stry"]
     fx["Trefn"] = bl["Tref"]
@@ -293,10 +308,18 @@ def _step_dynamics(model: Model, state: State, grid: Grid, f: Forcing,
         dyn_diag = dict(rdg_conv=z, rdg_shear=z, divu=z, shear=z,
                         strength=z, prs_sig=z)
 
+    tr = cfg.transport
     aice0_adv = None
-    if cfg.transport.advection == "remap":
-        state, aice0_adv = transport_remap(
-            state, grid, dt, cfg.transport.integral_order)
+    if tr.advection == "remap":
+        out = transport_remap(
+            state, grid, dt, tr.integral_order, tr.l_dp_midpt,
+            tr.l_fixed_area, conservation_check=tr.conservation_check,
+            monotonicity_check=tr.monotonicity_check)
+        state, aice0_adv = out[:2]
+        if len(out) == 3:
+            fluxes["_guards"].update(out[2])
+    elif tr.advection == "upwind":
+        state, aice0_adv = transport_upwind(state, grid, dt)
 
     state, rdg = mechred.ridge_ice(state, itd, cfg.dynamics, dt,
                                    dyn_diag["rdg_conv"],

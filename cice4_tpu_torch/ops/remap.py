@@ -33,10 +33,14 @@ As in the reference, all local geometry is computed on the *scaled*
 grid (cell = unit square); physical areas enter only through the corner
 area factors dxu*dyu and the final 1/tarea.
 
-Not ported (ROADMAP queue 1 item 4): the departure-point midpoint
-correction (``l_dp_midpt``), the fixed-area mode (``l_fixed_area``), the
-conservation and monotonicity checks and the legacy non-GA path; each
-raises ``NotImplementedError``.
+The options of the JAX package's transport: the departure-point
+midpoint correction (``l_dp_midpt``, `_departure_midpoint`, on either
+route); the fixed-area mode (``l_fixed_area``), whose area-matched
+geometry is plain PyTorch (`geometry_gsh`, as the JAX package computes
+it under XLA) and is contracted by K12; and the global conservation and
+monotonicity checks, whose guard records stay on the device.  The JAX
+package's legacy non-GA contraction is not ported: it computes the same
+divergences as the GA branch.
 """
 
 from __future__ import annotations
@@ -48,8 +52,9 @@ import torch
 from cice4_tpu_torch import constants as cn
 from cice4_tpu_torch.constants import FieldLoc, FieldType
 from cice4_tpu_torch.grid import Grid
+from cice4_tpu_torch.guards import _is_f64, record
 from cice4_tpu_torch.ops.itd import TRACER_DEPEND
-from cice4_tpu_torch.parallel.halo import FOLDS
+from cice4_tpu_torch.parallel.halo import FOLDS, Nbr
 from cice4_tpu_torch.state import State
 
 NGROUPS = 6
@@ -94,11 +99,15 @@ def _shift_by(sh, f, off):
     return f
 
 
-def _edge_geometry(edge, afac, dx, dy, sh):
+def _edge_geometry(edge, afac, dx, dy, sh, edgearea=None):
     """Departure-triangle geometry for all edges of one direction
-    (``locate_triangles:1763-3146``, 0-based groups), free-area mode.
+    (``locate_triangles:1763-3146``, 0-based groups).
 
     dx/dy: scaled departure displacements at U corners (= -dt*u/dxu).
+    edgearea: prescribed signed area flux per edge (m^2) for the
+    ``l_fixed_area`` mode (``:2352-2487``): the trajectory midpoint is
+    shifted so that the departure region has exactly this area.  None is
+    the default free-area mode.
     Returns per group g: verts[g] = ((x1,x2,x3), (y1,y2,y3)) in
     flux-cell coordinates, pos[g] (int code), triarea[g] (signed
     physical area), and `case`, an int code of the geometric cases
@@ -202,6 +211,11 @@ def _edge_geometry(edge, afac, dx, dy, sh):
     icl = xic
     icr = xic
 
+    if edgearea is not None:
+        xdm, ydm, icl, icr = _fixed_area_midpoint(
+            edgearea, verts, fac, afl, afr, afc, xdm, ydm, xic,
+            xdl2, ydl2, xdr2, ydr2, xcl, xcr)
+
     # ---- center triangles (groups 3, 4, 5) --------------------------------
     dlp = ydl2 >= 0.0
     drp = ydr2 >= 0.0
@@ -296,6 +310,64 @@ def _edge_geometry(edge, afac, dx, dy, sh):
     return dict(verts=local, pos=pos, triarea=triarea, case=case)
 
 
+def _fixed_area_midpoint(edgearea, verts, fac, afl, afr, afc, xdm, ydm, xic,
+                         xdl2, ydl2, xdr2, ydr2, xcl, xcr):
+    """``l_fixed_area`` (``:2352-2487``): shift the trajectory midpoint so
+    that the total departure-region area equals the prescribed `edgearea`;
+    the corner triangles stay put.  Returns (xdm, ydm, icl, icr): the
+    shifted midpoint and the x-axis crossings of the two centre segments.
+    """
+    def area(g):
+        x1, y1, x2, y2, x3, y3 = verts[g]
+        return 0.5 * ((x2 - x1) * (y3 - y1) - (y2 - y1) * (x3 - x1)) * fac[g]
+
+    area123 = area(0) + area(1) + area(2)
+
+    def safe(x):
+        return torch.where(torch.abs(x) > cn.puny, x,
+                           torch.where(x >= 0, cn.puny, -cn.puny))
+
+    def intersect(x_a, y_a, x_b, y_b):
+        """x-axis crossing of segment a->b (0 where ~horizontal)."""
+        m = (y_b - y_a) / safe(x_b - x_a)
+        return torch.where(torch.abs(m) > cn.puny, x_a - y_a / m, 0.0)
+
+    # branch 1: both departure points on the same side of the x-axis
+    area_c = edgearea - area123
+    w1 = (2.0 * area_c / afc + (xdr2 - xcl) * ydl2 + (xcr - xdl2) * ydr2)
+    w1 = w1 / safe((xdr2 - xdl2) ** 2 + (ydr2 - ydl2) ** 2)
+    xdm_1 = xdm + (ydr2 - ydl2) * w1
+    ydm_1 = ydm - (xdr2 - xdl2) * w1
+    xicl_1 = intersect(xdl2, ydl2, xdm_1, ydm_1)
+    xicr_1 = intersect(xdm_1, ydm_1, xdr2, ydr2)
+
+    # branch 2 (xic < 0): fix ICL at IC, adjust the right part
+    area4_2 = 0.5 * (xcl - xic) * ydl2 * afl
+    area_c = edgearea - area123 - area4_2
+    w1 = (2.0 * area_c / afc + (xcr - xic) * ydr2)
+    w1 = w1 / safe((xdr2 - xic) ** 2 + ydr2 ** 2)
+    xdm_2 = 0.5 * (xdr2 + xic) + ydr2 * w1
+    ydm_2 = 0.5 * ydr2 - (xdr2 - xic) * w1
+    xicr_2 = intersect(xdm_2, ydm_2, xdr2, ydr2)
+
+    # branch 3 (xic >= 0): fix ICR at IC, adjust the left part
+    area4_3 = 0.5 * (xic - xcr) * ydr2 * afr
+    area_c = edgearea - area123 - area4_3
+    w1 = (2.0 * area_c / afc + (xic - xcl) * ydl2)
+    w1 = w1 / safe((xic - xdl2) ** 2 + ydl2 ** 2)
+    xdm_3 = 0.5 * (xic + xdl2) - ydl2 * w1
+    ydm_3 = 0.5 * ydl2 - (xic - xdl2) * w1
+    xicl_3 = intersect(xdl2, ydl2, xdm_3, ydm_3)
+
+    same = ydl2 * ydr2 >= 0.0
+    neg = xic < 0.0
+    xdm = torch.where(same, xdm_1, torch.where(neg, xdm_2, xdm_3))
+    ydm = torch.where(same, ydm_1, torch.where(neg, ydm_2, ydm_3))
+    icl = torch.where(same, xicl_1, torch.where(neg, xic, xicl_3))
+    icr = torch.where(same, xicr_1, torch.where(neg, xicr_2, xic))
+    return xdm, ydm, icl, icr
+
+
 def _quad_points(lx, ly, order):
     """Quadrature points + weights from triangle vertices
     (``triangle_coordinates:3155-3297``)."""
@@ -345,14 +417,14 @@ def _n_type1(meta):
     return n1
 
 
-def _geom_moments(edge, afac, dx, dy, order, sh):
+def _geom_moments(edge, afac, dx, dy, order, sh, edgearea=None):
     """Category-independent quadrature moments per donor position
     (``transport_integrals:3307-3632``, factored): the pure geometric
     moments ``sum_tri area*w*x^a y^b`` of the 10 monomials up to cubic.
 
     Returns {pos: [S1, Sx, Sy, Sxx, Sxy, Syy, Sxxx, Sxxy, Sxyy, Syyy]}.
     """
-    geom = _edge_geometry(edge, afac, dx, dy, sh)
+    geom = _edge_geometry(edge, afac, dx, dy, sh, edgearea)
     used = sorted({p for ps in GROUP_POSITIONS for p in ps})
     G = {p: [0.0] * 10 for p in used}
     for g in range(NGROUPS):
@@ -374,14 +446,15 @@ def _geom_moments(edge, afac, dx, dy, order, sh):
     return G
 
 
-def _geom_accumulators(afac, dx, dy, order, sh):
+def _geom_accumulators(afac, dx, dy, order, sh, ea_e=None, ea_n=None):
     """Category-independent divergence accumulators in geometric space:
     GA[off][k] for the 10 monomial moments, such that for any donor
     polynomial field f with monomial coefficients U_k,
-    ``divergence(c) = sum_off sum_k GA_k[off](c) * U_k(c + off)``."""
+    ``divergence(c) = sum_off sum_k GA_k[off](c) * U_k(c + off)``.
+    ea_e/ea_n: the prescribed edge areas of ``l_fixed_area`` (or None)."""
     GA = {off: [0.0] * 10 for off in ALL_OFFSETS}
-    for edge in ("east", "north"):
-        G = _geom_moments(edge, afac, dx, dy, order, sh)
+    for edge, ea in (("east", ea_e), ("north", ea_n)):
+        G = _geom_moments(edge, afac, dx, dy, order, sh, ea)
         back, bo = (sh.w, (-1, 0)) if edge == "east" else (sh.s, (0, -1))
         for p, g10 in G.items():
             d = SHIFTS[edge][p]
@@ -447,6 +520,156 @@ def _flux_divergence_ga(GSH, mc, mx, my, tc, tx, ty, meta, sh):
     return div, divt
 
 
+def _parents(meta, device):
+    """(par, is2): per tracer row the row of its parent (0 for a type-1
+    tracer), and a (T, 1, 1) mask of the type-2 rows."""
+    par = [max(p, 0) for (_n, _t, p) in meta]
+    is2 = torch.tensor([t == 2 for (_n, t, _p) in meta],
+                       device=device)[:, None, None]
+    return par, is2
+
+
+def _local_max_min(mm, tm, meta, sh):
+    """Quasilocal tracer bounds before transport
+    (``ice_transport_driver.F90 local_max_min:1230-1345`` +
+    ``quasilocal_max_min:1360-1410``): per tracer, the min/max over the
+    3x3 neighbourhood (masked cells contribute the home value: the area
+    mask for type-1 tracers, the parent's tracer mask for type-2), then
+    extended one more ring.  mm (ncat, ny, nx), tm (ncat, T, ny, nx)."""
+    aimask = (mm > cn.puny).to(mm.dtype).unsqueeze(1)
+    tmask = (torch.abs(tm) > 0.0).to(mm.dtype) * aimask
+    par, is2 = _parents(meta, tm.device)
+    phimask = torch.where(is2, tmask[:, par], aimask)
+
+    tmin = tm
+    tmax = tm
+    for off in ALL_OFFSETS:
+        if off == (0, 0):
+            continue
+        m = _shift_by(sh, phimask, off)
+        v = m * _shift_by(sh, tm, off) + (1.0 - m) * tm
+        tmin = torch.minimum(tmin, v)
+        tmax = torch.maximum(tmax, v)
+    lo, hi = tmin, tmax
+    for off in ALL_OFFSETS:
+        tmin = torch.minimum(tmin, _shift_by(sh, lo, off))
+        tmax = torch.maximum(tmax, _shift_by(sh, hi, off))
+    return tmin, tmax
+
+
+def _check_monotonicity(tmin, tmax, mm_new, tm_new, meta):
+    """``check_monotonicity:1416-1559``: new tracer values must lie within
+    the pre-transport quasilocal bounds; the reference's f64 `puny` is
+    lifted to 1e-4 for f32 state, as in the JAX package.  Returns a guard
+    record (:func:`cice4_tpu_torch.guards.record`)."""
+    par, is2 = _parents(meta, tm_new.device)
+    l_check = torch.where(is2, torch.abs(tm_new[:, par]) > cn.puny,
+                          (mm_new > cn.puny).unsqueeze(1))
+    eps = cn.puny if _is_f64(tm_new.dtype) else 1.0e-4
+    w1 = torch.clamp(torch.abs(tmin), min=1.0)
+    w2 = torch.clamp(torch.abs(tmax), min=1.0)
+    err = torch.maximum(tmin - tm_new, tm_new - tmax)
+    bad = l_check & ((tm_new < tmin - w1 * eps) | (tm_new > tmax + w2 * eps))
+    return record(bad, torch.where(bad, err, 0.0))
+
+
+def _check_global_conservation(masum0, masum1, mtsum0, mtsum1):
+    """``global_conservation:1147-1218``: the global sums of mass (per
+    category and open water) and of mass*tracer (per category and tracer)
+    must be unchanged by transport, to a relative `puny` (1e-4 for f32
+    state, as in the JAX package).  Returns a guard record whose j and i
+    are 0 (the check is global), with ``largest``, the largest relative
+    change of any sum compared."""
+    eps = cn.puny if _is_f64(masum0.dtype) else 1.0e-4
+    rel_m = torch.abs(masum1 - masum0) / torch.clamp(masum0, min=cn.puny)
+    bad_m = (masum0 > cn.puny) & (rel_m > eps)
+    rel = torch.abs(mtsum1 - mtsum0) / torch.clamp(torch.abs(mtsum0),
+                                                   min=cn.puny)
+    bad_t = (torch.abs(mtsum0) > cn.puny) & (rel > eps)
+    worst = torch.maximum(torch.where(bad_t, rel, 0.0).amax(),
+                          torch.where(bad_m, rel_m, 0.0).amax())
+    zero = torch.zeros((), dtype=torch.int32, device=masum0.device)
+    count = (bad_t.sum() + bad_m.sum()).to(torch.int32)
+    # beside the JAX package's record: the largest relative change of any
+    # compared sum, whether or not it crosses the threshold
+    largest = torch.maximum(
+        torch.where(masum0 > cn.puny, rel_m, 0.0).amax(),
+        torch.where(torch.abs(mtsum0) > cn.puny, rel, 0.0).amax())
+    return dict(count=count, j=zero, i=zero, worst=worst, largest=largest)
+
+
+def _departure_midpoint(uvel, vvel, dx, dy, dt, grid: Grid, sh):
+    """Second-order departure points from the corrected midpoint velocity
+    (``departure_points:1673-1751``, ``l_dp_midpt``).
+
+    dx/dy are the scaled first-order displacements (-dt u / dxu); the
+    returned ones are scaled the same way.  The quadrant that holds the
+    trajectory midpoint picks 4 of the 8 neighbouring U corners for a
+    bilinear velocity; the corners are vector fields at NE corners, so on
+    a tripole grid their north shifts fold and flip sign.
+    """
+    kw = dict(loc=FieldLoc.NE_CORNER, ftype=FieldType.VECTOR)
+
+    def nbrs(f):
+        e, w = sh.e(f, **kw), sh.w(f, **kw)
+        return dict(c=f, e=e, w=w, n=sh.n(f, **kw), s=sh.s(f, **kw),
+                    ne=sh.n(e, **kw), nw=sh.n(w, **kw),
+                    se=sh.s(e, **kw), sw=sh.s(w, **kw))
+
+    u, v = nbrs(uvel), nbrs(vvel)
+    mpx, mpy = 0.5 * dx, 0.5 * dy
+    px, py = mpx >= 0.0, mpy >= 0.0
+
+    def bilin(f, c00, c10, c11, c01, mpxt, mpyt):
+        return (f[c00] * (mpxt - 0.5) * (mpyt - 0.5)
+                - f[c10] * (mpxt + 0.5) * (mpyt - 0.5)
+                + f[c11] * (mpxt + 0.5) * (mpyt + 0.5)
+                - f[c01] * (mpxt - 0.5) * (mpyt + 0.5))
+
+    # corners (i2-1,j2-1), (i2,j2-1), (i2,j2), (i2-1,j2) of the quadrant
+    quads = [
+        (px & py, ("c", "e", "ne", "n"), mpx - 0.5, mpy - 0.5),    # NE
+        (~px & ~py, ("sw", "s", "c", "w"), mpx + 0.5, mpy + 0.5),  # SW
+        (px & ~py, ("s", "se", "e", "c"), mpx - 0.5, mpy + 0.5),   # SE
+        (~px & py, ("w", "c", "n", "nw"), mpx + 0.5, mpy - 0.5),   # NW
+    ]
+    ump = torch.zeros_like(uvel)
+    vmp = torch.zeros_like(vvel)
+    for sel, corners, mpxt, mpyt in quads:
+        ump = torch.where(sel, bilin(u, *corners, mpxt, mpyt), ump)
+        vmp = torch.where(sel, bilin(v, *corners, mpxt, mpyt), vmp)
+
+    moving = (uvel != 0.0) | (vvel != 0.0)
+    return (torch.where(moving, -dt * ump / grid.dxu, dx),
+            torch.where(moving, -dt * vmp / grid.dyu, dy))
+
+
+def edge_areas(uvel, vvel, grid: Grid, dt, sh):
+    """The signed area fluxes that ``l_fixed_area`` prescribes across
+    each east and north edge, from the edge-mean normal velocity
+    (``ice_transport_driver.F90:474-509``).  Returns (ea_e, ea_n)."""
+    kw = dict(loc=FieldLoc.NE_CORNER, ftype=FieldType.VECTOR)
+    return ((uvel + sh.s(uvel, **kw)) * 0.5 * grid.hte * dt,
+            (vvel + sh.w(vvel, **kw)) * 0.5 * grid.htn * dt)
+
+
+def geometry_gsh(dx, dy, afac, bc, order=2, ea_e=None, ea_n=None):
+    """GSH (9, 10, ny, nx): `_geom_accumulators` back-shifted by -offset
+    into the layout the K12 kernel takes, in plain PyTorch.  With the
+    edge areas of ``l_fixed_area`` (`edge_areas`) the departure regions
+    are area-matched: the model's fixed-area geometry on every device, as
+    the JAX package computes it under XLA, not in a TPU kernel.  Without
+    them it is the plain version of kernel ``remap_gsh``
+    (`remap_cuda.ga_gsh_plain`)."""
+    sh = Nbr(bc)
+    GA = _geom_accumulators(afac, dx, dy, order, sh, ea_e, ea_n)
+    zero = torch.zeros_like(afac)
+    return torch.stack([
+        _shift_by(sh, torch.stack([GA[off][k] + zero for k in range(10)]),
+                  (-off[0], -off[1]))
+        for off in ALL_OFFSETS])
+
+
 def _update_category(mm, tm, div, divt, tmask_land, tarear, meta):
     """``update_fields:3642-3868`` for a batch of categories given the
     flux divergences: new mass/tracers + the unclamped mid-transport
@@ -502,21 +725,21 @@ def transport_remap(state: State, grid: Grid, dt,
 
     `split_kernels` selects the route of the divergences: True the split
     route (K0 in GA mode, K1, K2), False the K0/K12 route, None the split
-    route only where :func:`use_split_kernels` says so.
+    route only where :func:`use_split_kernels` says so.  `fixed_area`
+    never takes the split route (nor does the JAX package): its geometry
+    is :func:`geometry_gsh` of the prescribed edge areas, contracted by
+    K12.
 
     Returns (state, aice0): the advected open-water fraction feeds the
-    ridging opening/closing rates.
+    ridging opening/closing rates; with `conservation_check` or
+    `monotonicity_check`, a third element, {name: guard record}
+    (``ice_transport_driver.F90:596-648``).  The records stay on the
+    device.
     """
     from cice4_tpu_torch.ops import remap_cuda
 
-    for flag, name in ((dp_midpt, "l_dp_midpt"), (fixed_area, "l_fixed_area"),
-                       (conservation_check, "conservation_check"),
-                       (monotonicity_check, "monotonicity_check")):
-        if flag:
-            raise NotImplementedError(
-                f"transport.{name}=True is not ported yet (ROADMAP queue 1 "
-                "item 4)")
     bc = grid.bc
+    sh = Nbr(bc)
     nilyr = state.eicen.shape[1]
     nslyr = state.esnon.shape[1]
     tracer_names = list(state.trcrn.keys())
@@ -525,6 +748,9 @@ def transport_remap(state: State, grid: Grid, dt,
     # scaled departure displacements at U corners (departure_points)
     dx = -dt * state.uvel / grid.dxu
     dy = -dt * state.vvel / grid.dyu
+    if dp_midpt:
+        dx, dy = _departure_midpoint(state.uvel, state.vvel, dx, dy, dt,
+                                     grid, sh)
     afac = grid.dxu * grid.dyu
 
     # --- state_to_tracers (":847-1003") ------------------------------------
@@ -550,26 +776,58 @@ def transport_remap(state: State, grid: Grid, dt,
     # open water rides as an extra mass-only category (row 0)
     mm_ext = torch.cat([aice0[None], state.aicen], dim=0)
     tm_ext = torch.cat([torch.zeros_like(tm[:1]), tm], dim=0)
-    if split_kernels is None:
-        split_kernels = use_split_kernels(dx.device, bc)
-    if split_kernels:
-        # K0 in GA mode, K1 (reconstruction of every row), K2 (scatter-form
-        # contraction; the parents' planes are rows of trc)
-        ga = remap_cuda.ga_planes(dx, dy, afac, bc, integral_order)
-        mass, trc = remap_cuda.construct(grid.hm, mm_ext, tm_ext, meta, bc)
-        div_ext, divt_ext = remap_cuda.contract(ga, mass, trc, None, meta, bc)
-    else:
-        # K0: category-independent back-shifted geometry accumulators;
-        # K12: reconstruction + contraction of every row
-        gsh = remap_cuda.ga_gsh(dx, dy, afac, bc, integral_order)
+    if fixed_area:
+        # the area-matched geometry (plain PyTorch), contracted by K12
+        ea_e, ea_n = edge_areas(state.uvel, state.vvel, grid, dt, sh)
+        gsh = geometry_gsh(dx, dy, afac, bc, integral_order, ea_e, ea_n)
         div_ext, divt_ext = remap_cuda.k12_divergence(gsh, grid.hm, mm_ext,
                                                       tm_ext, meta, bc)
-    mm_new, tm_new, _mid = _update_category(
+    else:
+        if split_kernels is None:
+            split_kernels = use_split_kernels(dx.device, bc)
+        if split_kernels:
+            # K0 in GA mode, K1 (reconstruction of every row), K2
+            # (scatter-form contraction; the parents' planes are rows of
+            # trc)
+            ga = remap_cuda.ga_planes(dx, dy, afac, bc, integral_order)
+            mass, trc = remap_cuda.construct(grid.hm, mm_ext, tm_ext, meta,
+                                             bc)
+            div_ext, divt_ext = remap_cuda.contract(ga, mass, trc, None,
+                                                    meta, bc)
+        else:
+            # K0: category-independent back-shifted geometry
+            # accumulators; K12: reconstruction + contraction of every row
+            gsh = remap_cuda.ga_gsh(dx, dy, afac, bc, integral_order)
+            div_ext, divt_ext = remap_cuda.k12_divergence(
+                gsh, grid.hm, mm_ext, tm_ext, meta, bc)
+    mm_new, tm_new, (mm_mid, mt_mid) = _update_category(
         state.aicen, tm, div_ext[1:], divt_ext[1:], grid.tmask,
         grid.tarear, meta)
 
     aice0_mid = aice0 - div_ext[0] * grid.tarear
     aice0_new = torch.where(grid.tmask, torch.clamp(aice0_mid, min=0.0), 0.0)
+
+    guards = {}
+    if monotonicity_check:
+        tmin, tmax = _local_max_min(state.aicen, tm, meta, sh)
+        guards["transport monotonicity"] = _check_monotonicity(
+            tmin, tmax, mm_new, tm_new, meta)
+    if conservation_check:
+        # per-category mass (open water first) and per-(category, tracer)
+        # mass*tracer sums; the final sums mid-transport, before the
+        # clamps (driver ":563-610")
+        ta = grid.tarea
+        masum0 = torch.cat([(aice0 * ta).sum()[None],
+                            (state.aicen * ta).sum((1, 2))])
+        masum1 = torch.cat([(aice0_mid * ta).sum()[None],
+                            (mm_mid * ta).sum((1, 2))])
+        par, is2 = _parents(meta, tm.device)
+        mt0 = state.aicen.unsqueeze(1) * tm * torch.where(is2, tm[:, par],
+                                                          1.0)
+        guards["transport global conservation"] = \
+            _check_global_conservation(masum0, masum1,
+                                       (mt0 * ta).sum((2, 3)),
+                                       (mt_mid * ta).sum((2, 3)))
 
     # --- tracers_to_state (":1012-1137") -----------------------------------
     a = mm_new
@@ -589,4 +847,6 @@ def transport_remap(state: State, grid: Grid, dt,
     state = state.replace(aicen=a, vicen=a * hi_n, vsnon=a * hs_n,
                           tsfcn=tsfcn, eicen=eicen, esnon=esnon,
                           trcrn=trcrn)
+    if conservation_check or monotonicity_check:
+        return state, aice0_new, guards
     return state, aice0_new

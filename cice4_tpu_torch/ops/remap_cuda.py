@@ -52,7 +52,7 @@ import torch
 from cice4_tpu_torch import constants as cn
 from cice4_tpu_torch.ops.remap import (ALL_OFFSETS, _flux_divergence_ga,
                                        _geom_accumulators, _n_type1,
-                                       _shift_by)
+                                       _shift_by, geometry_gsh)
 from cice4_tpu_torch.parallel.halo import FOLDS, KERNEL_BC_CODE, Nbr
 
 AXES = ((1, 0), (-1, 0), (0, 1), (0, -1))
@@ -191,14 +191,9 @@ def _construct_vmem(mm, hm_real, tm, meta, sh):
 
 def ga_gsh_plain(dx, dy, afac, bc, order=2):
     """GSH (9, 10, ny, nx): `remap._geom_accumulators` followed by the
-    back-shift of each offset's planes by -offset."""
-    sh = Nbr(bc)
-    GA = _geom_accumulators(afac, dx, dy, order, sh)
-    zero = torch.zeros_like(afac)
-    return torch.stack([
-        _shift_by(sh, torch.stack([GA[off][k] + zero for k in range(10)]),
-                  (-off[0], -off[1]))
-        for off in ALL_OFFSETS])
+    back-shift of each offset's planes by -offset (`remap.geometry_gsh`
+    of the free-area geometry)."""
+    return geometry_gsh(dx, dy, afac, bc, order)
 
 
 def k12_plain(gsh, hm, mm_ext, tm_ext, meta, bc):

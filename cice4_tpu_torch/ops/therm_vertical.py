@@ -15,8 +15,12 @@ wrapper, :func:`temperature_changes`:
   :func:`_temperature_changes_core`, a masked whole-grid loop that is
   the kernel's oracle.
 
-The zero-layer, prescribed-flux and explicit-surface variants wait for
-ROADMAP queue 1 item 4 and raise ``NotImplementedError``.
+The other surface options are plain PyTorch on every device, as the JAX
+package runs them under XLA: the zero-layer solve without heat capacity
+(:func:`zerolayer_temperature`), the solve under a prescribed top flux
+(``calc_Tsfc=False``, :func:`temperature_changes_know_tsfc`) and the
+explicit surface scheme that supplies that flux without a coupler
+(:func:`explicit_calc_tsfc`).
 """
 
 from __future__ import annotations
@@ -253,6 +257,56 @@ def _move_sw_to_surface(p, dt_rhoi_hlyr, etas, l_snow, tmlt, Tin_init,
     return fswsfc, fswint, _stack(ssw), _stack(isw)
 
 
+def _etai(p, dt_rhoi_hlyr, tm, Tin_c, tin0):
+    """Per ice layer dt / (rhoi * hilyr * ci), ci the specific heat at the
+    latest guess."""
+    if p.l_brine:
+        return [dt_rhoi_hlyr / (cn.cp_ice - cn.Lfresh * tm[k]
+                                / (torch.clamp(_lay(Tin_c, k), max=-cn.puny)
+                                   * torch.clamp(tin0[k], max=-cn.puny)))
+                for k in range(p.nilyr)]
+    return [dt_rhoi_hlyr / cn.cp_ice for _ in range(p.nilyr)]
+
+
+def _ice_temps(p, x, tm, Tin_c, avg_Tsi, zero):
+    """The ice layer temperatures of the solution `x`, clamped to Tmlt,
+    then relaxed by `avg_Tsi` toward the latest guess.
+    Returns (Tin, dqmat, reduce_kh): the clamps' energy per layer and
+    where a layer's conductivity may be reduced."""
+    Tin_new, dqmat, reduce_kh = [], [], []
+    for ki in range(p.nilyr):
+        t = x[p.nslyr + 1 + ki]
+        if p.l_brine:
+            over = t > (tm[ki] - cn.puny)
+            dT = torch.where(over, t - tm[ki], 0.0)
+            dq = torch.where(
+                over, cn.rhoi * dT * (cn.cp_ice - cn.Lfresh * tm[ki]
+                                      / torch.clamp(t, max=-cn.puny)**2),
+                0.0)
+            t = torch.where(over, tm[ki], t)
+            reduce_kh.append(over)
+            dqmat.append(dq)
+        else:
+            reduce_kh.append(torch.zeros_like(t, dtype=torch.bool))
+            dqmat.append(zero)
+        t = t + avg_Tsi * 0.5 * (_lay(Tin_c, ki) - t)
+        Tin_new.append(t)
+    return _stack(Tin_new), dqmat, reduce_kh
+
+
+def _reduce_conductivity(p, kh, bad_e, reduce_kh, dqmat, fracr):
+    """Conductivity reduction for overshooting layers (``:2060-2072``),
+    chained: row ki+nslyr+1 is read back by the next ki."""
+    khr = list(kh)
+    for ki in range(p.nilyr):
+        k = ki + p.nslyr
+        sel = bad_e & reduce_kh[ki] & (dqmat[ki] > 0.0)
+        new_below = torch.where(sel, khr[k + 1] * fracr, khr[k + 1])
+        khr[k] = torch.where(sel, new_below * fracr, khr[k])
+        khr[k + 1] = new_below
+    return khr
+
+
 def _temperature_changes_core(p: ThermoParams, dt, has_ice,
                               rhoa, flw, potT, Qa, shcoef, lhcoef,
                               fswsfc, fswint, fswthrun, Sswabs, Iswabs,
@@ -293,13 +347,7 @@ def _temperature_changes_core(p: ThermoParams, dt, has_ice,
 
     def assemble_and_solve(Tsf_c, Tin_c, kh_c, l_cold, sf):
         """Build the nmat-row tridiagonal system and solve."""
-        if p.l_brine:
-            etai = [dt_rhoi_hlyr / (cn.cp_ice - cn.Lfresh * tm[k]
-                                    / (torch.clamp(_lay(Tin_c, k), max=-cn.puny)
-                                       * torch.clamp(tin0[k], max=-cn.puny)))
-                    for k in range(nilyr)]
-        else:
-            etai = [dt_rhoi_hlyr / cn.cp_ice for _ in range(nilyr)]
+        etai = _etai(p, dt_rhoi_hlyr, tm, Tin_c, tin0)
 
         sb, d, sp, rhs = [], [], [], []
         # row 0: Tsf equation (cold, snow) or dummy
@@ -429,25 +477,7 @@ def _temperature_changes_core(p: ThermoParams, dt, has_ice,
         qsn_new = qsn_of_tsn(Tsn_new)
 
         # ice temps with Tmlt limiting (+ conductivity reduction bookkeeping)
-        Tin_new, dqmat, reduce_kh = [], [], []
-        for ki in range(nilyr):
-            t = x[nslyr + 1 + ki]
-            if p.l_brine:
-                over = t > (tm[ki] - cn.puny)
-                dT = torch.where(over, t - tm[ki], 0.0)
-                dq = torch.where(
-                    over, cn.rhoi * dT * (cn.cp_ice - cn.Lfresh * tm[ki]
-                                          / torch.clamp(t, max=-cn.puny)**2),
-                    0.0)
-                t = torch.where(over, tm[ki], t)
-                reduce_kh.append(over)
-                dqmat.append(dq)
-            else:
-                reduce_kh.append(torch.zeros_like(t, dtype=torch.bool))
-                dqmat.append(zero)
-            t = t + avg_Tsi * 0.5 * (_lay(Tin_c, ki) - t)
-            Tin_new.append(t)
-        Tin_new = _stack(Tin_new)
+        Tin_new, dqmat, reduce_kh = _ice_temps(p, x, tm, Tin_c, avg_Tsi, zero)
         qin_new = qin_of_tin(p, Tin_new, tmlt)
 
         enew = sum(hslyr * _lay(qsn_new, k) for k in range(nslyr)) \
@@ -472,18 +502,9 @@ def _temperature_changes_core(p: ThermoParams, dt, has_ice,
         ferrmax_eff = torch.clamp(32.0 * eps * noise_scale, min=ferrmax)
         bad_e = ferr > 0.9 * ferrmax_eff
 
-        # conductivity reduction for overshooting layers (":2060-2072"),
-        # chained: row ki+nslyr+1 is read back by the next ki
-        khr = list(kh_c)
         denom = torch.clamp(torch.abs(fct_new - fcondbot), min=cn.puny)
         fracr = torch.clamp(0.5 * (1.0 - ferr / denom), min=0.1)
-        for ki in range(nilyr):
-            sel = bad_e & reduce_kh[ki] & (dqmat[ki] > 0.0)
-            new_below = torch.where(sel, khr[ki + nslyr + 1] * fracr,
-                                    khr[ki + nslyr + 1])
-            new_above = torch.where(sel, new_below * fracr, khr[ki + nslyr])
-            khr[ki + nslyr + 1] = new_below
-            khr[ki + nslyr] = new_above
+        khr = _reduce_conductivity(p, kh_c, bad_e, reduce_kh, dqmat, fracr)
 
         conv_now = ~(c1v | c2v | c3v | c4v | bad_e)
         why = (c1v.to(torch.int32) * 1 + c2v.to(torch.int32) * 2
@@ -682,6 +703,293 @@ def temperature_changes(p: ThermoParams, dt, has_ice,
 
 
 temperature_changes.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The solves of the other surface options (plain PyTorch on every device:
+# the JAX package runs them under XLA, not in a TPU kernel)
+# ---------------------------------------------------------------------------
+
+
+def temperature_changes_know_tsfc(p: ThermoParams, dt, has_ice, fcondtopn,
+                                  fswsfc, fswint, fswthrun, Sswabs, Iswabs,
+                                  hilyr, hslyr, qin, Tin, qsn, Tsn, Tbot,
+                                  einit):
+    """Implicit temperature solve with a prescribed top conductive flux
+    (``get_matrix_elements_know_Tsfc:2777-3050`` and the ``calc_Tsfc=F``
+    branches of ``temperature_changes``): the surface temperature is not
+    solved; ``fcondtopn`` enters the top active layer and the surface row
+    is a dummy equation.
+
+    Convergence: no oscillation of the top ice temperature (condition
+    2b, ``:1961-1975``) and energy conservation (condition 5).  The JAX
+    package iterates in ``lax.while_loop``; this is a whole-grid loop over
+    the unconverged icy cells whose test reads one bool from the device
+    per iteration (``niter`` host syncs).
+    """
+    nilyr, nslyr = p.nilyr, p.nslyr
+    tmlt = _profile(p.tmlt, nilyr, hilyr)
+    tm = [_lay(tmlt, k) for k in range(nilyr)]
+
+    l_snow = has_ice & (hslyr > hs_min / nslyr)
+    dt_rhoi_hlyr = dt / (cn.rhoi * torch.clamp(hilyr, min=cn.puny))
+    etas = torch.where(
+        l_snow, dt / (cn.rhos * cn.cp_ice * torch.clamp(hslyr, min=cn.puny)),
+        0.0)
+    tin0 = [_lay(Tin, k) for k in range(nilyr)]
+    tsn0 = [_lay(Tsn, k) for k in range(nslyr)]
+    ssw = [_lay(Sswabs, k) for k in range(nslyr)]
+    isw = [_lay(Iswabs, k) for k in range(nilyr)]
+    zero = torch.zeros_like(hilyr)
+    one = torch.ones_like(hilyr)
+    fswabsn = fswsfc + fswint + fswthrun
+    eps = torch.finfo(hilyr.dtype).eps
+
+    c = dict(Tsn=Tsn, Tin=Tin, qsn=qsn, qin=qin,
+             kh=_conductivity(p, l_snow, hilyr, hslyr, Tin),
+             Ti1_prev=tin0[0], dTi1_prev=zero, dq_col=zero, fcondbot=zero,
+             converged=torch.zeros_like(has_ice))
+    niter = 0
+    all_conv = False
+    while not all_conv and niter < nitermax:
+        active = ~c["converged"] & has_ice
+        Tin_c, kh_c = c["Tin"], c["kh"]
+        etai = _etai(p, dt_rhoi_hlyr, tm, Tin_c, tin0)
+
+        # tridiagonal rows: the surface row, and the snow rows without
+        # snow, are dummies
+        sb, d, sp, rhs = [zero], [one], [zero], [zero]
+        for k in range(nslyr):
+            sbk = torch.where(l_snow, -etas * kh_c[k], 0.0)
+            spk = torch.where(l_snow, -etas * kh_c[k + 1], 0.0)
+            dk = torch.where(l_snow, 1.0 + etas * (kh_c[k] + kh_c[k + 1]),
+                             1.0)
+            rhk = torch.where(l_snow, tsn0[k] + etas * ssw[k], 0.0)
+            if k == 0:
+                # the prescribed flux enters the top snow layer, with no
+                # coupling to the (unsolved) surface above
+                sbk = zero
+                dk = torch.where(l_snow, 1.0 + etas * kh_c[1], 1.0)
+                rhk = torch.where(l_snow, rhk + etas * fcondtopn, 0.0)
+            sb.append(sbk)
+            d.append(dk)
+            sp.append(spk)
+            rhs.append(rhk)
+        for ki in range(nilyr):
+            k = ki + nslyr
+            sbk = -etai[ki] * kh_c[k]
+            spk = -etai[ki] * kh_c[k + 1]
+            dk = 1.0 + etai[ki] * (kh_c[k] + kh_c[k + 1])
+            rhk = tin0[ki] + etai[ki] * isw[ki]
+            if ki == 0:
+                # without snow the prescribed flux enters the top ice layer
+                sbk = torch.where(l_snow, sbk, 0.0)
+                dk = torch.where(l_snow, dk, 1.0 + etai[ki] * kh_c[k + 1])
+                rhk = rhk + torch.where(l_snow, 0.0, etai[ki] * fcondtopn)
+            if ki == nilyr - 1:
+                rhk = rhk + etai[ki] * kh_c[k + 1] * Tbot
+                spk = zero
+            sb.append(sbk)
+            d.append(dk)
+            sp.append(spk)
+            rhs.append(rhk)
+        x = _tridiag(sb, d, sp, rhs)
+
+        Tsn_new = _stack([torch.where(l_snow, x[k + 1], 0.0)
+                          for k in range(nslyr)])
+        if p.l_brine:
+            Tsn_new = torch.clamp(Tsn_new, max=0.0)
+        qsn_new = qsn_of_tsn(Tsn_new)
+
+        # condition 2b: an oscillating top ice temperature
+        Ti1_raw = x[nslyr + 1]
+        dTi1 = Ti1_raw - c["Ti1_prev"]
+        osc = ((niter > 0)
+               & (torch.abs(dTi1) > cn.puny)
+               & (torch.abs(c["dTi1_prev"]) > cn.puny)
+               & (-dTi1 / (c["dTi1_prev"] + cn.puny**2) > 0.5))
+        avg_Tsi = torch.where(osc, 1.0, 0.0) if p.l_brine else zero
+        dTi1 = torch.where(osc, 0.5 * dTi1, dTi1)
+
+        Tin_new, dqmat, reduce_kh = _ice_temps(p, x, tm, Tin_c, avg_Tsi, zero)
+        qin_new = qin_of_tin(p, Tin_new, tmlt)
+
+        enew = sum(hslyr * _lay(qsn_new, k) for k in range(nslyr)) \
+            + sum(hilyr * (_lay(qin_new, k) - dqmat[k]) for k in range(nilyr))
+        # the Tmlt-clamp energy goes to the ocean, as in the Newton solve
+        dq_col = sum(hilyr * dqmat[k] for k in range(nilyr))
+
+        # condition 5: energy conservation with the prescribed fcondtopn
+        # (the Newton solve's dtype-adaptive floor)
+        fcondbot = kh_c[nslyr + nilyr] * (_lay(Tin_new, nilyr - 1) - Tbot)
+        ferr = torch.abs((enew - einit) / dt
+                         - (fcondtopn - fcondbot + fswint))
+        noise_scale = (torch.abs(einit) / dt + torch.abs(fcondtopn)
+                       + torch.abs(fcondbot) + torch.abs(fswint))
+        ferrmax_eff = torch.clamp(32.0 * eps * noise_scale, min=ferrmax)
+        bad_e = ferr > 0.9 * ferrmax_eff
+
+        denom = torch.clamp(torch.abs(fcondtopn - fcondbot), min=cn.puny)
+        fracr = torch.clamp(0.5 * (1.0 - ferr / denom), min=0.1)
+        khr = _reduce_conductivity(p, kh_c, bad_e, reduce_kh, dqmat, fracr)
+
+        a3 = active.unsqueeze(-3)
+
+        def mrg(new, old, m=active):
+            return torch.where(m, new, old)
+
+        c = dict(Tsn=mrg(Tsn_new, c["Tsn"], a3), Tin=mrg(Tin_new, c["Tin"], a3),
+                 qsn=mrg(qsn_new, c["qsn"], a3), qin=mrg(qin_new, c["qin"], a3),
+                 kh=[mrg(n, o) for n, o in zip(khr, kh_c)],
+                 Ti1_prev=mrg(Ti1_raw, c["Ti1_prev"]),
+                 dTi1_prev=mrg(dTi1, c["dTi1_prev"]),
+                 dq_col=mrg(dq_col, c["dq_col"]),
+                 fcondbot=mrg(fcondbot, c["fcondbot"]),
+                 converged=mrg(~(osc | bad_e), c["converged"]))
+        all_conv = bool((c["converged"] | ~has_ice).all())
+        niter += 1
+
+    return dict(Tsn=c["Tsn"], Tin=c["Tin"], qsn=c["qsn"], qin=c["qin"],
+                fcondbot=c["fcondbot"], fswabsn=fswabsn, fswsfc=fswsfc,
+                fswint=fswint, Sswabs=Sswabs, Iswabs=Iswabs,
+                dq_flux=c["dq_col"] / dt, converged=c["converged"],
+                niter=torch.tensor(niter, dtype=torch.int32))
+
+
+def explicit_calc_tsfc(p: ThermoParams, dt, aicen, vicen, vsnon, tsfcn,
+                       eicen, esnon, rhoa, flw, potT, Qa, shcoef, lhcoef,
+                       fswsfcn):
+    """Explicit (one Newton step) surface temperature and fluxes of the
+    ``calc_Tsfc=F`` ice-only mode (``drivers/cice4/CICE_RunMod.F90
+    explicit_calc_Tsfc:1014-1257``).
+
+    Returns dict(Tsf, flwoutn, fsensn, flatn, fsurfn, fcondtopn): the
+    prescribed fluxes when no coupler supplies them.
+    """
+    has_ice = aicen > cn.puny
+    a_safe = torch.clamp(aicen, min=cn.puny)
+    hslyr = vsnon / a_safe / p.nslyr
+    l_snow = (hslyr * p.nslyr > hs_min) & has_ice
+
+    # temperature of the top layer (snow if present, else top ice)
+    vs_safe = torch.clamp(vsnon, min=cn.puny)
+    qsn0 = _lay(esnon, 0) * p.nslyr / vs_safe
+    Tis_snow = torch.clamp((cn.Lfresh + qsn0 / cn.rhos) / cn.cp_ice, max=0.0)
+
+    vi_safe = torch.clamp(vicen, min=cn.puny)
+    qin0 = _lay(eicen, 0) * p.nilyr / vi_safe
+    tmlt0 = float(p.tmlt[0])
+    if p.l_brine:
+        Tis_ice = torch.clamp(tin_from_qin(p, qin0, tmlt0), max=tmlt0)
+        ci = cn.cp_ice - cn.Lfresh * tmlt0 \
+            / torch.clamp(Tis_ice, max=-cn.puny) ** 2
+    else:
+        Tis_ice = torch.clamp((cn.Lfresh + qin0 / cn.rhoi) / cn.cp_ice,
+                              max=0.0)
+        ci = torch.full_like(Tis_ice, cn.cp_ice)
+    Tis = torch.where(l_snow, Tis_snow, Tis_ice)
+
+    # conductivity and thickness of the top layer, CFL-limited
+    hilyr = vicen / a_safe / p.nilyr
+    kilyr = torch.clamp(cn.kice + betak * float(p.salin[0])
+                        / torch.clamp(Tis_ice, max=-cn.puny), min=kimin)
+    khis = torch.where(l_snow,
+                       2.0 * cn.ksno / torch.clamp(hslyr, min=cn.puny),
+                       2.0 * kilyr / torch.clamp(hilyr, min=cn.puny))
+    khmax = torch.where(l_snow, cn.rhos * cn.cp_ice * hslyr / dt,
+                        cn.rhoi * ci * hilyr / dt)
+    khis = torch.minimum(khis, khmax)
+
+    Tsf = tsfcn
+    sf = _surface_fluxes(Tsf, fswsfcn, rhoa, flw, potT, Qa, shcoef, lhcoef)
+    dTsf = (sf["fsurfn"] - khis * (Tsf - Tis)) / (khis - sf["dfsurf_dT"])
+    Tsf = Tsf + dTsf
+    over = Tsf > 0.0
+    dTsf = torch.where(over, dTsf - Tsf, dTsf)
+    Tsf = torch.where(over, 0.0, Tsf)
+
+    def z(x):
+        return torch.where(has_ice, x, 0.0)
+
+    return dict(
+        Tsf=torch.where(has_ice, Tsf, tsfcn),
+        flwoutn=z(sf["flwoutn"] + dTsf * sf["dflwout_dT"]),
+        fsensn=z(sf["fsensn"] + dTsf * sf["dfsens_dT"]),
+        flatn=z(sf["flatn"] + dTsf * sf["dflat_dT"]),
+        fsurfn=z(sf["fsurfn"] + dTsf * sf["dfsurf_dT"]),
+        fcondtopn=z(khis * (Tsf - Tis)),
+    )
+
+
+def zerolayer_temperature(p: ThermoParams, dt, has_ice,
+                          rhoa, flw, potT, Qa, shcoef, lhcoef,
+                          fswsfc, fswthru, hilyr, hslyr, Tsf, Tbot):
+    """Zero-heat-capacity surface temperature solve
+    (``zerolayer_temperature:3168-3603``): one surface energy balance
+    through the slab conductivity kh = kseaice / (hi + hs*kseaice/ksno).
+    Iterated, as the JAX package's ``lax.while_loop``, by a whole-grid
+    loop whose test reads one bool from the device per iteration."""
+    kratio = cn.kseaice / cn.ksno
+    zero = torch.zeros_like(Tsf)
+    heff = hilyr * p.nilyr + kratio * hslyr * p.nslyr
+    kh = cn.kseaice / torch.clamp(heff, min=cn.puny)
+
+    c = dict(Tsf=Tsf, dTsf_prev=zero, fsurfn=zero, fcondtopn=zero,
+             fsensn=zero, flatn=zero, flwoutn=zero,
+             converged=torch.zeros_like(has_ice))
+    niter = 0
+    all_conv = False
+    while not all_conv and niter < nitermax:
+        active = ~c["converged"] & has_ice
+        Tsf_c = c["Tsf"]
+        sf = _surface_fluxes(Tsf_c, fswsfc, rhoa, flw, potT, Qa,
+                             shcoef, lhcoef)
+        fct = kh * (Tsf_c - Tbot)
+        Tsf_c = torch.where(active & (sf["fsurfn"] < fct),
+                            torch.clamp(Tsf_c, max=-cn.puny), Tsf_c)
+        Tsf_start = Tsf_c
+
+        diag = sf["dfsurf_dT"] - kh
+        rhs = sf["dfsurf_dT"] * Tsf_c - sf["fsurfn"] - kh * Tbot
+        Tsf_new = rhs / torch.where(torch.abs(diag) > cn.puny, diag,
+                                    -cn.puny)
+        dTsf = Tsf_new - Tsf_start
+        hot = Tsf_new > cn.puny
+        Tsf_new = torch.where(hot, 0.0, Tsf_new)
+        dTsf = torch.where(hot, -Tsf_start, dTsf)
+        osc = ((niter > 0) & (Tsf_start <= -cn.puny)
+               & (torch.abs(dTsf) > cn.puny)
+               & (torch.abs(c["dTsf_prev"]) > cn.puny)
+               & (-dTsf / (c["dTsf_prev"] + cn.puny**2) > 0.5))
+        dTsf = torch.where(osc, 0.5 * dTsf, dTsf)
+        Tsf_new = Tsf_new + torch.where(osc, 0.5 * (Tsf_start - Tsf_new), 0.0)
+        unconv = osc | (torch.abs(dTsf) > Tsf_errmax)
+
+        fsurfn = sf["fsurfn"] + dTsf * sf["dfsurf_dT"]
+        fct_new = kh * (Tsf_new - Tbot)
+        unconv = unconv | ((Tsf_new > -cn.puny) & (fsurfn < fct_new))
+
+        def mrg(new, old):
+            return torch.where(active, new, old)
+
+        c = dict(Tsf=mrg(Tsf_new, c["Tsf"]),
+                 dTsf_prev=mrg(dTsf, c["dTsf_prev"]),
+                 fsurfn=mrg(fsurfn, c["fsurfn"]),
+                 fcondtopn=mrg(fct_new, c["fcondtopn"]),
+                 fsensn=mrg(sf["fsensn"] + dTsf * sf["dfsens_dT"],
+                            c["fsensn"]),
+                 flatn=mrg(sf["flatn"] + dTsf * sf["dflat_dT"], c["flatn"]),
+                 flwoutn=mrg(sf["flwoutn"] + dTsf * sf["dflwout_dT"],
+                             c["flwoutn"]),
+                 converged=mrg(~unconv, c["converged"]))
+        all_conv = bool((c["converged"] | ~has_ice).all())
+        niter += 1
+
+    return dict(Tsf=c["Tsf"], fsurfn=c["fsurfn"], fcondtopn=c["fcondtopn"],
+                fcondbot=c["fcondtopn"], fsensn=c["fsensn"],
+                flatn=c["flatn"], flwoutn=c["flwoutn"],
+                fswabsn=fswsfc + fswthru,
+                niter=torch.tensor(niter, dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -885,22 +1193,25 @@ def thermo_vertical_category(p: ThermoParams, dt, aicen, vicen, vsnon,
                              tsfcn, eicen, esnon,
                              flw, potT, Qa, rhoa, fsnow,
                              fbot, Tbot, Tf, lhcoef, shcoef,
-                             fswsfc, fswint, fswthrun, Sswabs, Iswabs):
+                             fswsfc, fswint, fswthrun, Sswabs, Iswabs,
+                             fsurfn_pre=None, fcondtopn_pre=None,
+                             flatn_pre=None):
     """Full vertical thermo driver (``thermo_vertical:108-515``) for one
     category plane or for all categories at once (leading ``ncat``
     axis on the category fields; forcing planes broadcast).
 
     Returns (new category state dict, flux/diagnostic dict).  All
     fluxes are per unit ice area; the caller applies aicen weighting.
+
+    The temperature solve by option: the Newton solve
+    (:func:`temperature_changes`, the therm_newton kernel on the card)
+    with ``calc_Tsfc`` and a heat capacity; :func:`zerolayer_temperature`
+    without the heat capacity.  With ``calc_Tsfc`` False the surface
+    fluxes are prescribed (``fsurfn_pre``, ``fcondtopn_pre``,
+    ``flatn_pre``, from the coupler or the explicit scheme) and the solve
+    is :func:`temperature_changes_know_tsfc`, or none without the heat
+    capacity (``thermo_vertical:321-421``).
     """
-    if not p.calc_Tsfc:
-        raise NotImplementedError(
-            "calc_Tsfc=False (prescribed surface fluxes) is not ported yet "
-            "(ROADMAP queue 1 item 4)")
-    if not p.heat_capacity:
-        raise NotImplementedError(
-            "heat_capacity=False (zero-layer thermo) is not ported yet "
-            "(ROADMAP queue 1 item 4)")
     nilyr, nslyr = p.nilyr, p.nslyr
     has_ice = aicen > cn.a_negligible(aicen.dtype)
     a_safe = torch.clamp(aicen, min=cn.puny)
@@ -936,10 +1247,40 @@ def thermo_vertical_category(p: ThermoParams, dt, aicen, vicen, vsnon,
     hin0, hsn0 = hin, hsn
 
     # --- temperature solve -------------------------------------------------
-    tc = temperature_changes(p, dt, has_ice, rhoa, flw, potT, Qa,
-                             shcoef, lhcoef, fswsfc, fswint, fswthrun,
-                             Sswabs, Iswabs, hilyr, hslyr, qin, Tin,
-                             qsn, Tsn, Tsf, Tbot, einit)
+    if not p.calc_Tsfc:
+        if fsurfn_pre is None or fcondtopn_pre is None or flatn_pre is None:
+            raise ValueError("calc_Tsfc=False requires prescribed "
+                             "fsurfn/fcondtopn/flatn")
+        if p.heat_capacity:
+            tc = temperature_changes_know_tsfc(
+                p, dt, has_ice, fcondtopn_pre, fswsfc, fswint, fswthrun,
+                Sswabs, Iswabs, hilyr, hslyr, qin, Tin, qsn, Tsn, Tbot,
+                einit)
+        else:
+            # zero layer: fcondbot = fcondtopn (thermo_vertical:409-418)
+            tc = dict(Tsn=Tsn, Tin=Tin, qsn=qsn, qin=qin,
+                      fcondbot=torch.where(has_ice, fcondtopn_pre, 0.0),
+                      fswabsn=fswsfc + fswthrun, fswint=torch.zeros_like(
+                          fswsfc), niter=torch.tensor(0, dtype=torch.int32))
+        tc["Tsf"] = Tsf
+        tc["fsurfn"] = torch.where(has_ice, fsurfn_pre, 0.0)
+        tc["fcondtopn"] = torch.where(has_ice, fcondtopn_pre, 0.0)
+        tc["flatn"] = torch.where(has_ice, flatn_pre, 0.0)
+        # the radiative and turbulent components belong to the coupler in
+        # this mode; zero here
+        tc["fsensn"] = torch.zeros_like(Tsf)
+        tc["flwoutn"] = torch.zeros_like(Tsf)
+    elif p.heat_capacity:
+        tc = temperature_changes(p, dt, has_ice, rhoa, flw, potT, Qa,
+                                 shcoef, lhcoef, fswsfc, fswint, fswthrun,
+                                 Sswabs, Iswabs, hilyr, hslyr, qin, Tin,
+                                 qsn, Tsn, Tsf, Tbot, einit)
+    else:
+        tc = zerolayer_temperature(p, dt, has_ice, rhoa, flw, potT, Qa,
+                                   shcoef, lhcoef, fswsfc, fswthrun,
+                                   hilyr, hslyr, Tsf, Tbot)
+        tc.update(Tsn=Tsn, Tin=Tin, qsn=qsn, qin=qin,
+                  fswint=torch.zeros_like(fswsfc))
 
     # --- thickness changes -------------------------------------------------
     th = thickness_changes(p, dt, has_ice, hilyr, hslyr,
@@ -948,7 +1289,8 @@ def thermo_vertical_category(p: ThermoParams, dt, aicen, vicen, vsnon,
                            tc["fcondbot"], fsnow)
     # Tmlt-clamp energy removed by the temperature solve goes to the
     # ocean (keeps the column budget exact; see temperature_changes)
-    th["fhocnn"] = th["fhocnn"] + tc["dq_flux"]
+    if "dq_flux" in tc:
+        th["fhocnn"] = th["fhocnn"] + tc["dq_flux"]
 
     # --- water/salt fluxes (":466-480") ------------------------------------
     dhi = th["hin"] - hin0

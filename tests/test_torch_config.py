@@ -90,7 +90,7 @@ def test_port_imports_no_jax():
         import cice4_tpu_torch.cli, cice4_tpu_torch.io.history
         import cice4_tpu_torch.io.restart, cice4_tpu_torch.ops.restoring
         import cice4_tpu_torch.ops.shortwave_dedd, cice4_tpu_torch.ops.meltpond
-        import cice4_tpu_torch.ops._dedd_tables
+        import cice4_tpu_torch.ops._dedd_tables, cice4_tpu_torch.ops.transport
         import chip_smoke
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "cice4_tpu."))

@@ -638,3 +638,65 @@ def test_therm_newton_matches_plain_at_dedd_inputs(cuda_device, dtype,
     torch.cuda.synchronize()
     report = kernel_check.compare(kern, plain, args[0], dtype)
     assert report["ok"], report
+
+
+# the options of ROADMAP 1.4 that change which kernels a step launches:
+# (config overrides, {wrapper: launches per step})
+OPTION_LAUNCHES = {
+    "l_dp_midpt_and_checks": (
+        {"transport.l_dp_midpt": True, "transport.conservation_check": True,
+         "transport.monotonicity_check": True},
+        {"therm_newton": 1, "evp": 1, "gsh": 1, "k12": 1}),
+    "l_fixed_area": ({"transport.l_fixed_area": True},
+                     {"therm_newton": 1, "evp": 1, "gsh": 0, "k12": 1}),
+    "upwind": ({"transport.advection": "upwind"},
+               {"therm_newton": 1, "evp": 1, "gsh": 0, "k12": 0}),
+    "zero_layer": ({"thermo.heat_capacity": False},
+                   {"therm_newton": 0, "evp": 1, "gsh": 1, "k12": 1}),
+    "calc_tsfc_false": ({"thermo.calc_Tsfc": False},
+                        {"therm_newton": 0, "evp": 1, "gsh": 1, "k12": 1}),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(OPTION_LAUNCHES))
+def test_option_step_launches_its_kernels(cuda_device, name, monkeypatch):
+    """Two steps of the 24x32 gx1 cut under an option of ROADMAP 1.4 on
+    the card: each kernel its option runs once per step, the others never,
+    and no kernel's plain version; the transport guards read clean."""
+    from cice4_tpu_torch.guards import raise_on_violation
+    from cice4_tpu_torch.io.forcing_data import AnalyticForcing
+    from cice4_tpu_torch.model import Model
+    from cice4_tpu_torch.ops import evp_cuda, remap_cuda
+    from cice4_tpu_torch.state import init_state
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card's path")
+
+    for mod, attr in ((tv, "_temperature_changes_core"),
+                      (evp_cuda, "_evp_subcycle_plain"),
+                      (remap_cuda, "ga_gsh_plain"),
+                      (remap_cuda, "k12_plain")):
+        monkeypatch.setattr(mod, attr, refuse)
+    over, per_step = OPTION_LAUNCHES[name]
+    cfg = gx1_config().with_values(**{"grid.kmt_file": "",
+                                      "domain.ny_global": 24,
+                                      "domain.nx_global": 32, **over})
+    model = Model.create(cfg, device=cuda_device, dtype=torch.float32)
+    state = init_state(cfg, model.grid, model.itd, device=cuda_device,
+                       dtype=torch.float32)
+    forcing = AnalyticForcing(cfg, model.grid, device=cuda_device,
+                              dtype=torch.float32)
+    wrappers = {"therm_newton": tv.temperature_changes,
+                "evp": evp_cuda.evp_subcycle, "gsh": remap_cuda.ga_gsh,
+                "k12": remap_cuda.k12_divergence}
+    before = {k: w.launches for k, w in wrappers.items()}
+    for n in range(2):
+        yday = 80.0 + n / 24.0
+        state, fluxes = model(state, forcing(yday, 0.0), yday, 0.0)
+        raise_on_violation(fluxes["_guards"])
+    torch.cuda.synchronize()
+    assert {k: w.launches - before[k] for k, w in wrappers.items()} == \
+        {k: 2 * v for k, v in per_step.items()}
+    assert bool(torch.isfinite(state.aicen).all())
+    assert 0.0 < float(state.uvel.abs().max()) < 2.0

@@ -76,12 +76,6 @@ def test_make_grid_equal(cfg):
                        tg.make_grid(cfg, device=CPU, dtype=F64))
 
 
-def test_unported_grids_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tg.make_grid(gx1_config().with_values(
-            **{"grid.grid_type": "displaced_pole"}), device=CPU)
-
-
 def _state_arrays(s):
     return {k: (np.asarray(v) if not isinstance(v, dict)
                 else {kk: np.asarray(vv) for kk, vv in v.items()})

@@ -267,12 +267,3 @@ def test_transport_remap_conserves(setup):
         before = float((getattr(tstate, f) * tgrid.tarea).sum())
         after = float((getattr(tst, f) * tgrid.tarea).sum())
         assert abs(after - before) <= 1e-12 * max(abs(before), 1.0), f
-
-
-@pytest.mark.parametrize("flag", ["dp_midpt", "fixed_area",
-                                  "conservation_check",
-                                  "monotonicity_check"])
-def test_unported_remap_options_raise(setup, flag):
-    _, _, tgrid, tstate = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tremap.transport_remap(tstate, tgrid, 3600.0, 2, **{flag: True})

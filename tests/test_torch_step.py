@@ -153,14 +153,3 @@ def test_model_holds_grid_as_buffers():
     assert moved.grid.tlat.dtype == F64
     assert moved.grid.tmask.dtype == torch.bool
     assert (moved.grid.ny, moved.grid.nx) == (6, 8)
-
-
-@pytest.mark.parametrize("over", [
-    {"transport.advection": "upwind"},
-    {"transport.advection": "remap", "transport.l_fixed_area": True},
-    {"transport.advection": "remap", "transport.conservation_check": True},
-    {"transport.advection": "remap", "transport.l_dp_midpt": True}])
-def test_unported_step_options_raise(over):
-    cfg = t_gx1_config().with_values(**{**SLICE, **over})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.Model.create(cfg, device=CPU)

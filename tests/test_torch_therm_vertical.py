@@ -201,14 +201,3 @@ def test_thermo_vertical_category_all_categories(params, yday):
         scale = max(float(np.abs(want).max()), 1.0)
         np.testing.assert_allclose(got, want, rtol=1e-11, atol=1e-11 * scale,
                                    err_msg=key)
-
-
-def test_unported_thermo_options_raise(params):
-    _, tp = params
-    cat, planes = _column_inputs(80.0)
-    allargs = {**cat, **planes}
-    args = [torch.from_numpy(np.array(allargs[k])) for k in _TVC_ORDER]
-    for over in ({"calc_Tsfc": False}, {"heat_capacity": False}):
-        p = ttv.ThermoParams(**{**vars(tp), **over})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttv.thermo_vertical_category(p, 3600.0, *args)
