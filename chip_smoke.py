@@ -35,8 +35,12 @@ albedos, ``atmbndy='constant'`` and ``kitd=0``; and gx1 under the rest of
 ROADMAP 1.4: the transport options (the departure-point midpoint with the
 conservation and monotonicity checks, the fixed-area remap, upwind
 transport), the thermo options (no heat capacity, ``calc_Tsfc=False``,
-both) and grids read from files (POP binary and netCDF, pan-Arctic).  On
-the
+both) and grids read from files (POP binary and netCDF, pan-Arctic); and
+gx1 under forcing files (NCAR with the ocean climatology, the monthly
+dataset's prescribed stress) through ``IceModelRun``, and the coupled
+component ``IceComponent`` in its ACCESS-OM (with the GFDL open-water
+fluxes, at 0.25 degree) and ACCESS-CM (``calc_Tsfc=False``, at 1 degree)
+flavors.  On the
 box the grid masks the top row of U points, so no velocity crosses the NS
 seam: the EVP kernel's NS wrap reads only masked zeros there, and only
 the kernel-vs-plain checks of phase 3 hold that wrap against nonzero
@@ -116,14 +120,41 @@ Phases, each of which ends the run with a non-zero exit on failure:
     kernels of the default route; (j) a pan-Arctic grid file (8 km cells
     from 60N, its land mask inside, open edges) through ``IceModelRun``
     with ice restoring, the four kernels once a step;
-14. small parity: 24x32 f64 cuts of the gx1 path, of the box, of the
+14. file forcing at gx1, f32, through ``IceModelRun`` from 1 January
+    1997 under seeded files written into a temporary directory in the
+    reference's layout (``kernel_check.write_forcing_files``), 8 steps a
+    path with the counters (the four kernels of the default route once a
+    step, no plain version), the files found (``available``), a physical
+    state: (k) the NCAR bulk files with the ocean climatology and SST
+    restoring (the initial SST the climatology's), (l) the monthly files
+    with ``calc_strair=False`` (the stress the EVP reads is the file's,
+    rotated, bit for bit, each step; the pack ice, covering half of its
+    cell or more, below 2 m/s, as the unweighted stress lets marginal ice
+    drift freely); each with ms/step by CUDA events, the synchronising
+    operations of a step (``torch.cuda.set_sync_debug_mode``), device time
+    by phase with the forcing beside it, and each kernel held against its
+    plain version at its inputs;
+15. the coupled component, f32, 3 coupling intervals of 2 steps from
+    seeded imports (``kernel_check.coupler_fields``): (m) ACCESS-OM on its
+    0.25 degree tripole grid (1440x1080, dt 1350 s) with the GFDL
+    open-water fluxes (the four kernels once a step; every export finite,
+    aice_io in [0, 1]; u_star > 0 on ocean cells and carried to the next
+    interval; its sidecar read back equal; ``regrid_runoff`` on the
+    tripole mask against its CPU result, f64), (n) ACCESS-CM at 1 degree
+    with ``calc_Tsfc=False`` and the UM's stress (all kernels but
+    therm_newton; the prescribed stress in the EVP each step); each with
+    ms/step, synchronising operations, device time by phase with the
+    coupler's exchange beside it, and each kernel held against its plain
+    version at its inputs;
+16. small parity: 24x32 f64 cuts of the gx1 path, of the box, of the
    box with a U-fold (all with the damped EVP, as the tier-1 tests run
-   it), of the two gx1 option paths of phases 10 and 11 and of the three
+   it), of the two gx1 option paths of phases 10 and 11, of the three
    whole-step option sets of tier-1 (the four remap options; upwind
-   without heat capacity; ``calc_Tsfc=False``) on the card agree with
-   the CPU path (which the tier-1 tests hold against the JAX package)
-   after 3 steps;
-15. timing: ms/step and cell-steps/s of the gx1 and box paths, device
+   without heat capacity; ``calc_Tsfc=False``) and of paths (k)-(n)
+   (through ``IceModelRun`` or ``IceComponent``, the exports compared
+   too) on the card agree with the CPU path (which the tier-1 tests hold
+   against the JAX package) after 3 steps (2 intervals of 2);
+17. timing: ms/step and cell-steps/s of the gx1 and box paths, device
     time by phase (the box also on the split remap route), and each
     kernel against its plain version at the inputs its path gives it,
     beside the least time the card could take;
@@ -240,6 +271,34 @@ PANARCTIC_DX = 8.0e3
 PANARCTIC_LAT0, PANARCTIC_LON0 = 60.0, -150.0
 PANARCTIC_LAND = (slice(100, 140), slice(150, 200))
 GRID_RTOL = 1.0e-12   # a grid read from a file vs built in memory, f64
+# the file forcing and the coupled component (phases 14-15), f32, from 1
+# January 1997: (k) gx1 under the NCAR bulk files with the ocean
+# climatology and SST restoring, (l) gx1 under the monthly files with their
+# prescribed stress (calc_strair=False), FILE_STEPS steps of IceModelRun
+# then FILE_TIMED timed, the 6-hourly files holding the first
+# FILE_RECORDS_6H records (the run reads the first 3); (m) ACCESS-OM at
+# 0.25 degree with the GFDL open-water fluxes and (n) ACCESS-CM at 1
+# degree (calc_Tsfc=False, the UM's stress), COUPLED_INTERVALS coupling
+# intervals of INTERVAL_STEPS steps from seeded imports
+NCAR_CLIM = {"grid.kmt_file": "", "forcing.atm_data_type": "ncar",
+             "forcing.sss_data_type": "clim", "forcing.sst_data_type": "clim",
+             "forcing.restore_sst": True}
+MONTHLY_STRESS = {"grid.kmt_file": "", "forcing.atm_data_type": "monthly",
+                  "thermo.calc_strair": False}
+ACCESS_CM = {"thermo.calc_Tsfc": False, "thermo.calc_strair": False}
+# the synthetic lat-lon grid of access_om_config narrows to 640 m near its
+# top row at 0.25 degree: an hour's step takes a drift of 0.18 m/s across a
+# cell there (Courant number 1, beyond which the remap's departure regions
+# leave the neighbours it reads), and the coupled winds drive the ice
+# faster, so (m) steps 1350 s, where 0.47 m/s does
+ACCESS_OM025 = {"run.dt": 1350.0}
+FILE_STEPS = 8
+FILE_TIMED = 4
+FILE_RECORDS_6H = 4
+COUPLED_INTERVALS = 3
+INTERVAL_STEPS = 2
+RUNOFF_RTOL = 1.0e-12  # regrid_runoff on the card vs the CPU, f64
+FREE_DRIFT_LIMIT = 2.0  # m/s, ice covering half of its cell or more
 # per category, |absorbed + reflected - incoming| shortwave over sunlit
 # ice, relative to the incoming: the dEdd fluxes close by construction up
 # to the rounding of about a dozen f32 operations on fluxes of the
@@ -777,13 +836,14 @@ DEFAULT_ROUTE = ("therm_newton", "evp_subcycle", "remap_gsh", "remap_k12")
 
 
 def check_at_path_inputs(tag, model, state, forcing, launches, card,
-                         names=DEFAULT_ROUTE):
+                         names=DEFAULT_ROUTE, yday=None):
     """Each kernel `names` (by default those of the default route) against
-    its plain version at the arguments one step of a path gives it, within
-    its ``kernel_check`` tolerance, and its device time per launch.
-    Returns {kernel: (launches, ms, bound_ms, max |kernel - plain|)}."""
+    its plain version at the arguments one step of a path gives it (at day
+    `yday`), within its ``kernel_check`` tolerance, and its device time per
+    launch.  Returns {kernel: (launches, ms, bound_ms, max |kernel -
+    plain|)}."""
     out = {}
-    seen = capture_kernel_inputs(model, state, forcing, names)
+    seen = capture_kernel_inputs(model, state, forcing, names, yday)
     for name in names:
         args = seen[name]
         kern_fn, plain_fn = kernel_and_plain(name, args)
@@ -1327,6 +1387,407 @@ def phase_thermo_and_grids(device, card, workdir):
 
 
 # ---------------------------------------------------------------------------
+# phases 14-15: the file forcing and the coupled component
+# ---------------------------------------------------------------------------
+
+
+def check_prescribed_stress(tag, reads):
+    """Every step's EVP read the forcing's prescribed stress bit for bit."""
+    if not reads or any(len(r) != 3 for r in reads):
+        raise AssertionError(f"{tag}: the EVP's stress was not seen each "
+                             f"step")
+    for f, sx, sy in reads:
+        if f.strax is None or not (torch.equal(sx, f.strax)
+                                   and torch.equal(sy, f.stray)):
+            raise AssertionError(f"{tag}: the EVP did not read the "
+                                 f"prescribed stress")
+    f = reads[-1][0]
+    log(f"  {tag}: the stress the EVP read equals the forcing's prescribed "
+        f"stress bit for bit at each of {len(reads)} steps (max |strax| "
+        f"{float(f.strax.abs().max()):.4g} N/m^2)")
+
+
+def check_free_drift(tag, state):
+    """The ice velocity under the monthly dataset's prescribed stress.  The
+    JAX package hands the file's stress to the EVP as it is, not weighted
+    by the ice area as the coupler's stress is, while the ocean drag is
+    weighted by it: marginal ice drifts freely, faster as its area is
+    smaller.  Moving ice, and below FREE_DRIFT_LIMIT where the ice covers
+    at least half of the cell (the plausibility bound of the other paths);
+    the fastest speed and its cell's area logged."""
+    speed = torch.maximum(state.uvel.abs(), state.vvel.abs())
+    aice = state.aicen.sum(0)
+    k = int(speed.argmax())
+    pack = float(speed[aice >= 0.5].max())
+    log(f"  {tag}: max |u|,|v| {float(speed.max()):.4g} m/s where aice is "
+        f"{float(aice.flatten()[k]):.3g}; {pack:.4g} m/s where aice >= 0.5 "
+        f"(limit {FREE_DRIFT_LIMIT})")
+    if not 0.0 < pack < FREE_DRIFT_LIMIT:
+        raise AssertionError(f"{tag}: pack ice speed {pack} m/s")
+
+
+def write_path_files(directory, datasets, ny, nx):
+    """The seeded files of `datasets` (`kernel_check.write_forcing_files`),
+    the 6-hourly ones with only the records a run of FILE_STEPS +
+    FILE_TIMED + 2 hours from 1 January reads.  Returns their bytes."""
+    from cice4_tpu_torch import kernel_check
+
+    return sum(os.path.getsize(p) for seed, ds in enumerate(datasets)
+               for p in kernel_check.write_forcing_files(
+                   directory, ds, ny, nx, seed=seed,
+                   records_6h=FILE_RECORDS_6H))
+
+
+def phase_file_forced(device, card, workdir):
+    """Paths (k) and (l): gx1 through ``IceModelRun`` (the CLI's path)
+    under seeded files written into `workdir` in the reference's layout,
+    from 1 January 1997: FILE_STEPS steps with the counters (each of the
+    four kernels of the default route once a step, no plain version), the
+    provider's files found, a physical state; (k) the initial SST the
+    climatology's, (l) the prescribed stress in the EVP each step;
+    ms/step by CUDA events over FILE_TIMED more steps, host syncs of a
+    step, device time by phase with the forcing beside it, and each kernel
+    against its plain version at the path's inputs.  Returns {path:
+    {kernel: (launches, ms, bound_ms, max |d|)}}."""
+    from cice4_tpu_torch import kernel_check
+    from cice4_tpu_torch.driver import IceModelRun
+
+    cfg0 = make_config(MAIN)
+    ny, nx = cfg0.domain.ny_global, cfg0.domain.nx_global
+    out = {}
+    for key, tag, over, datasets in (
+            ("ncar_clim", f"(k) gx1 {ny}x{nx} under the NCAR files and the "
+             f"ocean climatology with SST restoring", NCAR_CLIM,
+             ("ncar", "ocean")),
+            ("monthly", f"(l) gx1 {ny}x{nx} under the monthly files, "
+             f"calc_strair=False", MONTHLY_STRESS, ("monthly",))):
+        d = workdir / key
+        t0 = time.perf_counter()
+        nbytes = write_path_files(d, datasets, ny, nx)
+        log(f"  {tag}: wrote {nbytes / 1e6:.1f} MB of files in "
+            f"{time.perf_counter() - t0:.2f} s")
+        cfg = make_config(over, **{
+            "forcing.atm_data_dir": str(d), "forcing.ocn_data_dir": str(d),
+            "run.history_dir": str(workdir / "history"),
+            "run.restart_dir": str(workdir / "restart"),
+            "run.pointer_file": str(workdir / "restart" / "pointer"),
+            "run.diagfreq": 0})
+        run = IceModelRun(cfg, dtype=torch.float32, device=device,
+                          log=lambda line: None).initialize()
+        prov = run.forcing_provider
+        if not getattr(prov, "available", False):
+            raise AssertionError(f"{tag}: the files were not found: "
+                                 f"{type(prov).__name__} unavailable")
+        if key == "ncar_clim":
+            if type(prov).__name__ != "CombinedProvider" \
+                    or not prov.ocn.available:
+                raise AssertionError(f"{tag}: no ocean climatology")
+            sst0 = prov.ocn.initial_fields(run.calendar.month)[2]
+            if not torch.equal(run.state.sst, sst0):
+                raise AssertionError(f"{tag}: the initial SST is not the "
+                                     f"climatology's")
+        with counting_plain_calls() as plain_calls, \
+                kernel_check.evp_stress_reads() as reads:
+            reset_counts()
+            run.run(FILE_STEPS)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        want = expected(**{k: FILE_STEPS for k in DEFAULT_ROUTE})
+        atm = getattr(prov, "atm", prov)
+        log(f"  {tag}: {type(prov).__name__} ({type(atm).__name__}); "
+            f"launches {counts}; plain versions called "
+            f"{plain_calls or 'none'}")
+        if counts != want:
+            raise AssertionError(f"{tag}: launches {counts}, expected {want}")
+        if plain_calls:
+            raise AssertionError(f"{tag}: plain versions ran: {plain_calls}")
+        if key == "monthly":
+            check_prescribed_stress(tag, reads)
+            check_free_drift(tag, run.state)
+        amin, amax, n_north, n_south, umax = check_physical(
+            run.grid, run.state, key != "monthly")
+        log(f"  guards clean; state finite; aice in [{amin:.3g}, "
+            f"{amax:.6g}]; icy cells north of 70N {n_north}, south of 60S "
+            f"{n_south}; max |u|,|v| {umax:.4g} m/s; SST in "
+            f"[{float(run.state.sst.min()):.4g}, "
+            f"{float(run.state.sst.max()):.4g}] C")
+        launches = read_counts()
+
+        start, end = _events()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        run.run(FILE_TIMED)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / FILE_TIMED
+        host_ms = (time.perf_counter() - t0) * 1e3 / FILE_TIMED
+        syncs, where = host_syncs(lambda: run.run(1))
+        step_ms = 1e3 * run.timers.totals["Step"] / run.timers.counts["Step"]
+        forcing_ms = (1e3 * run.timers.totals["Forcing"]
+                      / run.timers.counts["Forcing"])
+        log(f"  {tag}: {ms:.3f} ms/step (CUDA events, {FILE_TIMED} steps of "
+            f"IceModelRun.run after {FILE_STEPS}), {host_ms:.3f} ms/step "
+            f"(host clock); the driver's timers over its "
+            f"{run.timers.counts['Step']} steps: Step {step_ms:.3f} ms, Forcing {forcing_ms:.3f} ms a "
+            f"step; {syncs} synchronising operations in one step of the "
+            f"driver (sync debug mode: {where}); card: {card}")
+        cal = run.calendar
+        f = prov(cal.yday, cal.sec, cal=cal, state=run.state)
+
+        def forcing(yday, sec, f=f):
+            return f
+        region = region_device_time(
+            lambda: (prov(cal.yday, cal.sec, cal=cal, state=run.state),
+                     prov.ocean_update(run.state, cal, DT)))
+        log_profile(tag, phase_device_times(run.model, run.state, forcing,
+                                            yday=cal.yday), ms,
+                    regions={"forcing": region})
+        out[key] = check_at_path_inputs(tag, run.model, run.state, forcing,
+                                        launches, card, yday=cal.yday)
+    return out
+
+
+def coupled_imports(flavor, ny, nx, n, device, dtype, ncat=5):
+    """Interval `n`'s seeded import state of a component."""
+    from cice4_tpu_torch import coupling, coupling_cm, kernel_check
+
+    a2i = coupling.A2I_FIELDS if flavor == "om" \
+        else coupling_cm.a2i_cm_fields(ncat)
+    return {"a2i": kernel_check.coupler_fields(a2i, ny, nx, 100 + n,
+                                               device=device, dtype=dtype),
+            "o2i": kernel_check.coupler_fields(coupling.O2I_FIELDS, ny, nx,
+                                               200 + n, device=device,
+                                               dtype=dtype)}
+
+
+def check_exports(tag, export):
+    for side, fields in export.items():
+        for name, v in fields.items():
+            bad = ~torch.isfinite(v)
+            if bool(bad.any()):
+                cells = torch.nonzero(bad)[:4].tolist()
+                raise AssertionError(f"{tag}: export {side} {name} is not "
+                                     f"finite on {int(bad.sum())} cells, "
+                                     f"e.g. {cells}")
+    aice = export["i2o"]["aice_io"]
+    lo, hi = float(aice.min()), float(aice.max())
+    if lo < 0.0 or hi > 1.0 + 4 * torch.finfo(aice.dtype).eps:
+        raise AssertionError(f"{tag}: aice_io outside [0, 1]: [{lo}, {hi}]")
+    return lo, hi
+
+
+def phase_coupled(device, card, workdir):
+    """Paths (m) and (n): the coupled component (`IceComponent`), f32,
+    COUPLED_INTERVALS intervals of INTERVAL_STEPS steps from seeded imports
+    with the counters; the exports finite, aice_io in [0, 1], a physical
+    state; (m) ACCESS-OM at 0.25 degree with the GFDL open-water fluxes:
+    u_star > 0 on ocean cells and carried to the next interval, its
+    sidecar read back equal, and `regrid_runoff` on the tripole mask held
+    against its CPU result (f64); (n) ACCESS-CM at 1 degree: the
+    prescribed stress in the EVP each step.  Then ms/step by CUDA events
+    over one more interval, host syncs of a step, device time by phase
+    with the coupler's exchange beside it, and each kernel against its
+    plain version at the path's inputs.  Returns {path: {kernel: ...}}."""
+    from cice4_tpu_torch import coupling, kernel_check
+    from cice4_tpu_torch.component import IceComponent
+    from cice4_tpu_torch.config import access_om_config
+    from cice4_tpu_torch.ops.runoff_regrid import regrid_runoff
+
+    out = {}
+    n = COUPLED_INTERVALS * INTERVAL_STEPS
+    for key, flavor, shape, over in (("om025", "om", ACCESS025,
+                                      ACCESS_OM025),
+                                     ("cm1", "cm", ACCESS1, ACCESS_CM)):
+        ny, nx = shape
+        cfg = access_om_config(nx=nx, ny=ny).with_values(
+            **{**over, "run.history_dir": str(workdir / "history"),
+               "run.diagfreq": 0})
+        tag = (f"({'m' if flavor == 'om' else 'n'}) ACCESS-{flavor.upper()} "
+               f"{ny}x{nx}")
+        comp = IceComponent(cfg, flavor=flavor, gfdl_surface_flux=flavor
+                            == "om", device=device,
+                            log=lambda *a: None).initialize()
+        r, bnd = comp.runner, comp._boundary
+        ocean = r.grid.tmask
+        carried = []
+        gfdl = coupling.gfdl_open_water_fluxes
+
+        def read_u_star(state, forcing, tmask, u_star_prev=None):
+            carried.append(u_star_prev)
+            return gfdl(state, forcing, tmask, u_star_prev)
+        coupling.gfdl_open_water_fluxes = read_u_star
+        try:
+            with counting_plain_calls() as plain_calls, \
+                    kernel_check.evp_stress_reads() as reads:
+                reset_counts()
+                for k in range(COUPLED_INTERVALS):
+                    before = bnd.u_star
+                    export = comp.run(coupled_imports(flavor, ny, nx, k,
+                                                      device, torch.float32),
+                                      n_steps=INTERVAL_STEPS)
+                    lo, hi = check_exports(tag, export)
+                    if flavor == "om":
+                        if carried[-1] is not before or bnd.u_star is None:
+                            raise AssertionError(f"{tag}: u_star not "
+                                                 f"carried to interval {k}")
+                        umin = float(bnd.u_star[ocean].min())
+                        if not umin > 0.0:
+                            raise AssertionError(f"{tag}: u_star {umin} on "
+                                                 f"an ocean cell")
+                torch.cuda.synchronize()
+                counts = read_counts()
+        finally:
+            coupling.gfdl_open_water_fluxes = gfdl
+        names = DEFAULT_ROUTE if flavor == "om" else DEFAULT_ROUTE[1:]
+        want = expected(**{k: n for k in names})
+        log(f"  {tag}: launches {counts}; plain versions called "
+            f"{plain_calls or 'none'}; last export aice_io in [{lo:.3g}, "
+            f"{hi:.6g}], {sum(len(v) for v in export.values())} fields "
+            f"finite")
+        if counts != want:
+            raise AssertionError(f"{tag}: launches {counts}, expected {want}")
+        if plain_calls:
+            raise AssertionError(f"{tag}: plain versions ran: {plain_calls}")
+        launches = read_counts()
+        amin, amax, n_north, n_south, umax = check_physical(r.grid, r.state,
+                                                            True)
+        dt = cfg.run.dt
+        cfl = float(torch.maximum(r.state.uvel.abs() * dt / r.grid.dxu,
+                                  r.state.vvel.abs() * dt / r.grid.dyu).max())
+        log(f"  guards clean; state finite; aice in [{amin:.3g}, "
+            f"{amax:.6g}]; icy cells north of 70N {n_north}, south of 60S "
+            f"{n_south}; max |u|,|v| {umax:.4g} m/s; largest Courant number "
+            f"|u| dt/dx {cfl:.3g} (dt {dt:.0f} s)")
+        if flavor == "om":
+            path = workdir / "u_star.npz"
+            bnd.dump(str(path))
+            back = coupling.CouplerBoundary(bnd.forcing)
+            back.load(str(path))
+            if not torch.equal(back.u_star, bnd.u_star):
+                raise AssertionError(f"{tag}: the u_star sidecar differs")
+            log(f"  {tag}: u_star carried across {COUPLED_INTERVALS} "
+                f"intervals, in [{float(bnd.u_star[ocean].min()):.4g}, "
+                f"{float(bnd.u_star.max()):.4g}] m/s on ocean cells; its "
+                f"sidecar read back equal")
+            runof = coupled_imports("om", ny, nx, 0, device,
+                                    torch.float64)["a2i"]["runof_i"]
+            got = regrid_runoff(runof, ocean)
+            want_cpu = regrid_runoff(runof.cpu(), ocean.cpu())
+            err = float((got.cpu() - want_cpu).abs().max()) \
+                / float(want_cpu.abs().max())
+            ms_rr = device_ms(lambda: regrid_runoff(runof, ocean), 5)
+            log(f"  {tag}: regrid_runoff (sigma 2, radius 8) on the tripole "
+                f"mask, f64: card vs CPU {err:.3e} of the field's scale "
+                f"(limit {RUNOFF_RTOL}), {ms_rr:.3f} ms device time a call; "
+                f"card: {card}")
+            if err > RUNOFF_RTOL:
+                raise AssertionError(f"{tag}: regrid_runoff card vs CPU "
+                                     f"{err:.3e}")
+        else:
+            check_prescribed_stress(tag, reads)
+
+        imports = coupled_imports(flavor, ny, nx, COUPLED_INTERVALS, device,
+                                  torch.float32)
+        start, end = _events()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        comp.run(imports, n_steps=INTERVAL_STEPS)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / INTERVAL_STEPS
+        host_ms = (time.perf_counter() - t0) * 1e3 / INTERVAL_STEPS
+        syncs, where = host_syncs(lambda: comp.run(imports, n_steps=1))
+        log(f"  {tag}: {ms:.3f} ms/step (CUDA events over one interval of "
+            f"{INTERVAL_STEPS} steps, the exchange included), {host_ms:.3f} "
+            f"ms/step (host clock), {ny * nx / (ms / 1e3):.4g} cell-steps/s; "
+            f"{syncs} synchronising operations in an interval of one step "
+            f"(sync debug mode: {where}); card: {card}")
+        fluxes = comp._last_fluxes
+        region = region_device_time(lambda: (comp.receive(imports),
+                                             comp.send(fluxes)))
+        f = bnd.forcing
+
+        def forcing(yday, sec, f=f):
+            return f
+        yday = r.calendar.yday
+        log_profile(tag, phase_device_times(r.model, r.state, forcing,
+                                            yday=yday), ms,
+                    regions={"coupler": region})
+        out[key] = check_at_path_inputs(tag, r.model, r.state, forcing,
+                                        launches, card, names=names,
+                                        yday=yday)
+    return out
+
+
+def compare_dicts(a, b, rtol, what):
+    """Worst |a - b| over two dicts of fields relative to each field's
+    scale in `b`."""
+    worst = 0.0
+    for name, y in b.items():
+        x = a[name]
+        scale = max(float(y.abs().max()), 1e-300)
+        err = float((x.cpu() - y.cpu()).abs().max()) / scale
+        worst = max(worst, err)
+        if err > rtol:
+            raise AssertionError(f"{what}: {name} differs by {err:.3e} of "
+                                 f"its scale (limit {rtol})")
+    return worst
+
+
+def phase_file_parity(device, over, datasets, workdir):
+    """A 24x32 f64 cut of a file-forced path through ``IceModelRun``: the
+    card against the CPU, 3 steps, on the same seeded files."""
+    from cice4_tpu_torch.driver import IceModelRun
+
+    ny, nx = SMALL["domain.ny_global"], SMALL["domain.nx_global"]
+    write_path_files(workdir, datasets, ny, nx)
+    cfg = make_config(over, **SMALL, **{
+        "forcing.atm_data_dir": str(workdir),
+        "forcing.ocn_data_dir": str(workdir),
+        "run.history_dir": str(workdir / "history"), "run.diagfreq": 0})
+    out = []
+    for dev in (device, torch.device("cpu")):
+        run = IceModelRun(cfg, dtype=torch.float64, device=dev,
+                          log=lambda line: None).initialize()
+        if not run.forcing_provider.available:
+            raise AssertionError("the parity's files were not found")
+        run.run(3)
+        out.append(run.state)
+    return compare_states(out[0], out[1], STEP_RTOL, "GPU vs CPU run")
+
+
+def phase_coupled_parity(device, flavor, over, workdir):
+    """A 24x32 f64 cut of a coupled path: the component on the card
+    against the CPU, 2 intervals of 2 steps from the same seeded imports:
+    the state and every export."""
+    from cice4_tpu_torch.component import IceComponent
+    from cice4_tpu_torch.config import access_om_config
+
+    ny, nx = SMALL["domain.ny_global"], SMALL["domain.nx_global"]
+    cfg = access_om_config(nx=nx, ny=ny).with_values(
+        **{**over, "run.history_dir": str(workdir / "history"),
+           "run.diagfreq": 0})
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        comp = IceComponent(cfg, flavor=flavor, dtype=torch.float64,
+                            gfdl_surface_flux=flavor == "om", device=dev,
+                            log=lambda *a: None).initialize()
+        exports = [comp.run(coupled_imports(flavor, ny, nx, k, dev,
+                                            torch.float64), n_steps=2)
+                   for k in range(2)]
+        runs.append((comp.runner.state, exports))
+    worst = compare_states(runs[0][0], runs[1][0], STEP_RTOL,
+                           "GPU vs CPU component")
+    for ea, eb in zip(runs[0][1], runs[1][1]):
+        for side in ("i2o", "i2a"):
+            worst = max(worst, compare_dicts(ea[side], eb[side], STEP_RTOL,
+                                             f"GPU vs CPU export {side}"))
+    return worst
+
+
+# ---------------------------------------------------------------------------
 # phase 7: timing
 # ---------------------------------------------------------------------------
 
@@ -1346,9 +1807,10 @@ def time_path(model, state, forcing, nsteps, first=NSTEPS):
     return start.elapsed_time(end) / nsteps, host_ms, ridge
 
 
-def capture_kernel_inputs(model, state, forcing, names):
-    """The arguments one step of a path passes to the wrappers of the
-    kernels `names` (the step's results are discarded)."""
+def capture_kernel_inputs(model, state, forcing, names, yday=None):
+    """The arguments one step of a path (at day `yday`, by default the
+    one after the main path's steps) passes to the wrappers of the kernels
+    `names` (the step's results are discarded)."""
     table = sites()
     by_site = {}
     for name in names:
@@ -1368,7 +1830,8 @@ def capture_kernel_inputs(model, state, forcing, names):
     for site in by_site:
         setattr(*site, recorder(site))
     try:
-        yday = YDAY0 + NSTEPS * DT / 86400.0
+        if yday is None:
+            yday = YDAY0 + NSTEPS * DT / 86400.0
         model(state, forcing(yday, 0.0), yday, 0.0)
     finally:
         for site, fn in real.items():
@@ -1777,33 +2240,65 @@ def measure_kernel(name, args, card):
     return err, ms, min(plain_ms), bound_ms, bound_by
 
 
-def phase_device_times(model, state, forcing):
-    """Device time and launches by phase of one step of a path: each phase
+def profiled(fn):
+    """(fn(), [(kernel, device ms, launches)]) of one call of `fn` between
+    synchronisations (torch.profiler, device kernels only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [(e.key, e.self_device_time_total / 1e3, e.count)
+                 for e in prof.key_averages()
+                 if "CUDA" in str(getattr(e, "device_type", ""))
+                 and getattr(e, "self_device_time_total", 0) > 0]
+
+
+def region_device_time(fn):
+    """(device ms, launches) of one call of `fn`, a region beside a step's
+    phases (the forcing's reads, the coupler's exchange)."""
+    _, rows = profiled(fn)
+    return sum(r[1] for r in rows), sum(r[2] for r in rows)
+
+
+def host_syncs(fn):
+    """The synchronising operations PyTorch reports while `fn` runs
+    (``torch.cuda.set_sync_debug_mode``: host reads of device values,
+    device-to-host copies, stream synchronisations), from its warnings:
+    (count, "file:line xN, ..." of the Python lines that made them)."""
+    import collections
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    at = collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return sum(at.values()), ", ".join(f"{k} x{n}"
+                                       for k, n in at.most_common())
+
+
+def phase_device_times(model, state, forcing, yday=None):
+    """Device time and launches by phase of one step of a path (at day
+    `yday`, by default the one after the main path's steps): each phase
     is profiled (torch.profiler, device kernels only) in a step of its
     own, between synchronisations, and the whole step once.  Returns ({phase:
     (ms, launches)}, step total ms, number of kernel kinds, top kernels,
     the step's launches) or None when the profiler saw no device time."""
     import cice4_tpu_torch.model as M
-    from torch.profiler import ProfilerActivity, profile
 
     from cice4_tpu_torch.ops import itd as itd_ops
     from cice4_tpu_torch.ops import mechred
 
-    def device_rows(prof):
-        return [(e.key, e.self_device_time_total / 1e3, e.count)
-                for e in prof.key_averages()
-                if "CUDA" in str(getattr(e, "device_type", ""))
-                and getattr(e, "self_device_time_total", 0) > 0]
-
-    def profiled(fn):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            out = fn()
-            torch.cuda.synchronize()
-        return out, device_rows(prof)
-
-    yday = YDAY0 + (NSTEPS + 1) * DT / 86400.0
+    if yday is None:
+        yday = YDAY0 + (NSTEPS + 1) * DT / 86400.0
     f = forcing(yday, 0.0)
     _, rows = profiled(lambda: model(state, f, yday, 0.0))
     if not rows:
@@ -1857,7 +2352,9 @@ def phase_device_times(model, state, forcing):
     return by_phase, total, len(rows), rows[:10], launches
 
 
-def log_profile(name, prof, ms_step):
+def log_profile(name, prof, ms_step, regions=None):
+    """The device time by phase of `phase_device_times`, and `regions`
+    ({name: (ms, launches)}) measured outside the step beside them."""
     if prof is None:
         log(f"  {name} profiler: no device time recorded (not measured)")
         return
@@ -1871,6 +2368,9 @@ def log_profile(name, prof, ms_step):
     rest_ms = total - sum(v[0] for v in by_phase.values())
     rest_n = launches - sum(v[1] for v in by_phase.values())
     log(f"    {'other':10s} {rest_ms:9.3f} ms        {rest_n:6d}")
+    for region, (ms, n) in (regions or {}).items():
+        log(f"    {region:10s} {ms:9.3f} ms          {n:6d}  (outside the "
+            f"step, beside it)")
     for key, ms, count in top:
         log(f"    {ms:9.3f} ms  x{count:5d}  {key[:90]}")
 
@@ -1884,12 +2384,12 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     card = card_line()
-    log(f"[1/15 device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
+    log(f"[1/17 device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
         f"torch {torch.__version__} CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     libs = cuda_build.load_all(LIBRARIES)
-    log(f"[2/15 build] {len(libs)} kernel libraries in "
+    log(f"[2/17 build] {len(libs)} kernel libraries in "
         f"{time.perf_counter() - t0:.2f} s wall, built in parallel")
     for name, lib in libs.items():
         log(f"  {name}: built={lib.built} nvcc {lib.seconds:.2f} s -> "
@@ -1900,12 +2400,12 @@ def main() -> int:
 
     cfg = make_config(MAIN)
     ny, nx = cfg.domain.ny_global, cfg.domain.nx_global
-    log("[3/15 kernels vs plain versions on the card]")
+    log("[3/17 kernels vs plain versions on the card]")
     model, _, _ = make_run(cfg, device, torch.float32)
     check_newton(model.thermo, device)
     check_dynamics_kernels(device)
 
-    log(f"[4/15 gx1 main path] gx1 default step {ny}x{nx}, ncat "
+    log(f"[4/17 gx1 main path] gx1 default step {ny}x{nx}, ncat "
         f"{cfg.domain.ncat}, nilyr {cfg.domain.nilyr}, nslyr "
         f"{cfg.domain.nslyr}, ndte {cfg.dynamics.ndte}, advection "
         f"{cfg.transport.advection}, f32, {NSTEPS} steps of {DT:.0f} s")
@@ -1917,7 +2417,7 @@ def main() -> int:
     log(f"  ridge iterations per step: {ridge} (cap 20; "
         f"{sum(r == 20 for r in ridge)} steps at the cap)")
 
-    log(f"[5/15 earlier path] gx1 thermodynamics only, f32, {THERMO_STEPS} "
+    log(f"[5/17 earlier path] gx1 thermodynamics only, f32, {THERMO_STEPS} "
         f"steps")
     thermo_run = drive_path(
         "thermo-only path", make_config(THERMO_ONLY), device, THERMO_STEPS,
@@ -1926,7 +2426,7 @@ def main() -> int:
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         bcfg = box_config()
-        log(f"[6/15 box path] IceModelRun, doubly-periodic box "
+        log(f"[6/17 box path] IceModelRun, doubly-periodic box "
             f"{bcfg.domain.ny_global}x{bcfg.domain.nx_global} ("
             f"{bcfg.grid.dx_rect / 1e3:.0f} km cells from "
             f"{bcfg.grid.lat_origin}N), EW {bcfg.domain.ew_boundary_type} NS "
@@ -1936,14 +2436,14 @@ def main() -> int:
         box_run, launches["box"], driver_step_ms = phase_box_driver(
             device, workdir / "box")
 
-        log(f"[7/15 split route] the box, {SPLIT_STEPS} steps with "
+        log(f"[7/17 split route] the box, {SPLIT_STEPS} steps with "
             f"CICE4_FORCE_PALLAS_REMAP=1 (K0 in GA mode, K1, K2)")
         launches["split"], worst_split = phase_split_route(device)
         log(f"  split vs default route after {SPLIT_STEPS} steps: worst "
             f"difference {worst_split:.3e} of the field's scale (limit "
             f"{SPLIT_RTOL})")
 
-        log(f"[8/15 CLI] python -m cice4_tpu_torch run, the box cut to "
+        log(f"[8/17 CLI] python -m cice4_tpu_torch run, the box cut to "
             f"{BOX_CLI['domain.ny_global']}x{BOX_CLI['domain.nx_global']}, "
             f"{CLI_STEPS} steps")
         (workdir / "cli").mkdir()
@@ -1951,18 +2451,18 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    log(f"[9/15 ACCESS-OM2 tripole] {ACCESS025[0]}x{ACCESS025[1]} (0.25 "
+    log(f"[9/17 ACCESS-OM2 tripole] {ACCESS025[0]}x{ACCESS025[1]} (0.25 "
         f"degree) and {ACCESS1[0]}x{ACCESS1[1]} (1 degree), f32, analytic "
         f"forcing from day {YDAY0:.0f}; card: {card}")
     access = phase_access(device, card, ACCESS025, detail=True)
     phase_access(device, card, ACCESS1, detail=False)
 
-    log(f"[10/15 dEdd path] gx1 {ny}x{nx} with delta-Eddington shortwave "
+    log(f"[10/17 dEdd path] gx1 {ny}x{nx} with delta-Eddington shortwave "
         f"and melt ponds, f32, {DEDD_STEPS} steps from day {YDAY0:.0f} from "
         f"the ponded state; card: {card}")
     dedd = phase_dedd(device, card)
 
-    log(f"[11/15 coupled path] gx1 {ny}x{nx} with the coupled radiation "
+    log(f"[11/17 coupled path] gx1 {ny}x{nx} with the coupled radiation "
         f"order, constant albedos, atmbndy='constant' and kitd=0, f32, "
         f"{COUPLED_STEPS} steps")
     _, cstate, _, _, _ = drive_path(
@@ -1977,14 +2477,14 @@ def main() -> int:
     log(f"  coupled path: shortwave carried to the next step, fswsfcn max "
         f"{carried:.4g} W/m^2")
 
-    log(f"[12/15 transport options] gx1 {ny}x{nx}, f32, {OPT_STEPS} steps a "
+    log(f"[12/17 transport options] gx1 {ny}x{nx}, f32, {OPT_STEPS} steps a "
         f"path from day {YDAY0:.0f}: (a) l_dp_midpt with the conservation "
         f"and monotonicity checks, (b) l_fixed_area, (c) upwind; (d) the "
         f"box on the split route with l_dp_midpt, {SPLIT_MIDPT_STEPS} steps; "
         f"card: {card}")
     options = phase_transport_options(device, card)
 
-    log(f"[13/15 thermo and grid variants] gx1 {ny}x{nx}, f32, {OPT_STEPS} "
+    log(f"[13/17 thermo and grid variants] gx1 {ny}x{nx}, f32, {OPT_STEPS} "
         f"steps a path: (e) heat_capacity=False, (f) calc_Tsfc=False, (g) "
         f"both; (h) a POP binary grid, (i) the same as netCDF, (j) a "
         f"pan-Arctic grid; card: {card}")
@@ -1994,7 +2494,30 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    log("[14/15 small parity] 24x32 f64, card vs CPU, 3 steps")
+    log(f"[14/17 file forcing] gx1 {ny}x{nx}, f32, IceModelRun from 1 "
+        f"January 1997 under seeded files in the reference's layout, "
+        f"{FILE_STEPS} steps a path: (k) NCAR with the ocean climatology "
+        f"and SST restoring, (l) monthly with calc_strair=False; card: "
+        f"{card}")
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_forcing_"))
+    try:
+        filed = phase_file_forced(device, card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    log(f"[15/17 coupled component] IceComponent, f32, "
+        f"{COUPLED_INTERVALS} intervals of {INTERVAL_STEPS} steps from seeded "
+        f"imports: (m) ACCESS-OM {ACCESS025[0]}x{ACCESS025[1]} with the GFDL "
+        f"open-water fluxes, dt {ACCESS_OM025['run.dt']:.0f} s, (n) "
+        f"ACCESS-CM {ACCESS1[0]}x{ACCESS1[1]} with calc_Tsfc=False; card: "
+        f"{card}")
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_coupled_"))
+    try:
+        coupled = phase_coupled(device, card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    log("[16/17 small parity] 24x32 f64, card vs CPU, 3 steps")
     from cice4_tpu_torch.kernel_check import ponded_state
     for name, pcfg, prepare in (
             ("gx1 main path", make_config(MAIN, **SMALL), None),
@@ -2010,8 +2533,28 @@ def main() -> int:
         worst = phase_small_parity(device, pcfg, prepare)
         log(f"  {name}: worst difference {worst:.3e} of the field's scale "
             f"(limit {STEP_RTOL})")
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_parity_"))
+    try:
+        for name, fn in (
+                ("(k) NCAR files, ocean climatology, IceModelRun",
+                 lambda d: phase_file_parity(device, NCAR_CLIM,
+                                             ("ncar", "ocean"), d)),
+                ("(l) monthly files, calc_strair=False, IceModelRun",
+                 lambda d: phase_file_parity(device, MONTHLY_STRESS,
+                                             ("monthly",), d)),
+                ("(m) ACCESS-OM component with GFDL, 2 intervals",
+                 lambda d: phase_coupled_parity(device, "om", {}, d)),
+                ("(n) ACCESS-CM component, 2 intervals",
+                 lambda d: phase_coupled_parity(device, "cm", ACCESS_CM, d))):
+            d = workdir / name[1]
+            d.mkdir()
+            worst = fn(d)
+            log(f"  {name}: worst difference {worst:.3e} of the field's "
+                f"scale (limit {STEP_RTOL})")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
-    log(f"[15/15 timing] card: {card}")
+    log(f"[17/17 timing] card: {card}")
     ms_ev, ms_host, ridge_t = time_path(model, state, forcing, 8)
     log(f"  gx1 main path: {ms_ev:.3f} ms/step (CUDA events, 8 steps after "
         f"{NSTEPS}), {ms_host:.3f} ms/step (host clock), "
@@ -2070,7 +2613,11 @@ def main() -> int:
                  "library_ms": None, "path": path}
         for key, at in (("access025", access), ("dedd", dedd),
                         ("midpt", options["midpt"]),
-                        ("fixed_area", options["fixed_area"])):
+                        ("fixed_area", options["fixed_area"]),
+                        ("ncar_clim", filed["ncar_clim"]),
+                        ("monthly", filed["monthly"]),
+                        ("om025", coupled["om025"]),
+                        ("cm1", coupled["cm1"])):
             if name in at:
                 (entry[f"{key}_launches"], entry[f"{key}_ms"],
                  entry[f"{key}_bound_ms"], entry[f"{key}_max_abs_err"]) = \

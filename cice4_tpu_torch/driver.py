@@ -7,7 +7,8 @@ state and forcing on a device, owns the model clock, steps `Model.forward`
 eagerly (the JAX package jits its step), emits diagnostics every
 `diagfreq` steps, accumulates history means, and writes restart dumps on
 `dumpfreq`.  A run with ``run.runtype="continue"`` resumes from the
-restart the pointer file names, which may come from either package.
+restart the pointer file names, which may come from either package.  With
+an ocean climatology the initial SST is the climatology's.
 """
 
 from __future__ import annotations
@@ -80,6 +81,13 @@ class IceModelRun:
                                         device=dev, dtype=dtype)
             self._points = (find_points(self.grid, cfg.run.latpnt_lonpnt)
                             if cfg.run.print_points else None)
+            # initial ocean fields from climatology (init_forcing_ocn)
+            ocn = getattr(self.forcing_provider, "ocn", None)
+            if ocn is not None and ocn.available \
+                    and cfg.run.runtype != "continue" and state is None:
+                _sss0, _tf0, sst0 = ocn.initial_fields(self.calendar.month)
+                if sst0 is not None:
+                    self.state = self.state.replace(sst=sst0)
             # regional ice restoring toward the initial state
             # (ice_restoring.F90; restore_ice flag)
             self._restore = None

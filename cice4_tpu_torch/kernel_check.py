@@ -2,7 +2,8 @@
 CUDA kernels, shared by ``chip_smoke.py`` and the GPU tests: the Newton
 temperature solve first, the dynamics kernels (EVP, remap K0 in both
 modes, K12, K1 and K2) after it, and at the end of the module writers of
-grid files in the reference's layouts, which the grid loaders read.
+grid and forcing files in the reference's layouts, which the grid loaders
+and the forcing readers read, and the coupler's seeded import fields.
 
 The inputs follow the JAX package's own kernel test
 (``tests/test_thermo.py::test_pallas_thermo_matches_jnp``): ice only in
@@ -25,6 +26,8 @@ Tolerances, fixed before the first run on the card:
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -363,3 +366,182 @@ def write_panarctic_grid(path, rec: dict, kmt) -> str:
     np.stack([np.asarray(kmt, dtype=np.float64)]
              + _pop_records(rec)).astype(">f8").tofile(path)
     return str(path)
+
+
+# ---------------------------------------------------------------------------
+# forcing files and coupler fields
+# ---------------------------------------------------------------------------
+
+# (low, high) of the seeded values of each file field (`_smooth`); they cover
+# the clamps of prepare_forcing (cloud fraction outside [0, 1], negative
+# precipitation and shortwave), humidities above saturation (Qa_fixLY)
+# and air temperatures on both sides of freezing (the rain/snow split)
+FORCING_RANGES = {
+    "swdn": (-20.0, 300.0), "cldf": (-0.1, 1.1), "prec": (-5.0, 100.0),
+    "u_10": (-8.0, 8.0), "v_10": (-8.0, 8.0), "t_10": (240.0, 280.0),
+    "q_10": (1.0e-4, 4.0e-3), "dn10": (1.2, 1.4), "tair": (240.0, 280.0),
+    "qa": (1.0e-4, 4.0e-3), "strax": (-0.1, 0.1), "stray": (-0.1, 0.1),
+    "wind": (0.0, 12.0), "sol": (-20.0, 300.0), "flo": (150.0, 320.0),
+    "ucmp": (-8.0, 8.0), "vcmp": (-8.0, 8.0), "rhoa": (1.2, 1.4),
+    "rain": (-1.0e-6, 5.0e-5), "snow": (-1.0e-6, 5.0e-5),
+    "fsw": (-20.0, 300.0), "flw": (150.0, 320.0),
+    "sss": (30.0, 36.0), "sst": (-2.0, 5.0),
+}
+# precipitation of the datasets that read it in mm/s
+PREC_MM_PER_SEC = (-1.0e-6, 5.0e-5)
+# the columns of the rct dataset (hourly Barrow met, one point)
+RCT_RANGES = {"Tair": (240.0, 280.0), "Uatm": (-10.0, 10.0),
+              "Vatm": (-10.0, 10.0), "fsw": (-20.0, 300.0),
+              "rh": (60.0, 100.0)}
+
+
+def _uniform(rng, name, shape, ranges=FORCING_RANGES):
+    lo, hi = ranges[name]
+    return lo + (hi - lo) * rng.random(shape)
+
+
+def _smooth(rng, name, shape, ranges=FORCING_RANGES):
+    """Seeded (nrec, ny, nx) records over the field's range: per record,
+    three plane waves of 1-3 periods across the grid with random phases
+    (large-scale weather, so that winds and stresses drive a plausible
+    drift), plus 10% of white noise."""
+    nrec, ny, nx = shape
+    lo, hi = ranges[name]
+    k = rng.integers(1, 4, size=(2, nrec, 3, 1, 1))
+    phase = rng.uniform(0.0, 2.0 * np.pi, (nrec, 3, 1, 1))
+    y = np.arange(ny)[:, None] / ny
+    x = np.arange(nx)[None, :] / nx
+    waves = np.sin(2.0 * np.pi * (k[0] * x + k[1] * y) + phase).sum(1)
+    unit = 0.9 * (waves + 3.0) / 6.0 + 0.1 * rng.random(shape)
+    return lo + (hi - lo) * unit
+
+
+def write_forcing_files(directory, dataset: str, ny: int, nx: int, *,
+                        years=(1997,), seed: int = 0, records_6h: int = 1460,
+                        records_hour: int = 48) -> list:
+    """Seeded files of an atmosphere dataset of
+    ``io.forcing_data._ATM_DATASETS`` (``"bin"`` is ``"ncar"``), or of the
+    ocean climatology (``"ocean"``: ``sss``/``sst`` with 12 records), in
+    the reference's layout (each dataset's ``LAYOUT``) under `directory`,
+    as the readers read them: big-endian float64 records of the whole
+    grid, or netCDF (hadgem; rct's columns).  Yearly files for each of
+    `years`; the 6-hourly ones hold the first `records_6h` records (1460
+    a year).  Returns the paths written."""
+    import os
+
+    from cice4_tpu_torch.io import forcing_data as fd
+
+    rng = np.random.default_rng(seed)
+    out = []
+
+    def rda8(path, records):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.asarray(records, ">f8").tofile(path)
+        out.append(path)
+
+    def nc(path, dims, variables):
+        from scipy.io import netcdf_file
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with netcdf_file(path, "w") as f:
+            for name, size in dims:
+                f.createDimension(name, size)
+            for var, data in variables.items():
+                f.createVariable(var, "d", tuple(n for n, _ in dims))[:] = \
+                    data
+        out.append(path)
+
+    if dataset == "ocean":
+        for stem in ("sss", "sst"):
+            rda8(os.path.join(directory, f"{stem}.mm.{nx}x{ny}.da"),
+                 _smooth(rng, stem, (12, ny, nx)))
+        return out
+    if dataset == "rct":
+        for fname, names in ((fd.RctForcing.MET_FILE, ("Tair", "Uatm",
+                                                       "Vatm")),
+                             (fd.RctForcing.SOLAR_FILE, ("fsw",)),
+                             (fd.RctForcing.RH_FILE, ("rh",))):
+            nc(os.path.join(directory, fname),
+               (("time", records_hour), ("ni", 1)),
+               {n: _uniform(rng, n, (records_hour, 1), RCT_RANGES)
+                for n in names})
+        return out
+    cls = fd._ATM_DATASETS[dataset]
+    if dataset == "hadgem":
+        for name, (var, _stem) in cls.NC_FIELDS.items():
+            for year in years:
+                nc(os.path.join(directory,
+                                cls.LAYOUT[name][1].format(year=year)),
+                   (("time", 12), ("nj", ny), ("ni", nx)),
+                   {var: _smooth(rng, name, (12, ny, nx))})
+        return out
+    mm_per_sec = dataset in ("LYq", "monthly")
+    for name, (cadence, tmpl) in cls.LAYOUT.items():
+        nrec = {"6h": records_6h, "day": 365}.get(cadence, 12)
+        ranges = {**FORCING_RANGES, "prec": PREC_MM_PER_SEC} if mm_per_sec \
+            else FORCING_RANGES
+        for year in (years if "{year}" in tmpl else years[:1]):
+            rda8(os.path.join(directory, tmpl.format(year=year)),
+                 _smooth(rng, name, (nrec, ny, nx), ranges))
+    return out
+
+
+def coupler_fields(names, ny: int, nx: int, seed: int, *, device,
+                   dtype=torch.float64) -> dict:
+    """Seeded import fields of the ACCESS coupling (`names` from
+    ``coupling.A2I_FIELDS``/``O2I_FIELDS`` or
+    ``coupling_cm.a2i_cm_fields``): large-scale patterns (`_smooth`) over
+    ranges around the values of the JAX package's coupled tests
+    (``tests/test_coupling.py:144-270``: warm moist air, a 6 m/s wind, a
+    resting ocean at 1 C).  The ocean currents stay within 0.05 m/s: the
+    synthetic lat-lon grid of ``access_om_config`` narrows to 640 m near
+    its top row at 0.25 degree, which 0.2 m/s crosses in an hour (the
+    remap's CFL limit).  Unknown names are 0."""
+    rng = np.random.default_rng(seed)
+    ranges = {
+        "tair_i": (262.0, 282.0), "qair_i": (1.0e-3, 4.0e-3),
+        "lwfld_i": (250.0, 320.0), "swfld_i": (50.0, 150.0),
+        "uwnd_i": (2.0, 10.0), "vwnd_i": (-6.0, 2.0),
+        "press_i": (1.0e5, 1.026e5), "rain_i": (0.0, 2.0e-5),
+        "snow_i": (0.0, 2.0e-5), "runof_i": (0.0, 1.0e-4),
+        "sst_i": (-1.8, 2.0), "sss_i": (33.0, 35.0),
+        "ssu_i": (-0.05, 0.05), "ssv_i": (-0.05, 0.05),
+        "sslx_i": (-1.0e-7, 1.0e-7), "ssly_i": (-1.0e-7, 1.0e-7),
+        "pfmice_i": (-20.0, 5.0), "lhflx_i": (-20.0, 0.0),
+        "taux_i": (-0.1, 0.2), "tauy_i": (-0.15, 0.15),
+    }
+    out = {}
+    for name in names:
+        if name.startswith("tmlt"):
+            lo, hi = -5.0, 5.0
+        elif name.startswith("bmlt"):
+            lo, hi = -3.0, 1.0
+        else:
+            lo, hi = ranges.get(name, (0.0, 0.0))
+        v = _smooth(rng, "field", (1, ny, nx), {"field": (lo, hi)})[0]
+        out[name] = torch.from_numpy(v).to(device=device, dtype=dtype)
+    return out
+
+
+@contextlib.contextmanager
+def evp_stress_reads():
+    """[forcing, stress x, stress y] of each model step while the block
+    runs: the step's forcing and the air stress its EVP reads, to show
+    that under ``calc_strair=False`` the EVP takes the forcing's
+    prescribed stress."""
+    from cice4_tpu_torch import model as M
+
+    seen = []
+    step, evp = M.ice_step, M.evp
+
+    def ice_step(model, state, grid, f, *a, **k):
+        seen.append([f])
+        return step(model, state, grid, f, *a, **k)
+
+    def read_evp(*a, **k):
+        seen[-1].extend(a[-2:])
+        return evp(*a, **k)
+    M.ice_step, M.evp = ice_step, read_evp
+    try:
+        yield seen
+    finally:
+        M.ice_step, M.evp = step, evp

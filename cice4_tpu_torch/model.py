@@ -242,6 +242,13 @@ def _step_therm1(model: Model, state: State, grid: Grid, f: Forcing,
     merged["fbot"] = fbot
     merged["frzmlt_init"] = state.frzmlt
     merged["aice_init"] = aicen_init.sum(0)
+    if not cfg.thermo.calc_strair and f.strax is not None:
+        # calc_strair=F with a prescribed stress (the monthly dataset,
+        # ACCESS-CM): the boundary layer returned zero stress; the EVP
+        # takes the forcing's, already rotated and aice-weighted
+        # (ice_dyn_evp.F90:255-277)
+        merged["strairxT"] = f.strax
+        merged["strairyT"] = f.stray
     for name, per_ice in [("fsurfn_ai", "fsurfn"),
                           ("fcondtopn_ai", "fcondtopn"),
                           ("flatn_ai", "flatn")]:

@@ -91,6 +91,9 @@ def test_port_imports_no_jax():
         import cice4_tpu_torch.io.restart, cice4_tpu_torch.ops.restoring
         import cice4_tpu_torch.ops.shortwave_dedd, cice4_tpu_torch.ops.meltpond
         import cice4_tpu_torch.ops._dedd_tables, cice4_tpu_torch.ops.transport
+        import cice4_tpu_torch.io.dump_field, cice4_tpu_torch.ops.gfdl_flux
+        import cice4_tpu_torch.ops.runoff_regrid, cice4_tpu_torch.coupling
+        import cice4_tpu_torch.coupling_cm, cice4_tpu_torch.component
         import chip_smoke
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "cice4_tpu."))

@@ -700,3 +700,146 @@ def test_option_step_launches_its_kernels(cuda_device, name, monkeypatch):
         {k: 2 * v for k, v in per_step.items()}
     assert bool(torch.isfinite(state.aicen).all())
     assert 0.0 < float(state.uvel.abs().max()) < 2.0
+
+
+def _refuse_plain_versions(monkeypatch):
+    from cice4_tpu_torch.ops import evp_cuda, remap_cuda
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card's path")
+
+    for mod, attr in ((tv, "_temperature_changes_core"),
+                      (evp_cuda, "_evp_subcycle_plain"),
+                      (remap_cuda, "ga_gsh_plain"),
+                      (remap_cuda, "k12_plain")):
+        monkeypatch.setattr(mod, attr, refuse)
+
+
+def _wrappers():
+    from cice4_tpu_torch.ops import evp_cuda, remap_cuda
+    return {"therm_newton": tv.temperature_changes,
+            "evp": evp_cuda.evp_subcycle, "gsh": remap_cuda.ga_gsh,
+            "k12": remap_cuda.k12_divergence}
+
+
+# the file-forced runs of chip_smoke.py's paths (k) and (l) at 24x32:
+# (config overrides, the datasets whose files they read)
+FILE_PATHS = {
+    "ncar_ocean_climatology": (
+        {"forcing.atm_data_type": "ncar", "forcing.sss_data_type": "clim",
+         "forcing.sst_data_type": "clim", "forcing.restore_sst": True},
+        ("ncar", "ocean")),
+    "monthly_calc_strair_false": (
+        {"forcing.atm_data_type": "monthly", "thermo.calc_strair": False},
+        ("monthly",)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(FILE_PATHS))
+def test_file_forced_run_launches_every_kernel(cuda_device, name,
+                                               monkeypatch, tmp_path):
+    """Two steps of `IceModelRun` on the 24x32 gx1 cut under seeded files:
+    the files found, each of the four kernels of the default route once a
+    step and no plain version; under the monthly dataset the EVP reads
+    its prescribed stress bit for bit."""
+    from cice4_tpu_torch.driver import IceModelRun
+
+    _refuse_plain_versions(monkeypatch)
+    over, datasets = FILE_PATHS[name]
+    for seed, ds in enumerate(datasets):
+        kernel_check.write_forcing_files(tmp_path, ds, 24, 32, seed=seed,
+                                         records_6h=4)
+    cfg = gx1_config().with_values(**{
+        "grid.kmt_file": "", "domain.ny_global": 24, "domain.nx_global": 32,
+        "forcing.atm_data_dir": str(tmp_path),
+        "forcing.ocn_data_dir": str(tmp_path),
+        "run.history_dir": str(tmp_path / "history"), "run.diagfreq": 0,
+        **over})
+    run = IceModelRun(cfg, device=cuda_device, log=lambda line: None)
+    run.initialize()
+    assert run.forcing_provider.available
+    wrappers = _wrappers()
+    before = {k: w.launches for k, w in wrappers.items()}
+    with kernel_check.evp_stress_reads() as reads:
+        run.run(2)
+    torch.cuda.synchronize()
+    assert {k: w.launches - before[k] for k, w in wrappers.items()} == \
+        {k: 2 for k in wrappers}
+    assert bool(torch.isfinite(run.state.aicen).all())
+    assert bool(torch.isfinite(run.state.sst).all())
+    # the monthly stress is not weighted by the ice area (chip_smoke.py
+    # check_free_drift): marginal ice drifts freely, so bound the pack's
+    pack = run.state.aicen.sum(0) >= 0.5
+    assert 0.0 < float(run.state.uvel[pack].abs().max()) < 2.0
+    if "calc_strair" in name:
+        assert len(reads) == 2
+        for f, sx, sy in reads:
+            assert torch.equal(sx, f.strax) and torch.equal(sy, f.stray)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flavor", ["om", "cm"])
+def test_component_launches_its_kernels(cuda_device, flavor, monkeypatch):
+    """Two coupling intervals of one step of `IceComponent` on the 24x32
+    ACCESS grid from seeded imports: ACCESS-OM (GFDL open-water fluxes)
+    launches the four kernels of the default route once a step, ACCESS-CM
+    (calc_Tsfc=False) all but therm_newton; no plain version; the exports
+    finite; under ACCESS-CM the EVP reads the UM's stress."""
+    from cice4_tpu_torch import coupling, coupling_cm
+    from cice4_tpu_torch.component import IceComponent
+    from cice4_tpu_torch.config import access_om_config
+
+    _refuse_plain_versions(monkeypatch)
+    over = {} if flavor == "om" else {"thermo.calc_Tsfc": False,
+                                      "thermo.calc_strair": False}
+    cfg = access_om_config(nx=32, ny=24).with_values(**over)
+    comp = IceComponent(cfg, flavor=flavor, gfdl_surface_flux=flavor == "om",
+                        device=cuda_device, log=lambda *a: None).initialize()
+    a2i = coupling.A2I_FIELDS if flavor == "om" \
+        else coupling_cm.a2i_cm_fields(comp.runner.state.aicen.shape[0])
+    wrappers = _wrappers()
+    before = {k: w.launches for k, w in wrappers.items()}
+    with kernel_check.evp_stress_reads() as reads:
+        for n in range(2):
+            imports = {
+                "a2i": kernel_check.coupler_fields(
+                    a2i, 24, 32, n, device=cuda_device, dtype=torch.float32),
+                "o2i": kernel_check.coupler_fields(
+                    coupling.O2I_FIELDS, 24, 32, 10 + n, device=cuda_device,
+                    dtype=torch.float32)}
+            export = comp.run(imports, n_steps=1)
+            for side in export.values():
+                for k, v in side.items():
+                    assert bool(torch.isfinite(v).all()), k
+    torch.cuda.synchronize()
+    want = {k: 2 for k in wrappers}
+    if flavor == "cm":
+        want["therm_newton"] = 0
+        for f, sx, sy in reads:
+            assert torch.equal(sx, f.strax) and torch.equal(sy, f.stray)
+    else:
+        assert float(comp._boundary.u_star[comp.runner.grid.tmask].min()) > 0
+    assert {k: w.launches - before[k] for k, w in wrappers.items()} == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
+                                        (torch.float32, 1e-5)])
+def test_regrid_runoff_matches_the_cpu(cuda_device, dtype, rtol):
+    """The masked runoff filter (one conv2d per sum, no TF32) on the card
+    against the CPU, on a 120x144 field whose edges differ: in f64 to
+    1e-12 of the field's scale, in f32 to 1e-5 (sums of 289 terms in
+    another order)."""
+    import numpy as np
+
+    from cice4_tpu_torch.ops.runoff_regrid import regrid_runoff
+
+    rng = np.random.default_rng(3)
+    runof = torch.from_numpy(rng.uniform(0.0, 1e-4, (120, 144))).to(dtype)
+    runof[0] += 5e-3
+    runof[:, -1] += 2e-3
+    mask = torch.from_numpy(rng.random((120, 144)) > 0.3)
+    want = regrid_runoff(runof, mask)
+    got = regrid_runoff(runof.to(cuda_device), mask.to(cuda_device)).cpu()
+    assert float((got - want).abs().max()) <= rtol * float(want.abs().max())

@@ -337,33 +337,46 @@ def test_cli_without_a_card_exits_nonzero(tmp_path):
 
 
 def test_forcing_provider_falls_back_or_raises(tmp_path):
+    from cice4_tpu_torch import kernel_check
     from cice4_tpu_torch.grid import make_grid
 
     cfg = TConfig().with_values(**BOX)
     grid = make_grid(cfg, device=CPU, dtype=F64)
-    # no data directory, or one that does not exist: the analytic forcing
-    for kind in ("analytic", "ncar", "LYq", "ecmwf", "hadgem", "rct"):
-        for d in ("", str(tmp_path / "absent")):
+    analytic = tforcing.AnalyticForcing(cfg, grid, device=CPU,
+                                        dtype=F64)(80.0, 0.0)
+    # no data directory, one that does not exist, or one without the
+    # dataset's files: the dataset's reader, unavailable, gives the
+    # analytic forcing (the JAX package's fallback)
+    for kind in ("ncar", "LYq", "monthly", "ecmwf", "hadgem", "rct"):
+        for d in ("", str(tmp_path / "absent"), str(tmp_path)):
             c = cfg.with_values(**{"forcing.atm_data_type": kind,
                                    "forcing.atm_data_dir": d})
             prov = tforcing.make_forcing_provider(c, grid, device=CPU,
                                                   dtype=F64)
-            assert isinstance(prov, tforcing.AnalyticForcing), (kind, d)
-    # a file dataset's directory exists: its reader is not ported
-    for kind in ("ncar", "monthly", "rct"):
-        c = cfg.with_values(**{"forcing.atm_data_type": kind,
-                               "forcing.atm_data_dir": str(tmp_path)})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tforcing.make_forcing_provider(c, grid, device=CPU, dtype=F64)
+            assert type(prov) is tforcing._ATM_DATASETS[kind], (kind, d)
+            assert not prov.available
+            f = prov(80.0, 0.0)
+            assert torch.equal(f.Tair, analytic.Tair), (kind, d)
     # the analytic forcing ignores a data directory
     c = cfg.with_values(**{"forcing.atm_data_dir": str(tmp_path)})
     assert isinstance(tforcing.make_forcing_provider(c, grid, device=CPU,
                                                      dtype=F64),
                       tforcing.AnalyticForcing)
+    # an ocean climatology's directory without its files: no climatology
     c = cfg.with_values(**{"forcing.sss_data_type": "clim",
                            "forcing.ocn_data_dir": str(tmp_path)})
-    with pytest.raises(NotImplementedError, match="ocean climatology"):
-        tforcing.make_forcing_provider(c, grid, device=CPU, dtype=F64)
+    assert isinstance(tforcing.make_forcing_provider(c, grid, device=CPU,
+                                                     dtype=F64),
+                      tforcing.AnalyticForcing)
+    # a dataset whose record is cut short raises
+    kernel_check.write_forcing_files(tmp_path / "ncar", "ncar", 24, 32,
+                                     records_6h=1)
+    c = cfg.with_values(**{"forcing.atm_data_type": "ncar",
+                           "forcing.atm_data_dir": str(tmp_path / "ncar")})
+    prov = tforcing.make_forcing_provider(c, grid, device=CPU, dtype=F64)
+    assert prov.available
+    with pytest.raises(EOFError, match="truncated"):
+        prov(2.0, 0.0)
 
 
 def test_restoring_and_corners_match_jax(runs):
