@@ -17,7 +17,10 @@ versions:
 * ``remap_k12`` (``csrc/remap_k12.cu``), the reconstruction and
   contraction of the default route;
 * ``remap_construct`` and ``remap_contract`` (``csrc/remap_k1k2.cu``),
-  K1 and K2 of the split route.
+  K1 and K2 of the split route;
+* ``evp_rounds``, the EVP kernel in its round mode: k gated subcycles
+  and no final one on a padded block of a decomposed grid, doubly cyclic
+  to the kernel (the whole-grid TPU kernel's mode).
 
 The paths: the default gx1 step (``gx1_config()`` on the spherical
 lat-lon grid without a land-mask file, f32, 320x384, 5 categories, 4 ice
@@ -62,7 +65,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
    the tripole and tripoleT folds on the all-ocean grid (remap_gsh at
    quadrature orders 1-3), where the split route's kernels must refuse
    the fold;
-4. gx1 main path: 24 one-hour steps with the analytic forcing; each of
+4. gx1 main path: 12 one-hour steps with the analytic forcing; each of
    the four kernels of the default route launches once per step and no
    plain version runs; no conservation guard fires; the state is finite, 0 <= aice <= 1, with
    ice north of 70N and south of 60S and 0 < max|u| < 2 m/s;
@@ -108,7 +111,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
     its plain version at its inputs; (c) upwind transport (therm_newton
     and evp_subcycle, no remap kernel); (d) 2 box steps on the split
     route with ``l_dp_midpt`` (K0 in GA mode, K1 and K2 once a step);
-13. thermo and grid variants at gx1, f32, 8 steps each with its launches
+13. thermo and grid variants at gx1, f32, 4 steps each with its launches
     and no plain version, ms/step and device time by phase: (e)
     ``heat_capacity=False``, (f) ``calc_Tsfc=False`` with the explicit
     surface scheme, (g) both (evp_subcycle, remap_gsh and remap_k12 once a
@@ -146,7 +149,25 @@ Phases, each of which ends the run with a non-zero exit on failure:
     ms/step, synchronising operations, device time by phase with the
     coupler's exchange beside it, and each kernel held against its plain
     version at its inputs;
-16. small parity: 24x32 f64 cuts of the gx1 path, of the box, of the
+16. the decomposed model (``parallel/``, ``ops/evp_sharded.py``), f32:
+    (o) gx1 at 320x384 on 2x2 blocks of 192x160 in one process (one
+    thread a block), 3 steps with the counters (a block's step launches
+    therm_newton, remap_gsh and remap_k12 once and the EVP kernel once in
+    each of its 12 k-halo rounds and once for the final subcycle, and no
+    plain version; no phase is gathered), each step's state held against
+    the one-device step's within ``kernel_check.DECOMP_RTOL`` (and whether
+    it is bit-equal logged), then ms/step and the device time and
+    launches of a step beside the one-device step's, the EVP kernel's
+    share apart; (p) ACCESS-OM2 at 360x300 on 2x2 blocks, 2 steps: the
+    U-fold exchanged into the EVP rounds, the remap gathered on every
+    block and counted, against one device; (q) ``python -m
+    cice4_tpu_torch.parallel.launch`` as 2 processes over gloo (1x2
+    blocks, the strips staged through pinned host buffers), 2 gx1 steps,
+    the gathered state against the one-device steps and the sharded
+    restart read back, then as 1 process over nccl (one block), bit-equal
+    to one device; (r) 24x32 f64 cuts (gx1, the all-ocean U-fold) on 2x2
+    blocks, the card against the CPU after 3 steps;
+17. small parity: 24x32 f64 cuts of the gx1 path, of the box, of the
    box with a U-fold (all with the damped EVP, as the tier-1 tests run
    it), of the two gx1 option paths of phases 10 and 11, of the three
    whole-step option sets of tier-1 (the four remap options; upwind
@@ -154,7 +175,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
    (through ``IceModelRun`` or ``IceComponent``, the exports compared
    too) on the card agree with the CPU path (which the tier-1 tests hold
    against the JAX package) after 3 steps (2 intervals of 2);
-17. timing: ms/step and cell-steps/s of the gx1 and box paths, device
+18. timing: ms/step and cell-steps/s of the gx1 and box paths, device
     time by phase (the box also on the split remap route), and each
     kernel against its plain version at the inputs its path gives it,
     beside the least time the card could take;
@@ -182,6 +203,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -193,6 +215,7 @@ import numpy as np
 import torch
 
 NSTEPS = 24
+MAIN_STEPS = 12
 THERMO_STEPS = 4
 SPLIT_STEPS = 4
 CLI_STEPS = 2
@@ -250,6 +273,7 @@ COUPLED_STEPS = 4
 # netCDF, and (j) a pan-Arctic grid, its land mask in the file
 OPT_STEPS = 8
 OPT_TIMED = 4
+VARIANT_STEPS = 4
 SPLIT_MIDPT_STEPS = 2
 MIDPT_CHECKS = {"grid.kmt_file": "", "transport.l_dp_midpt": True,
                 "transport.conservation_check": True,
@@ -306,6 +330,19 @@ FREE_DRIFT_LIMIT = 2.0  # m/s, ice covering half of its cell or more
 CLOSURE_RTOL = 1.0e-5
 STEP_RTOL = 1.0e-9   # GPU f64 step vs CPU f64 step, relative to field max
 SPLIT_RTOL = 1.0e-5  # split vs default remap route, f32, to field max
+# the decomposed path (phase 16): (o) gx1 on a 2x2 mesh of blocks in one
+# process (blocks of 192x160; the EVP rounds pad them to 214x182, the
+# remap to 204x172), DECOMP_STEPS steps against the one-device steps, then
+# DECOMP_TIMED timed; (p) ACCESS-OM2 at 1 degree on 2x2 blocks, the U-fold
+# crossing the EVP rounds and the remap gathered; (q) the multi-process
+# entry as two processes over gloo (1x2 blocks, LAUNCH_STEPS steps, the
+# sharded restart read back) and as one over nccl (one block); (r) 24x32
+# f64 cuts on 2x2 blocks, the card against the CPU, 3 steps
+DECOMP_MESH = (2, 2)
+DECOMP_STEPS = 3
+DECOMP_TIMED = 2
+LAUNCH_STEPS = 2
+LAUNCH_TIMEOUT_S = 300
 # therm_newton's (nilyr, nslyr) instances held against the plain version
 # beside the gx1 path's (4, 1), and the one timed beside it
 NEWTON_LAYERS = ((7, 1), (2, 1), (4, 2))
@@ -331,12 +368,17 @@ KERNELS = {
                         "cice4_tpu/ops/remap_pallas.py:373"),
     "remap_contract": ("cice4_tpu_torch/csrc/remap_k1k2.cu",
                        "cice4_tpu/ops/remap_pallas.py:391"),
+    # the EVP kernel's round mode on the padded blocks of a decomposed
+    # grid, doubly cyclic to the kernel: the whole-grid TPU kernel's mode
+    "evp_rounds": ("cice4_tpu_torch/csrc/evp_subcycle.cu",
+                   "cice4_tpu/ops/evp_pallas.py:83"),
 }
 LIBRARIES = sorted({Path(src).stem for src, _ in KERNELS.values()})
 # the path whose run gives each kernel's launches and timing inputs
 PATH_OF = {"therm_newton": "gx1", "evp_subcycle": "gx1",
            "evp_wholegrid": "box", "remap_gsh": "gx1", "remap_k12": "gx1",
-           "remap_construct": "split", "remap_contract": "split"}
+           "remap_construct": "split", "remap_contract": "split",
+           "evp_rounds": "decomposed"}
 
 # Operations each kernel's function does, counted from the CUDA sources
 # (one per add, multiply, compare, min/max, division or square root):
@@ -488,7 +530,9 @@ def sites():
             "remap_construct": (remap_cuda, "construct",
                                 remap_cuda.construct_plain),
             "remap_contract": (remap_cuda, "contract",
-                               remap_cuda.contract_plain)}
+                               remap_cuda.contract_plain),
+            "evp_rounds": (evp_cuda, "evp_rounds",
+                           evp_ops._evp_rounds_plain)}
 
 
 def counter_attr(name):
@@ -740,6 +784,7 @@ def plain_sites():
     from cice4_tpu_torch.ops import therm_vertical as tv
     return ((tv, "_temperature_changes_core"),
             (evp_cuda, "_evp_subcycle_plain"),
+            (evp_cuda, "_evp_rounds_plain"),
             (remap_cuda, "ga_gsh_plain"), (remap_cuda, "k12_plain"),
             (remap_cuda, "ga_planes_plain"), (remap_cuda, "construct_plain"),
             (remap_cuda, "contract_plain"))
@@ -1300,8 +1345,8 @@ def phase_thermo_and_grids(device, card, workdir):
 
     cfg = make_config(MAIN)
     ny, nx = cfg.domain.ny_global, cfg.domain.nx_global
-    dyn = dict(evp_subcycle=OPT_STEPS, remap_gsh=OPT_STEPS,
-               remap_k12=OPT_STEPS)
+    dyn = dict(evp_subcycle=VARIANT_STEPS, remap_gsh=VARIANT_STEPS,
+               remap_k12=VARIANT_STEPS)
     for tag, over in (("(e) heat_capacity=False", ZERO_LAYER),
                       ("(f) calc_Tsfc=False, the explicit surface scheme",
                        EXPLICIT),
@@ -1310,14 +1355,15 @@ def phase_thermo_and_grids(device, card, workdir):
         tag = f"{tag}, gx1 {ny}x{nx}"
         niter = []
         model, state, forcing, _, _ = drive_path(
-            tag, make_config(over), device, OPT_STEPS, expected(**dyn),
+            tag, make_config(over), device, VARIANT_STEPS, expected(**dyn),
             moving=True,
             on_step=lambda n, fl: niter.append(int(fl["_thermo_niter"])))
         log(f"  {tag}: the temperature solve's iterations, each one host "
             f"sync, by step: {niter}")
-        time_and_profile(tag, model, state, forcing, card)
+        time_and_profile(tag, model, state, forcing, card,
+                         first=VARIANT_STEPS)
 
-    default = expected(therm_newton=OPT_STEPS, **dyn)
+    default = expected(therm_newton=VARIANT_STEPS, **dyn)
     bc = BoundaryConditions(cfg.domain.ew_boundary_type,
                             cfg.domain.ns_boundary_type)
     src = G.make_latlon_grid(nx, ny, bc, device=torch.device("cpu"),
@@ -1339,9 +1385,10 @@ def phase_thermo_and_grids(device, card, workdir):
                                     "grid.kmt_file": kmt_file})
         check_loaded(tag, pcfg, built)
         model, state, forcing, _, _ = drive_path(tag, pcfg, device,
-                                                 OPT_STEPS, default,
+                                                 VARIANT_STEPS, default,
                                                  moving=True)
-        time_and_profile(tag, model, state, forcing, card)
+        time_and_profile(tag, model, state, forcing, card,
+                         first=VARIANT_STEPS)
 
     tag = (f"(j) a pan-Arctic grid, {ny}x{nx}, {PANARCTIC_DX / 1e3:.0f} km "
            f"cells from {PANARCTIC_LAT0:.0f}N, open edges, ice restoring, "
@@ -1370,7 +1417,7 @@ def phase_thermo_and_grids(device, card, workdir):
     top = float(torch.rad2deg(run.grid.tlat).max())
     with counting_plain_calls() as plain_calls:
         reset_counts()
-        run.run(OPT_STEPS)
+        run.run(VARIANT_STEPS)
         torch.cuda.synchronize()
         counts = read_counts()
     log(f"  {tag}: top row at {top:.2f}N; launches {counts}; plain versions "
@@ -1383,7 +1430,8 @@ def phase_thermo_and_grids(device, card, workdir):
                                                   south=False)
     log(f"  guards clean; state finite; aice in [{amin:.3g}, {amax:.6g}]; "
         f"icy cells north of 70N {n_north}; max |u|,|v| {umax:.4g} m/s")
-    time_and_profile(tag, run.model, run.state, run.forcing_provider, card)
+    time_and_profile(tag, run.model, run.state, run.forcing_provider, card,
+                     first=VARIANT_STEPS)
 
 
 # ---------------------------------------------------------------------------
@@ -1788,7 +1836,369 @@ def phase_coupled_parity(device, flavor, over, workdir):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: timing
+# phase 16: the decomposed path
+# ---------------------------------------------------------------------------
+
+
+def block_steps(models, states, forcing, mesh, first, nsteps, on_step=None):
+    """`nsteps` steps of the blocks this process owns (one thread each)
+    from step `first`; `on_step(n, states)` sees each step's block states.
+    Returns (block states, each block's last fluxes)."""
+    from cice4_tpu_torch.convert import scatter_blocks
+    from cice4_tpu_torch.guards import raise_on_violation
+
+    fluxes = None
+    for n in range(first, first + nsteps):
+        yday = YDAY0 + n * DT / 86400.0
+        fb = scatter_blocks(forcing(yday, 0.0), mesh)
+
+        def step(b, fb=fb, yday=yday, states=states):
+            k = mesh.local_blocks.index(b)
+            return models[k](states[k], fb[k], yday, 0.0)
+
+        outs = mesh.run(step)
+        states = [o[0] for o in outs]
+        fluxes = [o[1] for o in outs]
+        raise_on_violation(fluxes[0]["_guards"])   # the global records
+        if on_step is not None:
+            on_step(n, states)
+    return states, fluxes
+
+
+def decompose(model, state, shape):
+    """(mesh, block models, block states) of a one-device model and
+    state on a `shape` mesh in this process."""
+    from cice4_tpu_torch.convert import scatter_blocks
+    from cice4_tpu_torch.model import Model
+    from cice4_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(*shape)
+    models = [Model(model.cfg, g) for g in scatter_blocks(model.grid, mesh)]
+    return mesh, models, scatter_blocks(state, mesh)
+
+
+def one_device_states(model, state, forcing, nsteps):
+    """The one-device states after each of `nsteps` steps."""
+    out = []
+    for n in range(nsteps):
+        yday = YDAY0 + n * DT / 86400.0
+        state, _ = model(state, forcing(yday, 0.0), yday, 0.0)
+        out.append(state)
+    return out
+
+
+def drive_decomposed(tag, model, state, forcing, shape, nsteps, expect,
+                     rtol):
+    """Counts to 0, `nsteps` decomposed steps, counts read (against
+    `expect`, no plain version, the gathered phases counted), each step's
+    gathered state held against the one-device step's within `rtol` of
+    the field's scale.  Returns (mesh, block models, block states, the
+    counts, the worst difference, whether every step was bit-equal)."""
+    from cice4_tpu_torch.convert import gather_blocks
+    from cice4_tpu_torch.parallel import halo as h
+
+    refs = one_device_states(model, state, forcing, nsteps)
+    mesh, models, states = decompose(model, state, shape)
+    worst, equal = [0.0], [True]
+
+    def check(n, blocks):
+        full = gather_blocks(blocks, mesh)
+        worst[0] = max(worst[0], compare_states(
+            full, refs[n], rtol, f"{tag}: decomposed vs one device, step "
+            f"{n + 1}"))
+        ref = dict(state_tensors(refs[n]))
+        equal[0] &= all(torch.equal(x, ref[k])
+                        for k, x in state_tensors(full))
+
+    gathered0 = dict(h.gathered_phase.names)
+    with counting_plain_calls() as plain_calls:
+        reset_counts()
+        states, fluxes = block_steps(models, states, forcing, mesh, 0, nsteps,
+                                     on_step=check)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    gathered = {k: v - gathered0.get(k, 0)
+                for k, v in h.gathered_phase.names.items()
+                if v - gathered0.get(k, 0)}
+    log(f"  {tag}: launches {counts}; plain versions called "
+        f"{plain_calls or 'none'}; gathered phases {gathered or 'none'}; "
+        f"ridge iterations of the last step {fluxes[0]['_ridge_niter']}; "
+        f"worst difference from one device "
+        f"{worst[0]:.3e} of the field's scale (limit {rtol}); bit-equal "
+        f"at every step: {equal[0]}")
+    if counts != expect:
+        raise AssertionError(f"{tag}: launches {counts}, expected {expect}")
+    if plain_calls:
+        raise AssertionError(f"{tag}: plain versions ran: {plain_calls}")
+    full = gather_blocks(states, mesh)
+    amin, amax, n_north, n_south, umax = check_physical(model.grid, full,
+                                                        True)
+    log(f"  guards clean; state finite; aice in [{amin:.3g}, {amax:.6g}]; "
+        f"icy cells north of 70N {n_north}, south of 60S {n_south}; max "
+        f"|u|,|v| {umax:.4g} m/s")
+    return (mesh, models, states, counts, gathered, worst[0], equal[0],
+            refs)
+
+
+def time_decomposed(tag, model, state, forcing, mesh, models, states, first,
+                    card):
+    """ms/step by CUDA events of the one-device and the decomposed step
+    over DECOMP_TIMED steps, and the device time and launches of one step
+    of each (torch.profiler), with the EVP kernel's share."""
+    start, end = _events()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    block_steps(models, states, forcing, mesh, first, DECOMP_TIMED)
+    end.record()
+    torch.cuda.synchronize()
+    ms_dec = start.elapsed_time(end) / DECOMP_TIMED
+    host_dec = (time.perf_counter() - t0) * 1e3 / DECOMP_TIMED
+    ms_one, host_one, _ = time_path(model, state, forcing, DECOMP_TIMED,
+                                    first=first)
+    yday = YDAY0 + first * DT / 86400.0
+    _, rows_one = profiled(lambda: model(state, forcing(yday, 0.0), yday,
+                                         0.0))
+    _, rows_dec = profiled(lambda: block_steps(models, states, forcing, mesh,
+                                               first, 1))
+
+    def evp(rows):
+        sel = [r for r in rows if "evp_persistent" in r[0]]
+        return sum(r[1] for r in sel), sum(r[2] for r in sel)
+
+    for name, rows, ms, host in (("one device", rows_one, ms_one, host_one),
+                                 (f"{mesh.py}x{mesh.px} blocks", rows_dec,
+                                  ms_dec, host_dec)):
+        if not rows:
+            log(f"  {tag}, {name}: {ms:.3f} ms/step (CUDA events), "
+                f"{host:.3f} ms/step (host clock); profiler: no device time "
+                f"(not measured); card: {card}")
+            continue
+        dev = sum(r[1] for r in rows)
+        n = sum(r[2] for r in rows)
+        evp_ms, evp_n = evp(rows)
+        log(f"  {tag}, {name}: {ms:.3f} ms/step (CUDA events, "
+            f"{DECOMP_TIMED} steps after {first}), {host:.3f} ms/step (host "
+            f"clock); one step: {dev:.3f} ms device time in {n} launches "
+            f"({100 * dev / ms:.1f}% busy); the EVP kernel {evp_ms:.4f} ms "
+            f"in {evp_n} launches; card: {card}")
+    return ms_one, ms_dec
+
+
+def capture_rounds(models, states, forcing, mesh, first):
+    """The arguments of the first round-mode EVP launch of one decomposed
+    step (the step's results are discarded)."""
+    from cice4_tpu_torch.ops import evp_cuda
+
+    real = evp_cuda.evp_rounds
+    seen = []
+
+    def record(*args):
+        if not seen:
+            seen.append(args)
+        return real(*args)
+
+    record.launches = 0
+    evp_cuda.evp_rounds = record
+    try:
+        block_steps(models, states, forcing, mesh, first, 1)
+    finally:
+        evp_cuda.evp_rounds = real
+    return seen[0]
+
+
+def launch_processes(tag, nprocs, args, workdir):
+    """`python -m cice4_tpu_torch.parallel.launch` as `nprocs` processes
+    of one group on this machine; returns their outputs (each must exit
+    0)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, "-m", "cice4_tpu_torch.parallel.launch", *args]
+    procs, logs = [], []
+    for i in range(nprocs):
+        env = dict(os.environ, CICE4_DISTRIBUTED="1",
+                   CICE4_COORDINATOR=f"127.0.0.1:{port}",
+                   CICE4_NUM_PROCESSES=str(nprocs), CICE4_PROCESS_ID=str(i),
+                   OMP_NUM_THREADS="1")
+        out = open(workdir / f"{tag}{i}.log", "w")
+        logs.append(out)
+        procs.append(subprocess.Popen(cmd, env=env, stdout=out,
+                                      stderr=subprocess.STDOUT,
+                                      cwd=Path(__file__).resolve().parent))
+    try:
+        for proc in procs:
+            proc.wait(timeout=LAUNCH_TIMEOUT_S)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for out in logs:
+            out.close()
+    texts = [(workdir / f"{tag}{i}.log").read_text() for i in range(nprocs)]
+    for i, (proc, text) in enumerate(zip(procs, texts)):
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith(("MESH", "CHECKSUM", "RESTART", "DONE"))]
+        log(f"    process {i}: exit {proc.returncode}; " + "; ".join(lines))
+        if proc.returncode != 0:
+            raise AssertionError(f"{tag}: process {i} failed:\n"
+                                 f"{text[-3000:]}")
+    return texts
+
+
+def saved_state(path, like):
+    """A state written by the launcher's --save, as tensors like `like`."""
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    out = {}
+    for name, t in state_tensors(like):
+        key = next(k for k in flat if k == name or k.endswith("." + name))
+        out[name] = torch.as_tensor(flat[key]).to(t.device)
+    return out
+
+
+def compare_saved(tag, path, ref, rtol):
+    """Worst difference of a saved state from `ref` (to the field's
+    scale) and whether it is bit-equal."""
+    got = saved_state(path, ref)
+    worst, equal = 0.0, True
+    for name, t in state_tensors(ref):
+        x = got[name]
+        if not t.is_floating_point():
+            equal &= torch.equal(x, t)
+            if not torch.equal(x, t):
+                raise AssertionError(f"{tag}: {name} differs")
+            continue
+        err = float((x - t).abs().max()) / max(float(t.abs().max()), 1e-300)
+        worst = max(worst, err)
+        equal &= torch.equal(x, t)
+        if err > rtol:
+            raise AssertionError(f"{tag}: {name} differs by {err:.3e} of "
+                                 f"its scale (limit {rtol})")
+    return worst, equal
+
+
+def phase_decomposed(device, card, workdir):
+    """Paths (o)-(r) of the decomposed model; returns the counts of (o)
+    and the arguments of its first round-mode EVP launch."""
+    from cice4_tpu_torch.config import access_om_config
+    from cice4_tpu_torch.convert import gather_blocks
+    from cice4_tpu_torch.kernel_check import DECOMP_RTOL
+    from cice4_tpu_torch.ops import evp_sharded
+
+    rtol = DECOMP_RTOL[torch.float32]
+    nb = DECOMP_MESH[0] * DECOMP_MESH[1]
+
+    # (o) gx1 at full width on 2x2 blocks in one process
+    cfg = make_config(MAIN)
+    ndte = cfg.dynamics.ndte
+    model, state, forcing = make_run(cfg, device, torch.float32)
+    by = cfg.domain.ny_global // DECOMP_MESH[0]
+    bx = cfg.domain.nx_global // DECOMP_MESH[1]
+    H = min(evp_sharded.DEFAULT_H, by, bx)
+    rounds = (ndte - 1) // (H - 1) + (1 if (ndte - 1) % (H - 1) else 0)
+    tag = (f"(o) gx1 {cfg.domain.ny_global}x{cfg.domain.nx_global} on "
+           f"{DECOMP_MESH[0]}x{DECOMP_MESH[1]} blocks of {by}x{bx}")
+    log(f"  {tag}: EVP halo {H}, {rounds} rounds + the final launch a block "
+        f"and step (padded {by + 2 * H}x{bx + 2 * H}), remap halo 6 (padded "
+        f"{by + 12}x{bx + 12})")
+    n = DECOMP_STEPS
+    # the final subcycle's launch on a padded block is the kernel's
+    # doubly cyclic (whole-grid) mode
+    (mesh, models, states, counts, gathered, worst, equal,
+     refs) = drive_decomposed(
+        tag, model, state, forcing, DECOMP_MESH, n,
+        expected(therm_newton=nb * n, evp_subcycle=nb * n,
+                 evp_wholegrid=nb * n, evp_rounds=nb * rounds * n,
+                 remap_gsh=nb * n, remap_k12=nb * n), rtol)
+    if gathered:
+        raise AssertionError(f"{tag}: gathered phases {gathered} where the "
+                             f"k-halo paths should run")
+    ms_one, ms_dec = time_decomposed(tag, model, refs[-1], forcing, mesh,
+                                     models, states, n, card)
+    rounds_args = capture_rounds(models, states, forcing, mesh, n)
+
+    # (p) ACCESS-OM2 at 1 degree: the U-fold into the EVP rounds, the
+    # remap gathered
+    pcfg = access_om_config(nx=ACCESS1[1], ny=ACCESS1[0])
+    pmodel, pstate, pforce = make_run(pcfg, device, torch.float32)
+    pby, pbx = ACCESS1[0] // DECOMP_MESH[0], ACCESS1[1] // DECOMP_MESH[1]
+    pH = min(evp_sharded.DEFAULT_H, pby - 1, pbx)
+    pn = pcfg.dynamics.ndte
+    prounds = (pn - 1) // (pH - 1) + (1 if (pn - 1) % (pH - 1) else 0)
+    ptag = (f"(p) ACCESS-OM2 {ACCESS1[0]}x{ACCESS1[1]} (tripole) on "
+            f"{DECOMP_MESH[0]}x{DECOMP_MESH[1]} blocks")
+    m = 2
+    pgathered = drive_decomposed(
+        ptag, pmodel, pstate, pforce, DECOMP_MESH, m,
+        expected(therm_newton=nb * m, evp_subcycle=nb * m,
+                 evp_wholegrid=nb * m, evp_rounds=nb * prounds * m,
+                 remap_gsh=nb * m, remap_k12=nb * m), rtol)[4]
+    if pgathered != {"remap": nb * m}:
+        raise AssertionError(f"{ptag}: gathered phases {pgathered}, "
+                             f"expected the remap on each block each step")
+
+    # (q) the multi-process entry: two processes over gloo, then one over
+    # nccl
+    common = ["--preset", "gx1", "--set", "grid.kmt_file=''", "--steps",
+              str(LAUNCH_STEPS), "--device", "cuda"]
+    log(f"  (q) python -m cice4_tpu_torch.parallel.launch, gx1, "
+        f"{LAUNCH_STEPS} steps: 2 processes over gloo (1x2 blocks; gloo "
+        f"sends CPU tensors, so the strips go through pinned host buffers), "
+        f"the sharded restart written and read back")
+    texts = launch_processes(
+        "gloo", 2, common + ["--backend", "gloo", "--mesh", "1x2",
+                             "--save", str(workdir / "gloo.npz"),
+                             "--restart-dir", str(workdir / "restart")],
+        workdir)
+    sums = [re.search(r"CHECKSUM \d (.+)", t).group(1) for t in texts]
+    if sums[0] != sums[1] or "RESTART_OK" not in texts[0] \
+            or "backend gloo" not in texts[0]:
+        raise AssertionError(f"(q) gloo: checksums {sums}, restart "
+                             f"{'RESTART_OK' in texts[0]}")
+    ref_q = refs[LAUNCH_STEPS - 1]
+    worst_q, equal_q = compare_saved("(q) gloo 1x2", workdir / "gloo.npz",
+                                     ref_q, rtol)
+    log(f"  (q) gloo, 2 processes: state against the one-device steps: "
+        f"worst {worst_q:.3e} of the field's scale (limit {rtol}), "
+        f"bit-equal {equal_q}")
+    log("  (q) 1 process over nccl (world size 1, one block)")
+    texts = launch_processes(
+        "nccl", 1, common + ["--backend", "nccl",
+                             "--save", str(workdir / "nccl.npz")], workdir)
+    if "backend nccl" not in texts[0]:
+        raise AssertionError("(q) nccl: the group is not nccl")
+    _, equal_n = compare_saved("(q) nccl 1x1", workdir / "nccl.npz",
+                               ref_q, 0.0)
+    log(f"  (q) nccl, world size 1: bit-equal to the one-device steps "
+        f"{equal_n}")
+    if not equal_n:
+        raise AssertionError("(q) nccl: the one-block run is not bit-equal "
+                             "to one device")
+
+    # (r) 24x32 f64 cuts on 2x2 blocks, the card against the CPU
+    for name, scfg in (("gx1", make_config(MAIN, **SMALL)),
+                       ("all-ocean tripole", box_config(**TRIPOLE_SMALL))):
+        out = []
+        for dev in (device, torch.device("cpu")):
+            smodel, sstate, sforce = make_run(scfg, dev, torch.float64)
+            smesh, smodels, sstates = decompose(smodel, sstate, DECOMP_MESH)
+            sstates, _ = block_steps(smodels, sstates, sforce, smesh, 0, 3)
+            out.append(gather_blocks(sstates, smesh))
+        worst_r = compare_states(out[0], out[1], STEP_RTOL,
+                                 f"(r) {name}: decomposed, card vs CPU")
+        log(f"  (r) {name} 24x32 f64 on 2x2 blocks, card vs CPU, 3 steps: "
+            f"worst difference {worst_r:.3e} of the field's scale (limit "
+            f"{STEP_RTOL})")
+    return dict(counts=counts, rounds_args=rounds_args, ms_one=ms_one,
+                ms_dec=ms_dec, bit_equal=equal, worst=worst)
+
+
+# ---------------------------------------------------------------------------
+# phase 18: timing
 # ---------------------------------------------------------------------------
 
 
@@ -1947,6 +2357,16 @@ def bound(name, args, out):
                + (OPS_EVP_STRESS + OPS_EVP_FINAL_SUMS) * ncell
                + OPS_EVP_MOMENTUM * n_u)
         dtype = args[-1].dtype
+    elif name == "evp_rounds":
+        # p.ndte gated subcycles over the padded block's active cells
+        p, grid = args[0], args[1]
+        nbytes = unique_bytes(args[2:]) + unique_bytes(
+            [getattr(grid, k) for k in ("cyp", "cxp", "cym", "cxm", "dxt",
+                                        "dyt", "dxhy", "dyhx", "tinyarea",
+                                        "uarear")]) + unique_bytes(out)
+        n_t, n_u = float(args[3].sum()), float(args[4].sum())
+        ops = p.ndte * (OPS_EVP_STRESS * n_t + OPS_EVP_MOMENTUM * n_u)
+        dtype = args[-1].dtype
     elif name in ("remap_gsh", "remap_ga"):
         dx, order = args[0], args[4]
         nbytes = unique_bytes(args[:3]) + unique_bytes(out)
@@ -2006,7 +2426,8 @@ def within_tolerance(name, args, kern, plain):
         kern, plain, rtol = {"gsh": kern}, {"gsh": plain}, kc.GSH_RTOL
     else:
         rtol = {"remap_k12": kc.K12_RTOL, "remap_construct": kc.K1_RTOL,
-                "remap_contract": kc.K2_RTOL}[name]
+                "remap_contract": kc.K2_RTOL,
+                "evp_rounds": kc.ROUNDS_RTOL}[name]
         kern, plain = dict(enumerate(kern)), dict(enumerate(plain))
     rep = kc.compare_fields(kern, plain, rtol[plain[next(iter(plain))].dtype])
     return kc.fields_ok(rep), max(v["max_rel"] for v in rep.values())
@@ -2384,12 +2805,12 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     card = card_line()
-    log(f"[1/17 device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
+    log(f"[1/18 device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
         f"torch {torch.__version__} CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     libs = cuda_build.load_all(LIBRARIES)
-    log(f"[2/17 build] {len(libs)} kernel libraries in "
+    log(f"[2/18 build] {len(libs)} kernel libraries in "
         f"{time.perf_counter() - t0:.2f} s wall, built in parallel")
     for name, lib in libs.items():
         log(f"  {name}: built={lib.built} nvcc {lib.seconds:.2f} s -> "
@@ -2400,24 +2821,24 @@ def main() -> int:
 
     cfg = make_config(MAIN)
     ny, nx = cfg.domain.ny_global, cfg.domain.nx_global
-    log("[3/17 kernels vs plain versions on the card]")
+    log("[3/18 kernels vs plain versions on the card]")
     model, _, _ = make_run(cfg, device, torch.float32)
     check_newton(model.thermo, device)
     check_dynamics_kernels(device)
 
-    log(f"[4/17 gx1 main path] gx1 default step {ny}x{nx}, ncat "
+    log(f"[4/18 gx1 main path] gx1 default step {ny}x{nx}, ncat "
         f"{cfg.domain.ncat}, nilyr {cfg.domain.nilyr}, nslyr "
         f"{cfg.domain.nslyr}, ndte {cfg.dynamics.ndte}, advection "
-        f"{cfg.transport.advection}, f32, {NSTEPS} steps of {DT:.0f} s")
+        f"{cfg.transport.advection}, f32, {MAIN_STEPS} steps of {DT:.0f} s")
     model, state, forcing, ridge, _ = drive_path(
-        "main path", cfg, device, NSTEPS,
-        expected(therm_newton=NSTEPS, evp_subcycle=NSTEPS,
-                 remap_gsh=NSTEPS, remap_k12=NSTEPS), moving=True)
+        "main path", cfg, device, MAIN_STEPS,
+        expected(therm_newton=MAIN_STEPS, evp_subcycle=MAIN_STEPS,
+                 remap_gsh=MAIN_STEPS, remap_k12=MAIN_STEPS), moving=True)
     launches = {"gx1": read_counts()}
     log(f"  ridge iterations per step: {ridge} (cap 20; "
         f"{sum(r == 20 for r in ridge)} steps at the cap)")
 
-    log(f"[5/17 earlier path] gx1 thermodynamics only, f32, {THERMO_STEPS} "
+    log(f"[5/18 earlier path] gx1 thermodynamics only, f32, {THERMO_STEPS} "
         f"steps")
     thermo_run = drive_path(
         "thermo-only path", make_config(THERMO_ONLY), device, THERMO_STEPS,
@@ -2426,7 +2847,7 @@ def main() -> int:
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         bcfg = box_config()
-        log(f"[6/17 box path] IceModelRun, doubly-periodic box "
+        log(f"[6/18 box path] IceModelRun, doubly-periodic box "
             f"{bcfg.domain.ny_global}x{bcfg.domain.nx_global} ("
             f"{bcfg.grid.dx_rect / 1e3:.0f} km cells from "
             f"{bcfg.grid.lat_origin}N), EW {bcfg.domain.ew_boundary_type} NS "
@@ -2436,14 +2857,14 @@ def main() -> int:
         box_run, launches["box"], driver_step_ms = phase_box_driver(
             device, workdir / "box")
 
-        log(f"[7/17 split route] the box, {SPLIT_STEPS} steps with "
+        log(f"[7/18 split route] the box, {SPLIT_STEPS} steps with "
             f"CICE4_FORCE_PALLAS_REMAP=1 (K0 in GA mode, K1, K2)")
         launches["split"], worst_split = phase_split_route(device)
         log(f"  split vs default route after {SPLIT_STEPS} steps: worst "
             f"difference {worst_split:.3e} of the field's scale (limit "
             f"{SPLIT_RTOL})")
 
-        log(f"[8/17 CLI] python -m cice4_tpu_torch run, the box cut to "
+        log(f"[8/18 CLI] python -m cice4_tpu_torch run, the box cut to "
             f"{BOX_CLI['domain.ny_global']}x{BOX_CLI['domain.nx_global']}, "
             f"{CLI_STEPS} steps")
         (workdir / "cli").mkdir()
@@ -2451,18 +2872,18 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    log(f"[9/17 ACCESS-OM2 tripole] {ACCESS025[0]}x{ACCESS025[1]} (0.25 "
+    log(f"[9/18 ACCESS-OM2 tripole] {ACCESS025[0]}x{ACCESS025[1]} (0.25 "
         f"degree) and {ACCESS1[0]}x{ACCESS1[1]} (1 degree), f32, analytic "
         f"forcing from day {YDAY0:.0f}; card: {card}")
     access = phase_access(device, card, ACCESS025, detail=True)
     phase_access(device, card, ACCESS1, detail=False)
 
-    log(f"[10/17 dEdd path] gx1 {ny}x{nx} with delta-Eddington shortwave "
+    log(f"[10/18 dEdd path] gx1 {ny}x{nx} with delta-Eddington shortwave "
         f"and melt ponds, f32, {DEDD_STEPS} steps from day {YDAY0:.0f} from "
         f"the ponded state; card: {card}")
     dedd = phase_dedd(device, card)
 
-    log(f"[11/17 coupled path] gx1 {ny}x{nx} with the coupled radiation "
+    log(f"[11/18 coupled path] gx1 {ny}x{nx} with the coupled radiation "
         f"order, constant albedos, atmbndy='constant' and kitd=0, f32, "
         f"{COUPLED_STEPS} steps")
     _, cstate, _, _, _ = drive_path(
@@ -2477,15 +2898,15 @@ def main() -> int:
     log(f"  coupled path: shortwave carried to the next step, fswsfcn max "
         f"{carried:.4g} W/m^2")
 
-    log(f"[12/17 transport options] gx1 {ny}x{nx}, f32, {OPT_STEPS} steps a "
+    log(f"[12/18 transport options] gx1 {ny}x{nx}, f32, {OPT_STEPS} steps a "
         f"path from day {YDAY0:.0f}: (a) l_dp_midpt with the conservation "
         f"and monotonicity checks, (b) l_fixed_area, (c) upwind; (d) the "
         f"box on the split route with l_dp_midpt, {SPLIT_MIDPT_STEPS} steps; "
         f"card: {card}")
     options = phase_transport_options(device, card)
 
-    log(f"[13/17 thermo and grid variants] gx1 {ny}x{nx}, f32, {OPT_STEPS} "
-        f"steps a path: (e) heat_capacity=False, (f) calc_Tsfc=False, (g) "
+    log(f"[13/18 thermo and grid variants] gx1 {ny}x{nx}, f32, "
+        f"{VARIANT_STEPS} steps a path: (e) heat_capacity=False, (f) calc_Tsfc=False, (g) "
         f"both; (h) a POP binary grid, (i) the same as netCDF, (j) a "
         f"pan-Arctic grid; card: {card}")
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_grids_"))
@@ -2494,7 +2915,7 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    log(f"[14/17 file forcing] gx1 {ny}x{nx}, f32, IceModelRun from 1 "
+    log(f"[14/18 file forcing] gx1 {ny}x{nx}, f32, IceModelRun from 1 "
         f"January 1997 under seeded files in the reference's layout, "
         f"{FILE_STEPS} steps a path: (k) NCAR with the ocean climatology "
         f"and SST restoring, (l) monthly with calc_strair=False; card: "
@@ -2505,7 +2926,7 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    log(f"[15/17 coupled component] IceComponent, f32, "
+    log(f"[15/18 coupled component] IceComponent, f32, "
         f"{COUPLED_INTERVALS} intervals of {INTERVAL_STEPS} steps from seeded "
         f"imports: (m) ACCESS-OM {ACCESS025[0]}x{ACCESS025[1]} with the GFDL "
         f"open-water fluxes, dt {ACCESS_OM025['run.dt']:.0f} s, (n) "
@@ -2517,7 +2938,20 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    log("[16/17 small parity] 24x32 f64, card vs CPU, 3 steps")
+    log(f"[16/18 decomposed] the model on a mesh of blocks: (o) gx1 "
+        f"{ny}x{nx} on {DECOMP_MESH[0]}x{DECOMP_MESH[1]} blocks in one "
+        f"process, {DECOMP_STEPS} steps against one device, then timed; (p) "
+        f"ACCESS-OM2 {ACCESS1[0]}x{ACCESS1[1]} on the same mesh, 2 steps; "
+        f"(q) python -m cice4_tpu_torch.parallel.launch as 2 processes over "
+        f"gloo and 1 over nccl; (r) 24x32 f64 on 2x2 blocks, card vs CPU; "
+        f"card: {card}")
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_decomposed_"))
+    try:
+        decomposed = phase_decomposed(device, card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    log("[17/18 small parity] 24x32 f64, card vs CPU, 3 steps")
     from cice4_tpu_torch.kernel_check import ponded_state
     for name, pcfg, prepare in (
             ("gx1 main path", make_config(MAIN, **SMALL), None),
@@ -2554,10 +2988,11 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    log(f"[17/17 timing] card: {card}")
-    ms_ev, ms_host, ridge_t = time_path(model, state, forcing, 8)
+    log(f"[18/18 timing] card: {card}")
+    ms_ev, ms_host, ridge_t = time_path(model, state, forcing, 8,
+                                        first=MAIN_STEPS)
     log(f"  gx1 main path: {ms_ev:.3f} ms/step (CUDA events, 8 steps after "
-        f"{NSTEPS}), {ms_host:.3f} ms/step (host clock), "
+        f"{MAIN_STEPS}), {ms_host:.3f} ms/step (host clock), "
         f"{ny * nx / (ms_ev / 1e3):.4g} cell-steps/s; ridge iterations "
         f"{ridge_t}; card: {card}")
     ms_thermo, _, _ = time_path(*thermo_run[:3], 8)
@@ -2601,6 +3036,9 @@ def main() -> int:
     finally:
         del os.environ["CICE4_FORCE_PALLAS_REMAP"]
 
+    seen["evp_rounds"] = decomposed["rounds_args"]
+    launches["decomposed"] = decomposed["counts"]
+
     record = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
         path = PATH_OF[name]
@@ -2608,6 +3046,7 @@ def main() -> int:
             name, seen[name], card)
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches[path][name],
+                 "decomposed_launches": launches["decomposed"][name],
                  "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": bound_ms, "bound_by": bound_by,
                  "library_ms": None, "path": path}

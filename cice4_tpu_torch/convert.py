@@ -6,16 +6,25 @@ The port never touches JAX types: the caller flattens a JAX `Grid`,
 dict into the port's dataclass of tensors on a given device and dtype,
 and back.  Nested dicts (``trcrn``, ``swn``) stay nested; ``None``
 fields stay ``None``.
+
+:func:`scatter_blocks` cuts a port grid, state or forcing into the blocks
+of a mesh (:mod:`cice4_tpu_torch.parallel.mesh`; a grid's blocks carry a
+:class:`~cice4_tpu_torch.parallel.halo.BlockBC`), :func:`gather_blocks`
+puts every block's pieces back together, and :func:`allgather_blocks`
+does so inside a decomposed run, where each process holds only its own
+blocks.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from cice4_tpu_torch.forcing import FORCING_FIELDS, Forcing
 from cice4_tpu_torch.grid import GRID_FIELDS, Grid
-from cice4_tpu_torch.parallel.halo import BoundaryConditions
+from cice4_tpu_torch.parallel.halo import BlockBC, BoundaryConditions
 from cice4_tpu_torch.state import STATE_FIELDS, State
 
 
@@ -65,3 +74,65 @@ def to_arrays(obj) -> dict:
     names = {Grid: GRID_FIELDS, State: STATE_FIELDS,
              Forcing: FORCING_FIELDS}[type(obj)]
     return {k: _to_numpy(getattr(obj, k)) for k in names}
+
+
+def _map(obj, fn):
+    """`fn` on every tensor of a Grid, State, Forcing, dict or tensor."""
+    if obj is None:
+        return None
+    if isinstance(obj, dict):
+        return {k: _map(v, fn) for k, v in obj.items()}
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    names = {Grid: GRID_FIELDS, State: STATE_FIELDS,
+             Forcing: FORCING_FIELDS}[type(obj)]
+    return dataclasses.replace(obj, **{k: _map(getattr(obj, k), fn)
+                                       for k in names})
+
+
+def scatter_blocks(obj, mesh, blocks=None) -> list:
+    """The pieces of a global Grid, State or Forcing for `blocks` of
+    `mesh` (default: the blocks this process owns): every tensor with
+    trailing (ny, nx) axes cut to the block (JAX's `shard_pytree`).  A
+    grid's pieces are block grids: their `bc` is a BlockBC that keeps
+    the global grid for the gathered phases."""
+    if blocks is None:
+        blocks = mesh.local_blocks
+    out = []
+    for b in blocks:
+        piece = _map(obj, lambda t, b=b: mesh.scatter(t, b))
+        if isinstance(obj, Grid):
+            bcb = BlockBC(obj.bc, mesh, b, obj.ny, obj.nx, global_grid=obj)
+            piece = dataclasses.replace(piece, bc=bcb, ny=bcb.by, nx=bcb.bx)
+        out.append(piece)
+    return out
+
+
+def _gather(parts, join):
+    first = parts[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: _gather([p[k] for p in parts], join) for k in first}
+    if isinstance(first, torch.Tensor):
+        return join(parts) if first.ndim >= 2 else first
+    names = {State: STATE_FIELDS, Forcing: FORCING_FIELDS}[type(first)]
+    return dataclasses.replace(first, **{
+        k: _gather([getattr(p, k) for p in parts], join) for k in names})
+
+
+def gather_blocks(parts, mesh):
+    """The global State or Forcing from every block's piece, in block
+    order (all blocks in this process)."""
+    return _gather(list(parts), mesh.assemble)
+
+
+def allgather_blocks(piece, mesh):
+    """The global State or Forcing from this block's piece, on every
+    block: inside :meth:`Mesh.run`, every block calling it."""
+    from cice4_tpu_torch.parallel.halo import gather_field
+
+    def join(t):
+        return gather_field(t, mesh) if t.ndim >= 2 else t
+
+    return _map(piece, join)

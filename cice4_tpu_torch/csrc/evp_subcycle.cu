@@ -41,7 +41,14 @@
 //    cells and a grid-stride loop the others (stresses and str8 zero, the
 //    strain sums and prs_sig of every T cell; zero u, v, strint and strocn
 //    off iceumask), with one more barrier between its two passes.
-// Barriers per call: 2 (phase 0) + 2 (ndte - 1) + 1 = 2 ndte + 1.  The
+// Barriers per call: 2 (phase 0) + 2 (ndte - 1) + 1 = 2 ndte + 1.
+// Round mode (flags bit 2), for the k-halo rounds of a decomposed grid
+// (cice4_tpu_torch/ops/evp_sharded.py): ndte gated subcycles, the owned
+// stresses stored, and no final subcycle (2 + 2 ndte barriers).  The
+// wrapper launches it on a padded block, which is doubly cyclic to the
+// kernel: the wrap of its neighbour reads lands in the outermost ghost
+// ring, which the shrinking-halo schedule never reads, and the active
+// lists cover the ghosts as their exchanged masks say.  The
 // stress pass reads velocities and writes only same-cell stresses and str8,
 // the momentum pass reads str8 and writes only same-point velocities, so no
 // double buffer is needed.  A launch that cannot be co-resident is refused
@@ -85,7 +92,8 @@
 // entries, blocks as evp_subcycle_resident gives them), the grid size, the
 // EW boundary (1 = cyclic), the NS boundary (0 = cyclic, 1 = open or closed,
 // 2 = tripole, 3 = tripoleT), a table of 9 double parameters, ndte,
-// flags (bit 0 evp_damping, bit 1 hemi_turning) and the CUDA stream; they
+// flags (bit 0 evp_damping, bit 1 hemi_turning, bit 2 round mode) and the
+// CUDA stream; they
 // return the launch's error code.  The kernel leaves in scratch[2 x blocks
 // ...] what it ran: its active T cells and U points, the grid barriers it
 // passed, its blocks and threads per block.
@@ -142,7 +150,7 @@ struct Args {
   int* scratch;  // block counts (2 x blocks), kStats, tlist, ulist (np)
   int ny, nx, ew_cyclic, ns_cyclic, ndte;
   T dte2T, denom1, denom2, rcon, ecci, cosw, sinw, dragw, puny;
-  bool damping, hemi;
+  bool damping, hemi, rounds;
   int fold;  // 0, or the NS code of a fold: 2 tripole, 3 tripoleT
 };
 
@@ -554,7 +562,8 @@ __global__ void __launch_bounds__(Launch<T>::threads, 1)
   Point<T> ps;
   if (own_t) load_cell(a, tlist[g], cs);
   if (own_u) load_point(a, ulist[g], ps);
-  for (int n = 0; n < a.ndte - 1; ++n) {
+  const int gated = a.rounds ? a.ndte : a.ndte - 1;
+  for (int n = 0; n < gated; ++n) {
     if (own_t) stress<T, false>(a, cs, true);
     for (int k = g + R; k < nt; k += R) {  // overflow: state in memory
       Cell<T> s;
@@ -570,6 +579,18 @@ __global__ void __launch_bounds__(Launch<T>::threads, 1)
       momentum<T, false, FOLD>(a, q);
     }
     sync();
+  }
+
+  if (a.rounds) {  // a k-halo round: the owned stresses back to memory
+    if (own_t) store_stress(a, cs);
+    if (b == 0 && threadIdx.x == 0) {
+      stats[0] = nt;
+      stats[1] = nu;
+      stats[2] = barriers;
+      stats[3] = nb;
+      stats[4] = kThreads;
+    }
+    return;
   }
 
   // --- the final subcycle over every cell --------------------------------
@@ -669,6 +690,7 @@ int run(const int64_t* ptrs, int ny, int nx, int ew_cyclic, int ns,
   a.puny = T(par[8]);
   a.damping = (flags & 1) != 0;
   a.hemi = (flags & 2) != 0;
+  a.rounds = (flags & 4) != 0;
 
   // the scratch holds the counts of the grid evp_subcycle_resident gives:
   // the fold's instance must launch the same

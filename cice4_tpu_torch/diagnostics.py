@@ -9,7 +9,9 @@ log tables the reference ships for regression diffing,
 `print_points:936-1062` / `print_state:1071-1220` cell probes.
 
 Every value is a 0-d tensor on the state's device; reading it (e.g.
-`format_diags`) synchronises with the device.
+`format_diags`) synchronises with the device.  On a decomposed grid (a
+block's state and grid, inside `Mesh.run`) every sum and maximum is
+taken over all blocks, so each block holds the global value.
 """
 
 from __future__ import annotations
@@ -20,7 +22,17 @@ import torch
 from cice4_tpu_torch import constants as cn
 from cice4_tpu_torch.grid import Grid
 from cice4_tpu_torch.ops.itd import aggregate
+from cice4_tpu_torch.parallel.halo import global_max, global_sum
 from cice4_tpu_torch.state import State
+
+
+def _sum(x):
+    """The sum over the grid (over every block of a decomposition)."""
+    return global_sum(torch.sum(x))
+
+
+def _max(x):
+    return global_max(x.max())
 
 
 def init_mass_diags(state: State, grid: Grid):
@@ -33,11 +45,11 @@ def init_mass_diags(state: State, grid: Grid):
     etot = agg["eice"] + agg["esno"]
     out = {}
     for hem, tar in (("n", grid.tarean), ("s", grid.tareas)):
-        mice = cn.rhoi * torch.sum(vice * tar)
-        msnw = cn.rhos * torch.sum(vsno * tar)
+        mice = cn.rhoi * _sum(vice * tar)
+        msnw = cn.rhos * _sum(vsno * tar)
         out[f"totm_{hem}"] = mice + msnw
         out[f"totmi_{hem}"] = mice
-        out[f"tote_{hem}"] = torch.sum(etot * tar)
+        out[f"tote_{hem}"] = _sum(etot * tar)
     return out
 
 
@@ -59,12 +71,12 @@ def runtime_diags(state: State, grid: Grid, fluxes=None, forcing=None,
 
     out = {}
     for hem, tar in (("n", grid.tarean), ("s", grid.tareas)):
-        out[f"area_{hem}"] = torch.sum(aice * tar) * cn.m2_to_km2
-        out[f"extent_{hem}"] = torch.sum(
+        out[f"area_{hem}"] = _sum(aice * tar) * cn.m2_to_km2
+        out[f"extent_{hem}"] = _sum(
             (aice > 0.15).to(aice.dtype) * tar) * cn.m2_to_km2
-        out[f"volume_{hem}"] = torch.sum(vice * tar)          # m^3
-        out[f"snw_vol_{hem}"] = torch.sum(vsno * tar)
-        out[f"etot_{hem}"] = torch.sum(etot_f * tar)
+        out[f"volume_{hem}"] = _sum(vice * tar)          # m^3
+        out[f"snw_vol_{hem}"] = _sum(vsno * tar)
+        out[f"etot_{hem}"] = _sum(etot_f * tar)
 
     # kinetic energy, rms/max speed (":210-248"; KE on the T grid with
     # T-cell mass, rms speed derived from KE as the reference does)
@@ -73,7 +85,7 @@ def runtime_diags(state: State, grid: Grid, fluxes=None, forcing=None,
     ke_t = 0.5 * umass_t * spd2
     for hem, tar, lm in (("n", grid.tarean, grid.lmask_n),
                          ("s", grid.tareas, grid.lmask_s)):
-        ket = torch.sum(ke_t * tar)
+        ket = _sum(ke_t * tar)
         out[f"ke_{hem}"] = ket
         mass = (cn.rhoi * out[f"volume_{hem}"]
                 + cn.rhos * out[f"snw_vol_{hem}"])
@@ -81,11 +93,11 @@ def runtime_diags(state: State, grid: Grid, fluxes=None, forcing=None,
         out[f"rms_speed_{hem}"] = torch.sqrt(torch.clamp(urms2, min=0.0))
         m = lm & grid.umask
         out[f"max_speed_{hem}"] = torch.sqrt(
-            torch.where(m, spd2, 0.0).max())
+            _max(torch.where(m, spd2, 0.0)))
         # max ice volume (mean thickness incl. open water, ":292-294")
-        out[f"hmax_{hem}"] = torch.where(lm & grid.tmask, vice, 0.0).max()
+        out[f"hmax_{hem}"] = _max(torch.where(lm & grid.tmask, vice, 0.0))
 
-    out["tot_ice_mass"] = torch.sum(umass_t * grid.tarea * grid.hm)
+    out["tot_ice_mass"] = _sum(umass_t * grid.tarea * grid.hm)
     out["tot_energy"] = out["etot_n"] + out["etot_s"]
 
     if fluxes is None:
@@ -96,8 +108,8 @@ def runtime_diags(state: State, grid: Grid, fluxes=None, forcing=None,
     # maximum ice strength, kN/m (":340-345")
     strength = fluxes["strength"]
     for hem, lm in (("n", grid.lmask_n), ("s", grid.lmask_s)):
-        out[f"max_strength_{hem}"] = torch.where(
-            lm & grid.tmask, strength, 0.0).max() / 1000.0
+        out[f"max_strength_{hem}"] = _max(torch.where(
+            lm & grid.tmask, strength, 0.0)) / 1000.0
 
     # mean albedo over sunlit ice (":240-289")
     if all(k in fluxes for k in ("alvdr", "alidr", "alvdf", "alidf",
@@ -107,9 +119,9 @@ def runtime_diags(state: State, grid: Grid, fluxes=None, forcing=None,
         sunlit = fluxes["coszen"] > cn.puny
         for hem, tar in (("n", grid.tarean), ("s", grid.tareas)):
             w = torch.where(sunlit, tar, 0.0)
-            a_alb = torch.sum(aice * w)
+            a_alb = _sum(aice * w)
             out[f"albedo_{hem}"] = torch.where(
-                a_alb > 0.0, torch.sum(aice * alb * w) / torch.clamp(
+                a_alb > 0.0, _sum(aice * alb * w) / torch.clamp(
                     a_alb, min=cn.puny), 0.0)
 
     if init_diag is None or forcing is None or dt is None:
@@ -135,16 +147,16 @@ def runtime_diags(state: State, grid: Grid, fluxes=None, forcing=None,
     frz_cell = fluxes["frazil"] * cn.rhoi  # m/step -> kg/m^2 over dt
 
     for hem, tar in (("n", grid.tarean), ("s", grid.tareas)):
-        rn = torch.sum(f.frain * aice_init * tar) * dt
-        sn = torch.sum(f.fsnow * aice_init * tar) * dt
-        evp = torch.sum(fluxes["evap_gbm"] * tar) * dt
-        frz = torch.sum(frz_cell * tar)
-        sfresh = torch.sum(fluxes["fresh_gbm"] * tar) * dt
-        sfsalt = torch.sum(fluxes["fsalt_gbm"] * tar) * dt
-        fhocn = torch.sum(fluxes["fhocn_gbm"] * tar)
-        fhatm = torch.sum(fhatm_cell * tar)
+        rn = _sum(f.frain * aice_init * tar) * dt
+        sn = _sum(f.fsnow * aice_init * tar) * dt
+        evp = _sum(fluxes["evap_gbm"] * tar) * dt
+        frz = _sum(frz_cell * tar)
+        sfresh = _sum(fluxes["fresh_gbm"] * tar) * dt
+        sfsalt = _sum(fluxes["fsalt_gbm"] * tar) * dt
+        fhocn = _sum(fluxes["fhocn_gbm"] * tar)
+        fhatm = _sum(fhatm_cell * tar)
         frzmlt_used = fluxes.get("frzmlt_init", state.frzmlt)
-        fhfrz = torch.sum(torch.clamp(frzmlt_used, min=0.0) * tar)
+        fhfrz = _sum(torch.clamp(frzmlt_used, min=0.0) * tar)
 
         mice = cn.rhoi * out[f"volume_{hem}"]
         msnw = cn.rhos * out[f"snw_vol_{hem}"]

@@ -7,7 +7,9 @@ violation count and the worst cell's (j, i), and packs them into a
 small record that rides the step's flux dict (``fluxes["_guards"]``).
 Building a record does not synchronise with the device;
 :func:`raise_on_violation` reads the records on the host and raises
-:class:`ConservationError` with the cell coordinates.
+:class:`ConservationError` with the cell coordinates.  On a block of a
+decomposed grid a record holds the global count and the worst cell of
+every block, at its global (j, i).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from cice4_tpu_torch import constants as cn
+from cice4_tpu_torch.parallel.mesh import current_block
 
 
 class ConservationError(RuntimeError):
@@ -40,8 +43,24 @@ def record(bad, err=None):
     nx = bad.shape[-1]
     masked = torch.where(bad, err, -torch.inf)
     flat = torch.argmax(masked)
-    return dict(count=bad.sum(), j=flat // nx, i=flat % nx,
-                worst=masked.reshape(-1)[flat])
+    rec = dict(count=bad.sum(), j=flat // nx, i=flat % nx,
+               worst=masked.reshape(-1)[flat])
+    cur = current_block()
+    if cur is None:
+        return rec
+    # a block of a decomposed grid: the global count and the worst cell of
+    # all blocks, at its global (j, i)
+    mesh, block = cur
+    yi, xi = mesh.coords(block)
+    by, bx = bad.shape[-2:]
+    mine = torch.stack([rec["count"].double(), rec["worst"].double(),
+                        (rec["j"] + yi * by).double(),
+                        (rec["i"] + xi * bx).double()])
+    every = torch.stack(mesh.allgather_blocks(mine))
+    k = torch.argmax(every[:, 1])
+    return dict(count=every[:, 0].sum().to(torch.int64),
+                j=every[k, 2].to(torch.int64), i=every[k, 3].to(torch.int64),
+                worst=every[k, 1].to(err.dtype))
 
 
 def raise_on_violation(guards: dict):

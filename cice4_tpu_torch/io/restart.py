@@ -10,14 +10,21 @@ chains restarts for `runtype = 'continue'`.
 The file format is the JAX package's: one compressed ``.npz`` of the
 state's fields (nested dicts flattened as ``"trcrn.iage"``) plus a JSON
 header (format version, step index, model time, tracer names), so each
-package reads the other's files.  The sharded pair of the JAX package
-(`dump_restart_sharded`, `load_restart_sharded`) waits for the
-multi-device port (ROADMAP queue 1 item 7).
+package reads the other's files.
+
+The sharded pair (`dump_restart_sharded`, `load_restart_sharded`) writes
+and reads the JAX package's layout: each process writes its own blocks
+to ``shards_p<proc>.npz`` (keys ``<name>__p<proc>_d<k>``, the k-th block
+it owns) and ``manifest_p<proc>.json`` (each entry's global ``start`` and
+``shape``), and process 0 writes ``manifest.json`` (the header and each
+field's global shape and dtype, with ``nprocs``).  No process gathers
+another's blocks; the loader puts every block back at its offset.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
 import os
 
@@ -74,6 +81,10 @@ def load_restart(path: str, template: State):
         header = json.loads(str(z["__header__"]))
         flat = {k: z[k] for k in z.files if k != "__header__"}
 
+    return _from_flat(flat, template), header
+
+
+def _from_flat(flat: dict, template: State) -> State:
     def like(src, t):
         return torch.as_tensor(np.ascontiguousarray(src)).to(
             device=t.device, dtype=t.dtype)
@@ -86,4 +97,94 @@ def load_restart(path: str, template: State):
                               for k, t in v.items()}
         else:
             kwargs[f.name] = like(flat[f.name], v)
-    return State(**kwargs), header
+    return State(**kwargs)
+
+
+def dump_restart_sharded(blocks, mesh, directory: str, istep: int,
+                         time: float, pointer_file: str | None = None):
+    """Write the blocks of a decomposed state that this process owns
+    (`blocks`: their States, in ``mesh.local_blocks`` order) in the JAX
+    package's sharded layout (port of
+    ``cice4_tpu/io/restart.py:107-165``)."""
+    os.makedirs(directory, exist_ok=True)
+    proc = mesh.rank
+    flats = [_flatten(b) for b in blocks]
+    shards, fields = {}, {}
+    for name in flats[0]:
+        entries = []
+        for k, (b, flat) in enumerate(zip(mesh.local_blocks, flats)):
+            arr = flat[name]
+            key = f"{name}__p{proc}_d{k}"
+            shards[key] = arr
+            yi, xi = mesh.coords(b)
+            by, bx = arr.shape[-2:]
+            start = [0] * (arr.ndim - 2) + [yi * by, xi * bx]
+            entries.append({"key": key, "start": start,
+                            "shape": list(arr.shape)})
+        arr = flats[0][name]
+        gshape = list(arr.shape[:-2]) + [arr.shape[-2] * mesh.py,
+                                         arr.shape[-1] * mesh.px]
+        fields[name] = {"global_shape": gshape, "dtype": str(arr.dtype),
+                        "shards": entries}
+    manifest = {"format": FORMAT_VERSION, "istep": int(istep),
+                "time": float(time), "nprocs": mesh.nprocs,
+                "fields": fields}
+    np.savez_compressed(os.path.join(directory, f"shards_p{proc}.npz"),
+                        **shards)
+    with open(os.path.join(directory, f"manifest_p{proc}.json"), "w") as fh:
+        json.dump(manifest, fh)
+    if proc == 0:
+        header = {k: v for k, v in manifest.items() if k != "fields"}
+        header["fields"] = {
+            name: {k: v for k, v in info.items() if k != "shards"}
+            for name, info in fields.items()}
+        with open(os.path.join(directory, "manifest.json"), "w") as fh:
+            json.dump(header, fh)
+        if pointer_file:
+            with open(pointer_file, "w") as fh:
+                fh.write(directory + "\n")
+    return directory
+
+
+def load_restart_sharded(directory: str, template: State):
+    """Reassemble a sharded dump of either package into a State shaped
+    like the global `template` (each field takes the template's dtype and
+    device): the manifests of every process, every block at its
+    recorded offset (port of ``cice4_tpu/io/restart.py:168-225``).
+    Returns (state, manifest)."""
+    with open(os.path.join(directory, "manifest.json")) as fh:
+        manifest = json.load(fh)
+    per_proc = sorted(glob.glob(os.path.join(directory, "manifest_p*.json")))
+    if len(per_proc) < int(manifest.get("nprocs", 1)):
+        raise FileNotFoundError(
+            f"found {len(per_proc)} per-process manifests, expected "
+            f"{manifest.get('nprocs')}")
+    merged = {name: dict(info, shards=[])
+              for name, info in manifest["fields"].items()}
+    for path in per_proc:
+        with open(path) as fh:
+            m = json.load(fh)
+        for name, info in m["fields"].items():
+            merged[name]["shards"].extend(info["shards"])
+    manifest = dict(manifest, fields=merged)
+    pieces = {}
+    for path in sorted(glob.glob(os.path.join(directory, "shards_p*.npz"))):
+        with np.load(path) as z:
+            for k in z.files:
+                pieces[k] = z[k]
+    flat = {}
+    for name, info in merged.items():
+        out = np.zeros(info["global_shape"], dtype=info["dtype"])
+        seen = np.zeros(info["global_shape"], dtype=bool)
+        for e in info["shards"]:
+            if e["key"] not in pieces:
+                raise FileNotFoundError(
+                    f"missing shard {e['key']} for field {name}")
+            sl = tuple(slice(s0, s0 + n)
+                       for s0, n in zip(e["start"], e["shape"]))
+            out[sl] = pieces[e["key"]]
+            seen[sl] = True
+        if not seen.all():
+            raise ValueError(f"incomplete shard coverage for {name}")
+        flat[name] = out
+    return _from_flat(flat, template), manifest

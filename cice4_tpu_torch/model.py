@@ -14,6 +14,14 @@ column runs the zero-layer solve; with ``calc_Tsfc=False`` the surface
 fluxes are the coupler's (``Forcing.fsurfn_f`` and the rest) or, without
 them, the explicit surface scheme's.
 
+On a decomposed grid each block runs this step on its own state, forcing
+and grid (a grid whose `bc` is a :class:`~cice4_tpu_torch.parallel.halo.
+BlockBC`, from :func:`cice4_tpu_torch.convert.scatter_blocks`) inside
+:meth:`cice4_tpu_torch.parallel.mesh.Mesh.run`: the column phases run on
+the block as they are; the stencils exchange with the neighbouring
+blocks; the EVP subcycles and the remap take their k-halo paths (or the
+gathered ones); the loop exits and the guards reduce over the blocks.
+
 Categories are an explicit leading ``ncat`` axis where the JAX package
 vmaps.  Radiation runs at the start of the step from the current
 forcing (the standalone ordering of the JAX package) or, with
@@ -37,7 +45,8 @@ from cice4_tpu_torch.ops.evp import evp, principal_stress
 from cice4_tpu_torch.ops.meltpond import compute_ponds, pond_geometry
 from cice4_tpu_torch.ops.ocean import ocean_mixed_layer
 from cice4_tpu_torch.ops.orbital import compute_coszen
-from cice4_tpu_torch.ops.remap import transport_remap
+from cice4_tpu_torch.ops.remap import (transport_remap,
+                                      transport_remap_decomposed)
 from cice4_tpu_torch.ops.shortwave import shortwave_ccsm3
 from cice4_tpu_torch.ops.shortwave_dedd import shortwave_dEdd
 from cice4_tpu_torch.ops.therm_vertical import (explicit_calc_tsfc,
@@ -45,6 +54,7 @@ from cice4_tpu_torch.ops.therm_vertical import (explicit_calc_tsfc,
                                                 make_thermo_params,
                                                 thermo_vertical_category)
 from cice4_tpu_torch.ops.transport import transport_upwind
+from cice4_tpu_torch.parallel.halo import BlockBC
 from cice4_tpu_torch.state import State, freezing_temperature, make_itd_params
 
 
@@ -317,7 +327,14 @@ def _step_dynamics(model: Model, state: State, grid: Grid, f: Forcing,
 
     tr = cfg.transport
     aice0_adv = None
-    if tr.advection == "remap":
+    if tr.advection == "remap" and isinstance(grid.bc, BlockBC):
+        # a block of a decomposed grid: the k-halo remap, or the gathered
+        # one where it is refused (cice4_tpu/model.py:354-368)
+        out = transport_remap_decomposed(state, grid, dt, tr)
+        state, aice0_adv = out[:2]
+        if len(out) == 3:
+            fluxes["_guards"].update(out[2])
+    elif tr.advection == "remap":
         out = transport_remap(
             state, grid, dt, tr.integral_order, tr.l_dp_midpt,
             tr.l_fixed_area, conservation_check=tr.conservation_check,

@@ -272,6 +272,24 @@ def _stepu(p: EvpParams, geom, nbr, iceumask, aiu, str8,
     return unew, vnew, strintx, strinty, strocnx, strocny
 
 
+def _evp_rounds_plain(p: EvpParams, grid: Grid, strength, icetmask,
+                      iceumask, aiu, uocn, vocn, waterx, watery,
+                      forcex, forcey, umassdtei, fm,
+                      uvel, vvel, stressp, stressm, stress12):
+    """p.ndte subcycles of stress+stepu, without the final subcycle's
+    diagnostics: the plain version of a round of the ``evp_subcycle``
+    kernel.  Returns (uvel, vvel, stressp, stressm, stress12)."""
+    nbr = h.Nbr(grid.bc)
+    args = (uocn, vocn, waterx, watery, forcex, forcey, umassdtei, fm)
+    for _ in range(p.ndte):
+        stressp, stressm, stress12, str8, _d = _stress_update(
+            p, grid, nbr, strength, icetmask, uvel, vvel,
+            stressp, stressm, stress12)
+        uvel, vvel, *_rest = _stepu(p, grid, nbr, iceumask, aiu, str8,
+                                    *args, uvel, vvel)
+    return uvel, vvel, stressp, stressm, stress12
+
+
 def _evp_subcycle_plain(p: EvpParams, grid: Grid, strength, icetmask,
                         iceumask, aiu, uocn, vocn, waterx, watery,
                         forcex, forcey, umassdtei, fm,
@@ -283,12 +301,9 @@ def _evp_subcycle_plain(p: EvpParams, grid: Grid, strength, icetmask,
     strocnx, strocny) with the last subcycle's strain sums in diag."""
     nbr = h.Nbr(grid.bc)
     args = (uocn, vocn, waterx, watery, forcex, forcey, umassdtei, fm)
-    for _ in range(p.ndte - 1):
-        stressp, stressm, stress12, str8, _d = _stress_update(
-            p, grid, nbr, strength, icetmask, uvel, vvel,
-            stressp, stressm, stress12)
-        uvel, vvel, *_rest = _stepu(p, grid, nbr, iceumask, aiu, str8,
-                                    *args, uvel, vvel)
+    uvel, vvel, stressp, stressm, stress12 = _evp_rounds_plain(
+        dataclasses.replace(p, ndte=p.ndte - 1), grid, strength, icetmask,
+        iceumask, aiu, *args, uvel, vvel, stressp, stressm, stress12)
 
     # final subcycle, with ridging diagnostics (":1103-1115")
     stressp, stressm, stress12, str8, d = _stress_update(
@@ -378,20 +393,17 @@ def evp(state: State, grid: Grid, dyn: DynamicsConfig, dt: float,
         # (ny-1, (nx-2-i) mod nx) are the same physical point stored twice.
         # Make every U-point input consistent with that (scalars equal,
         # vector components negated), as the reference's tripole halo does
-        # for NE_CORNER fields.  Each _sym builds a new tensor.
-        nxg = grid.nx
-        idx = torch.remainder(nxg - 2 - torch.arange(nxg, device=aice.device),
-                              nxg)
+        # for NE_CORNER fields.  The mirror point's value is the E-face
+        # fold ghost of the top row, so that a block of a decomposed grid
+        # takes it by exchange; only the top row of blocks holds the fold.
+        def _mirror(f):
+            return h.nbr_n(f, bc, FieldLoc.E_FACE)[..., -1, :]
 
-        def _sym(f, sign):
-            top = f[..., -1, :]
-            top = 0.5 * (top + sign * top[..., idx])
-            return torch.cat([f[..., :-1, :], top[..., None, :]], dim=-2)
-
-        iceumask = torch.cat([iceumask[..., :-1, :],
-                              (iceumask[..., -1, :]
-                               & iceumask[..., -1, idx])[..., None, :]],
-                             dim=-2)
+        on_fold = not isinstance(bc, h.BlockBC) or bc.north_edge
+        top_u = iceumask[..., -1, :] & _mirror(iceumask)
+        if on_fold:
+            iceumask = torch.cat([iceumask[..., :-1, :],
+                                  top_u[..., None, :]], dim=-2)
         uvel = torch.where(iceumask, uvel, 0.0)
         vvel = torch.where(iceumask, vvel, 0.0)
         umassdtei = torch.where(iceumask, umassdtei, 0.0)
@@ -400,17 +412,28 @@ def evp(state: State, grid: Grid, dyn: DynamicsConfig, dt: float,
         watery = torch.where(iceumask, watery, 0.0)
         forcex = torch.where(iceumask, forcex, 0.0)
         forcey = torch.where(iceumask, forcey, 0.0)
-        uvel, vvel = _sym(uvel, -1.0), _sym(vvel, -1.0)
-        uocn, vocn = _sym(uocn, -1.0), _sym(vocn, -1.0)
-        waterx, watery = _sym(waterx, -1.0), _sym(watery, -1.0)
-        forcex, forcey = _sym(forcex, -1.0), _sym(forcey, -1.0)
-        aiu = _sym(aiu, 1.0)
-        umassdtei = _sym(umassdtei, 1.0)
-        fm = _sym(fm, 1.0)
+        # one exchange for the eleven fields: (field, sign)
+        sym = (uvel, vvel, uocn, vocn, waterx, watery, forcex, forcey,
+               aiu, umassdtei, fm)
+        signs = torch.tensor([-1.0] * 8 + [1.0] * 3, dtype=aiu.dtype,
+                             device=aiu.device)[:, None]
+        stack = torch.stack(sym)
+        top = stack[:, -1, :]
+        top = 0.5 * (top + signs * _mirror(stack))
+        if on_fold:
+            stack = torch.cat([stack[:, :-1, :], top[:, None, :]], dim=-2)
+        (uvel, vvel, uocn, vocn, waterx, watery, forcex, forcey, aiu,
+         umassdtei, fm) = stack.unbind(0)
 
-    # --- subcycling (":347-408") ------------------------------------------
+    # --- subcycling (":347-408"); a block of a decomposed grid takes the
+    # k-halo rounds or, where they are refused, the gathered path
+    # (cice4_tpu/ops/evp.py:541-559) ---------------------------------------
+    subcycle = evp_subcycle
+    if isinstance(bc, h.BlockBC):
+        from cice4_tpu_torch.ops.evp_sharded import evp_subcycle_block
+        subcycle = evp_subcycle_block
     (uvel, vvel, stressp, stressm, stress12, d, strintx, strinty,
-     strocnx, strocny) = evp_subcycle(
+     strocnx, strocny) = subcycle(
         p, grid, strength, icetmask, iceumask, aiu, uocn, vocn,
         waterx, watery, forcex, forcey, umassdtei, fm,
         uvel, vvel, stressp, stressm, stress12)

@@ -23,6 +23,13 @@ the caller's tensors are never written.  Boundaries: cyclic, open or
 closed on both axes, and the tripole and tripoleT folds north-south (the
 kernel folds the str8 reads of the momentum pass; `evp` makes the top
 row of U points symmetric before the call).
+
+:func:`evp_rounds` is the kernel in round mode, for the k-halo rounds of
+a decomposed grid (:mod:`cice4_tpu_torch.ops.evp_sharded`): on a padded
+block, doubly cyclic to the kernel, it runs p.ndte gated subcycles and
+no final one, and returns the velocities and stresses.  Its launches
+count in ``evp_rounds.launches``; its plain version is
+:func:`_evp_rounds_plain`.
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ import functools
 import torch
 
 from cice4_tpu_torch import constants as cn
-from cice4_tpu_torch.ops.evp import EvpParams, _evp_subcycle_plain
+from cice4_tpu_torch.ops.evp import (EvpParams, _evp_rounds_plain,
+                                    _evp_subcycle_plain)
 from cice4_tpu_torch.parallel.halo import KERNEL_BC_CODE
 
 _GEOM = ("cyp", "cxp", "cym", "cxm", "dxt", "dyt", "dxhy", "dyhx",
@@ -81,7 +89,7 @@ def resident_grid(dtype, device_index: int):
 def _evp_subcycle_cuda(p: EvpParams, grid, strength, icetmask, iceumask,
                        aiu, uocn, vocn, waterx, watery, forcex, forcey,
                        umassdtei, fm, uvel, vvel, stressp, stressm,
-                       stress12):
+                       stress12, rounds: bool = False):
     bc = grid.bc
     if bc.ns not in KERNEL_BC_CODE or bc.ew not in ("cyclic", "open",
                                                     "closed"):
@@ -130,7 +138,9 @@ def _evp_subcycle_cuda(p: EvpParams, grid, strength, icetmask, iceumask,
     params = [p.dte2T, p.denom1, p.denom2, p.rcon, p.ecci, p.cosw, p.sinw,
               p.dragw, cn.puny]
     par_arr = (ctypes.c_double * len(params))(*params)
-    flags = int(p.evp_damping) | (int(p.hemi_turning) << 1)
+    # bit 2: round mode, p.ndte gated subcycles and no final one
+    flags = (int(p.evp_damping) | (int(p.hemi_turning) << 1)
+             | (int(rounds) << 2))
     fn = _evp_fn(dtype)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -139,8 +149,11 @@ def _evp_subcycle_cuda(p: EvpParams, grid, strength, icetmask, iceumask,
                 flags, stream)
     if rc != 0:
         raise RuntimeError(f"evp_subcycle launch failed: cudaError {rc}")
-    evp_subcycle.launches += 1
     evp_subcycle.stats = scratch[2 * blocks:2 * blocks + len(_STATS)]
+    if rounds:
+        evp_rounds.launches += 1
+        return tuple(state)
+    evp_subcycle.launches += 1
     if bc.ns == "cyclic":
         evp_subcycle.ns_cyclic_launches += 1
     o = dict(zip(_OUT, outs))
@@ -168,6 +181,24 @@ def evp_subcycle(p: EvpParams, grid, strength, icetmask, iceumask, aiu,
         f"evp_subcycle has no path for device {uvel.device}")
 
 
+def evp_rounds(p: EvpParams, grid, strength, icetmask, iceumask, aiu,
+               uocn, vocn, waterx, watery, forcex, forcey, umassdtei, fm,
+               uvel, vvel, stressp, stressm, stress12):
+    """p.ndte gated EVP subcycles and no final one (a k-halo round):
+    returns (uvel, vvel, stressp, stressm, stress12).  The kernel in
+    round mode for CUDA tensors, :func:`_evp_rounds_plain` for CPU
+    ones."""
+    args = (p, grid, strength, icetmask, iceumask, aiu, uocn, vocn, waterx,
+            watery, forcex, forcey, umassdtei, fm, uvel, vvel, stressp,
+            stressm, stress12)
+    if uvel.device.type == "cuda":
+        return _evp_subcycle_cuda(*args, rounds=True)
+    if uvel.device.type == "cpu":
+        return _evp_rounds_plain(*args)
+    raise NotImplementedError(
+        f"evp_rounds has no path for device {uvel.device}")
+
+
 def last_launch() -> dict:
     """What the kernel's last launch reported it ran: its active T cells
     and U points, the grid barriers it passed, its blocks and threads per
@@ -179,4 +210,5 @@ def last_launch() -> dict:
 
 evp_subcycle.launches = 0
 evp_subcycle.ns_cyclic_launches = 0
+evp_rounds.launches = 0
 evp_subcycle.stats = None

@@ -17,6 +17,7 @@ from cice4_tpu_torch import constants as cn
 from cice4_tpu_torch.config import DynamicsConfig
 from cice4_tpu_torch.ops.itd import TRACER_DEPEND, _compute_tracers
 from cice4_tpu_torch.ops.mechred_strength import Cs, fsnowrdg, ridge_itd_full
+from cice4_tpu_torch.parallel.halo import global_all
 from cice4_tpu_torch.state import ItdParams, State
 
 nitermax_ridge = 20
@@ -229,7 +230,8 @@ def ridge_ice(state: State, itd: ItdParams, dyn: DynamicsConfig, dt,
         divu_adv = (1.0 - asum) / dt
         closing_net = torch.where(ok, 0.0, torch.clamp(-divu_adv, min=0.0))
         opning = torch.where(ok, 0.0, torch.clamp(divu_adv, min=0.0))
-        done = bool(ok.all())
+        # on a decomposed grid every block leaves the loop together
+        done = global_all(ok)
         niter += 1
 
     guard_rec = None

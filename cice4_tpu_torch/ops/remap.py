@@ -41,6 +41,15 @@ it under XLA) and is contracted by K12; and the global conservation and
 monotonicity checks, whose guard records stay on the device.  The JAX
 package's legacy non-GA contraction is not ported: it computes the same
 divergences as the GA branch.
+
+On a decomposed grid (:func:`transport_remap_decomposed`) a block runs
+the k-halo remap of :func:`transport_remap_sharded`: one batched 6-ring
+exchange of every input plane, the whole remap on the padded block (its
+kernels included, as on the doubly periodic box) and the core kept.
+Where :func:`remap_sharded_eligible` refuses (the tripole folds, whose
+folded intermediate planes a ghost computation does not reproduce, the
+global checks, small blocks, a one-block mesh) the block takes the
+gathered path: it gathers the inputs and runs the one-device remap.
 """
 
 from __future__ import annotations
@@ -850,3 +859,142 @@ def transport_remap(state: State, grid: Grid, dt,
     if conservation_check or monotonicity_check:
         return state, aice0_new, guards
     return state, aice0_new
+
+
+# ---------------------------------------------------------------------------
+# decomposed grids (port of cice4_tpu/ops/remap.py:1243-1383)
+# ---------------------------------------------------------------------------
+
+REMAP_HALO = 6
+_REMAPPED = ("aicen", "vicen", "vsnon", "eicen", "esnon", "tsfcn")
+
+
+def remap_sharded_eligible(grid, mesh, transport_cfg=None) -> bool:
+    """Whether the k-halo remap takes a grid (global `ny`, `nx`, `bc`) on
+    `mesh`: more than one block, blocks that divide the grid and hold the
+    6-ring halo, no tripole fold and no global check (with the
+    ``CICE4_NO_SHARDED_REMAP`` switch of the JAX package)."""
+    if os.environ.get("CICE4_NO_SHARDED_REMAP"):
+        return False
+    if mesh is None:
+        return False
+    py, px = mesh.shape
+    if py * px <= 1:
+        return False
+    if grid.bc.ns in FOLDS:
+        return False
+    if transport_cfg is not None and (transport_cfg.conservation_check
+                                      or transport_cfg.monotonicity_check):
+        return False
+    H = REMAP_HALO
+    return (grid.ny % py == 0 and grid.nx % px == 0
+            and grid.ny // py >= H and grid.nx // px >= H)
+
+
+def transport_remap_decomposed(state: State, grid: Grid, dt, tr):
+    """`transport_remap` of a block grid under the transport config `tr`:
+    the k-halo remap where :func:`remap_sharded_eligible` takes the grid,
+    else the gathered path.  Returns what `transport_remap` returns, on
+    the block."""
+    from types import SimpleNamespace
+
+    from cice4_tpu_torch.parallel.mesh import get_active_mesh
+
+    bcb = grid.bc
+    view = SimpleNamespace(ny=bcb.ny, nx=bcb.nx, bc=bcb.bc)
+    if remap_sharded_eligible(view, get_active_mesh(), tr):
+        return transport_remap_sharded(state, grid, dt, tr.integral_order,
+                                       tr.l_dp_midpt, tr.l_fixed_area)
+    return transport_remap_gathered(
+        state, grid, dt, tr.integral_order, tr.l_dp_midpt, tr.l_fixed_area,
+        conservation_check=tr.conservation_check,
+        monotonicity_check=tr.monotonicity_check)
+
+
+def transport_remap_gathered(state: State, grid: Grid, dt, *args, **kw):
+    """The gathered remap of a block grid: the block gathers the remap's
+    inputs, runs the one-device `transport_remap` (kernels and fold
+    included) on the global grid and keeps its core.  Exact by
+    construction; the guard records are the global ones."""
+    from cice4_tpu_torch.parallel import halo as h
+
+    bcb = grid.bc
+    full = {n: h.gather_field(getattr(state, n), bcb.mesh)
+            for n in _REMAPPED + ("uvel", "vvel")}
+    trc = {k: h.gather_field(v, bcb.mesh) for k, v in state.trcrn.items()}
+    with h.gathered_phase("remap"):
+        out = transport_remap(state.replace(trcrn=trc, **full),
+                              bcb.global_grid, dt, *args, **kw)
+    new = out[0]
+    state = state.replace(
+        trcrn={k: bcb.core(v) for k, v in new.trcrn.items()},
+        **{n: bcb.core(getattr(new, n)) for n in _REMAPPED})
+    return (state, bcb.core(out[1])) + tuple(out[2:])
+
+
+def transport_remap_sharded(state: State, grid: Grid, dt,
+                            integral_order: int = 2, dp_midpt: bool = False,
+                            fixed_area: bool = False):
+    """The k-halo remap of a block grid (port of
+    ``cice4_tpu/ops/remap.py:1268-1383``): one batched exchange of every
+    remap input (about 70 planes as one stack), then the whole
+    `transport_remap` on the 6-ring padded block with a local doubly
+    cyclic boundary, and the core kept.  Bit-equal to the one-device
+    remap: every ghost value is the global neighbour's, so every core
+    cell sees the same arithmetic.  The ring budget is 4 (geometry 2,
+    GSH 1, the divergence's shift 1) plus 1 each for the midpoint
+    correction and the fixed-area edge velocities."""
+    from types import SimpleNamespace
+
+    from cice4_tpu_torch.parallel import halo as h
+
+    H = REMAP_HALO
+    bcb = grid.bc
+    dtype = state.aicen.dtype
+    tracer_names = list(state.trcrn.keys())
+    fields = dict(
+        aicen=state.aicen, vicen=state.vicen, vsnon=state.vsnon,
+        eicen=state.eicen, esnon=state.esnon, tsfcn=state.tsfcn,
+        uvel=state.uvel[None], vvel=state.vvel[None],
+        dxu=grid.dxu[None], dyu=grid.dyu[None], hm=grid.hm[None],
+        tmask=grid.tmask.to(dtype)[None], tarear=grid.tarear[None],
+        tarea=grid.tarea[None], hte=grid.hte[None], htn=grid.htn[None],
+        **{f"trc_{n}": state.trcrn[n] for n in tracer_names})
+    flat = [v.reshape((-1,) + v.shape[-2:]).to(dtype)
+            for v in fields.values()]
+    sizes = [f.shape[0] for f in flat]
+    a = torch.nn.functional.pad(torch.cat(flat, dim=0), (H, H, H, H))
+    a = h.exchange_padded(a, H, bcb)
+    parts = dict(zip(fields, torch.split(a, sizes, dim=0)))
+
+    def take(name):
+        v = parts[name]
+        lead = fields[name].shape[:-2]
+        return v[0] if lead == (1,) else v.reshape(lead + v.shape[-2:])
+
+    hm = take("hm")
+    zero = torch.zeros_like(hm)
+    z4 = torch.zeros((4,) + hm.shape, dtype=dtype, device=hm.device)
+    local = SimpleNamespace(
+        bc=h.BoundaryConditions(ew="cyclic", ns="cyclic"),
+        dxu=take("dxu"), dyu=take("dyu"), hm=hm, tmask=take("tmask") > 0.5,
+        tarear=take("tarear"), tarea=take("tarea"), hte=take("hte"),
+        htn=take("htn"), ny=hm.shape[-2], nx=hm.shape[-1])
+    # the fields the remap does not read are block-local stand-ins
+    st = State(
+        aicen=take("aicen"), vicen=take("vicen"), vsnon=take("vsnon"),
+        eicen=take("eicen"), esnon=take("esnon"), tsfcn=take("tsfcn"),
+        trcrn={n: take(f"trc_{n}") for n in tracer_names},
+        uvel=take("uvel"), vvel=take("vvel"),
+        stressp=z4, stressm=z4, stress12=z4, iceumask=hm > 2.0, sst=zero,
+        frzmlt=zero, scale_factor=zero, strocnxT=zero, strocnyT=zero)
+    out, aice0 = transport_remap(st, local, dt, integral_order, dp_midpt,
+                                 fixed_area)
+
+    def core(v):
+        return v[..., H:-H, H:-H]
+
+    state = state.replace(
+        trcrn={n: core(out.trcrn[n]) for n in tracer_names},
+        **{n: core(getattr(out, n)) for n in _REMAPPED})
+    return state, core(aice0)

@@ -31,6 +31,7 @@ import dataclasses
 import torch
 
 from cice4_tpu_torch import constants as cn
+from cice4_tpu_torch.parallel.halo import global_all
 
 # module parameters (ice_therm_vertical.F90:44-66)
 hs_min = 1.0e-4      # min snow thickness for computing Tsno (m)
@@ -534,7 +535,7 @@ def _temperature_changes_core(p: ThermoParams, dt, has_ice,
             dq_col=mrg(dq_col, c["dq_col"]),
             why=mrg(why, c["why"]),
         )
-        all_conv = bool((c["converged"] | ~has_ice).all())
+        all_conv = global_all(c["converged"] | ~has_ice)
         niter += 1
 
     return dict(
@@ -846,7 +847,7 @@ def temperature_changes_know_tsfc(p: ThermoParams, dt, has_ice, fcondtopn,
                  dq_col=mrg(dq_col, c["dq_col"]),
                  fcondbot=mrg(fcondbot, c["fcondbot"]),
                  converged=mrg(~(osc | bad_e), c["converged"]))
-        all_conv = bool((c["converged"] | ~has_ice).all())
+        all_conv = global_all(c["converged"] | ~has_ice)
         niter += 1
 
     return dict(Tsn=c["Tsn"], Tin=c["Tin"], qsn=c["qsn"], qin=c["qin"],
@@ -982,7 +983,7 @@ def zerolayer_temperature(p: ThermoParams, dt, has_ice,
                  flwoutn=mrg(sf["flwoutn"] + dTsf * sf["dflwout_dT"],
                              c["flwoutn"]),
                  converged=mrg(~unconv, c["converged"]))
-        all_conv = bool((c["converged"] | ~has_ice).all())
+        all_conv = global_all(c["converged"] | ~has_ice)
         niter += 1
 
     return dict(Tsf=c["Tsf"], fsurfn=c["fsurfn"], fcondtopn=c["fcondtopn"],
