@@ -59,9 +59,12 @@ Phases, each of which ends the run with a non-zero exit on failure:
    checkout, one nvcc each, all started together;
 3. kernels vs plain versions on the card, f32 and f64, with the
    tolerances of ``kernel_check``: therm_newton at (5, 384, 320) and
-   (5, 116, 100), and at the layer counts (7, 1), (2, 1) and (4, 2) on
-   the smaller; the dynamics kernels at 384x320 and 116x100 with
-   ice-free bands, EW cyclic and closed, NS closed, open and cyclic, and
+   (5, 116, 100), and at the layer counts (7, 1), (2, 1) and (4, 2) of
+   other register instances and (9, 1), (10, 1), (16, 2) and (32, 3) of
+   its generic instance (layer counts at run time) on the smaller, where
+   the generic instance is also held against the register one at
+   (4, 1); the dynamics kernels at 384x320 and 116x100 with ice-free
+   bands, EW cyclic and closed, NS closed, open and cyclic, and
    the tripole and tripoleT folds on the all-ocean grid (remap_gsh at
    quadrature orders 1-3), where the split route's kernels must refuse
    the fold;
@@ -175,7 +178,20 @@ Phases, each of which ends the run with a non-zero exit on failure:
    (through ``IceModelRun`` or ``IceComponent``, the exports compared
    too) on the card agree with the CPU path (which the tier-1 tests hold
    against the JAX package) after 3 steps (2 intervals of 2);
-18. timing: ms/step and cell-steps/s of the gx1 and box paths, device
+18. deep column: gx1 at 320x384, f32, ``domain.nilyr=10`` (one snow
+    layer: a deeper snow fails at the first step in both packages), 4
+    steps: therm_newton's generic instance, evp_subcycle, remap_gsh and
+    remap_k12 once a step, no plain version, the state physical as in
+    phase 4; therm_newton against its plain version at this path's inputs
+    and timed beside its bound;
+19. bench: ``python -m cice4_tpu_torch bench`` in a process of its own
+    with ``BENCH_CONFIG=gx1`` and with ``BENCH_CONFIG=access025``: the
+    last line of its stdout is one JSON object with the JAX bench's four
+    keys, value > 0 and vs_baseline = value / 3.55e4; its stderr shows each
+    of the four default-route kernels launched once in each timed step (a
+    wrapper given a CUDA tensor launches its kernel or raises, so no plain
+    version ran); both lines and the diagnostics are logged;
+20. timing: ms/step and cell-steps/s of the gx1 and box paths, device
     time by phase (the box also on the split remap route), and each
     kernel against its plain version at the inputs its path gives it,
     beside the least time the card could take;
@@ -189,8 +205,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
     read, what binds K0, K1 and K2 (a PyTorch copy of as many bytes, their
     operation rate, for K1 and K2 their time without tracers), the ptxas
     lines of the EVP kernel, K0 (f32 and f64), K12, K1 and K2, therm_newton
-    at (7, 1) beside (4, 1) on seeded inputs, and whether a CUDA graph can
-    capture the EVP kernel's cooperative launch.
+    at (7, 1) and its generic instance at (4, 1) beside the register (4, 1)
+    on seeded inputs, and whether a CUDA graph can capture the EVP kernel's
+    cooperative launch.
 
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -343,10 +360,18 @@ DECOMP_STEPS = 3
 DECOMP_TIMED = 2
 LAUNCH_STEPS = 2
 LAUNCH_TIMEOUT_S = 300
-# therm_newton's (nilyr, nslyr) instances held against the plain version
-# beside the gx1 path's (4, 1), and the one timed beside it
-NEWTON_LAYERS = ((7, 1), (2, 1), (4, 2))
+# therm_newton's (nilyr, nslyr) held against the plain version beside the
+# gx1 path's (4, 1): counts of other register instances, then of the
+# generic instance; and the register instance timed beside (4, 1)
+NEWTON_LAYERS = ((7, 1), (2, 1), (4, 2), (9, 1), (10, 1), (16, 2), (32, 3))
 NEWTON_TIMED = (7, 1)
+# the deep-column path (phase 18): gx1 with 10 ice layers, the generic
+# instance's counts, DEEP_STEPS steps
+DEEP = {"grid.kmt_file": "", "domain.nilyr": 10}
+DEEP_STEPS = 4
+# the bench (phase 19): its configurations, each in a process of its own
+BENCH_CONFIGS = ("gx1", "access025")
+BENCH_TIMEOUT_S = 300
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W; the
 # f32 and f64 rates outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -382,7 +407,9 @@ PATH_OF = {"therm_newton": "gx1", "evp_subcycle": "gx1",
 
 # Operations each kernel's function does, counted from the CUDA sources
 # (one per add, multiply, compare, min/max, division or square root):
-# Newton solve: an upper estimate per iteration of an icy cell;
+# Newton solve: an upper estimate per iteration of an icy cell, a fixed
+# part and one per row of the (nslyr + nilyr + 1)-row system (300 at the
+# gx1 counts);
 # EVP: per active T cell and subcycle (strain rates 84, relaxation 85,
 # str8 188), per active U point (momentum 43), the final pass over all
 # cells adds the 4 corner sums; GSH/GA: per cell, both edges' geometry,
@@ -391,7 +418,7 @@ PATH_OF = {"therm_newton": "gx1", "evp_subcycle": "gx1",
 # each type-1 (111) and type-2 (113) tracer; K12 and K2: per donor offset
 # the mass (6), type-1 (24) and type-2 (73) contraction terms, the open
 # water row (0) as mass only (its tracer divergence is 0).
-OPS_NEWTON_ITER = 300
+OPS_NEWTON_FIXED, OPS_NEWTON_ROW = 60, 40
 OPS_EVP_STRESS, OPS_EVP_MOMENTUM, OPS_EVP_FINAL_SUMS = 357, 43, 12
 OPS_GSH_CELL = {1: 1204, 2: 1948, 3: 2248}
 OPS_K12_MASS, OPS_K12_T1, OPS_K12_T2 = 100, 111, 113
@@ -578,9 +605,35 @@ def layer_params(p, nilyr, nslyr):
 
 def check_newton(p, device):
     """therm_newton against its plain version at the gx1 layer counts on
-    two shapes, and at the other instances NEWTON_LAYERS on the smaller."""
+    two shapes, and at the other counts NEWTON_LAYERS on the smaller (the
+    generic instance past 8 ice or 3 snow layers); the generic instance
+    against the register one at the gx1 counts."""
     from cice4_tpu_torch import kernel_check
     from cice4_tpu_torch.ops import therm_vertical as tv
+
+    for dtype in (torch.float32, torch.float64):
+        args = kernel_check.make_inputs(p, 5, 116, 100, seed=11,
+                                        device=device, dtype=dtype)
+        before = tv._temperature_changes_cuda.generic_launches
+        gen = tv._temperature_changes_cuda(p, DT, *args, generic=True)
+        reg = tv.temperature_changes(p, DT, *args)
+        plain = tv._temperature_changes_core(p, DT, *args)
+        torch.cuda.synchronize()
+        if tv._temperature_changes_cuda.generic_launches != before + 1:
+            raise AssertionError("therm_newton's generic instance was not "
+                                 "counted")
+        for ref_name, ref in (("register instance", reg),
+                              ("plain version", plain)):
+            rep = kernel_check.compare(gen, ref, args[0], dtype)
+            worst = max(v["max_rel"] for v in rep["fields"].values())
+            log(f"  therm_newton generic instance vs {ref_name} (5, 116, "
+                f"100) nilyr {p.nilyr} nslyr {p.nslyr} {str(dtype)[6:]}: "
+                f"ok={rep['ok']} icy cells {rep['n_ice']}, cells whose "
+                f"convergence or iteration count differs {rep['n_flip']}, "
+                f"worst {worst:.3e} of the field's scale")
+            if not rep["ok"]:
+                raise AssertionError(f"therm_newton's generic instance "
+                                     f"disagrees with the {ref_name}")
 
     cases = [(p, shape) for shape in ((5, 384, 320), (5, 116, 100))]
     cases += [(layer_params(p, *nl), (5, 116, 100)) for nl in NEWTON_LAYERS]
@@ -592,8 +645,10 @@ def check_newton(p, device):
             plain = tv._temperature_changes_core(q, DT, *args)
             torch.cuda.synchronize()
             rep = kernel_check.compare(kern, plain, args[0], dtype)
+            instance = "generic" if q.nilyr > tv.TC_REGISTER_NILYR or \
+                q.nslyr > tv.TC_REGISTER_NSLYR else "register"
             log(f"  therm_newton {shape} nilyr {q.nilyr} nslyr {q.nslyr} "
-                f"{str(dtype)[6:]}: ok={rep['ok']} "
+                f"({instance} instance) {str(dtype)[6:]}: ok={rep['ok']} "
                 f"icy cells {rep['n_ice']}, cells whose convergence or "
                 f"iteration count differs {rep['n_flip']}, max niter kernel "
                 f"{rep['niter_kernel']} plain {rep['niter_plain']}")
@@ -2198,7 +2253,90 @@ def phase_decomposed(device, card, workdir):
 
 
 # ---------------------------------------------------------------------------
-# phase 18: timing
+# phases 18-19: the deep column and the bench
+# ---------------------------------------------------------------------------
+
+
+def phase_deep(device, card):
+    """gx1 with DEEP's 10 ice layers, DEEP_STEPS steps with the counters:
+    the four kernels of the default route once a step, therm_newton by its
+    generic instance, no plain version, a physical state; therm_newton
+    against its plain version at this path's inputs, both timed.  Returns
+    {"therm_newton": (launches, ms, bound_ms, max |d|)} and the plain
+    version's ms."""
+    from cice4_tpu_torch.ops import therm_vertical as tv
+
+    cfg = make_config(DEEP)
+    before = tv._temperature_changes_cuda.generic_launches
+    model, state, forcing, _, _ = drive_path(
+        "deep column", cfg, device, DEEP_STEPS,
+        expected(therm_newton=DEEP_STEPS, evp_subcycle=DEEP_STEPS,
+                 remap_gsh=DEEP_STEPS, remap_k12=DEEP_STEPS), moving=True)
+    launches = read_counts()
+    generic = tv._temperature_changes_cuda.generic_launches - before
+    log(f"  deep column: therm_newton's generic instance launched {generic} "
+        f"times in {DEEP_STEPS} steps; eicen {tuple(state.eicen.shape)}")
+    if generic != DEEP_STEPS:
+        raise AssertionError(f"deep column: the generic instance launched "
+                             f"{generic} times, expected {DEEP_STEPS}")
+    args = capture_kernel_inputs(model, state, forcing, ["therm_newton"],
+                                 yday=YDAY0 + DEEP_STEPS * DT / 86400.0)
+    err, ms, plain_ms, bound_ms, _ = measure_kernel(
+        "therm_newton", args["therm_newton"], card,
+        where="the deep column's (nilyr 10)")
+    return {"therm_newton": (launches["therm_newton"], ms, bound_ms,
+                             err)}, plain_ms
+
+
+def phase_bench():
+    """``python -m cice4_tpu_torch bench`` under each BENCH_CONFIGS, each in
+    a process of its own: the JAX bench's one JSON line last on stdout,
+    each default-route kernel launched once a timed step."""
+    root = Path(__file__).resolve().parent
+    for which in BENCH_CONFIGS:
+        env = {**os.environ, "PYTHONPATH": str(root), "BENCH_CONFIG": which}
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "cice4_tpu_torch",
+                              "bench"], capture_output=True, text=True,
+                             timeout=BENCH_TIMEOUT_S, cwd=root, env=env)
+        seconds = time.perf_counter() - t0
+        lines = res.stdout.strip().splitlines()
+        if res.returncode != 0 or not lines:
+            raise AssertionError(f"bench {which} exited {res.returncode}:\n"
+                                 f"{res.stdout}\n{res.stderr}")
+        for line in res.stderr.strip().splitlines():
+            log(f"  bench {which} stderr: {line}")
+        log(f"  bench {which} stdout ({len(lines)} line(s), exit 0, "
+            f"{seconds:.1f} s with start-up): {lines[-1]}")
+        got = json.loads(lines[-1])
+        if list(got) != ["metric", "value", "unit", "vs_baseline"] or \
+                got["metric"] != f"{which} full-model cell-steps/s (1 chip)" \
+                or got["unit"] != "cell-steps/s":
+            raise AssertionError(f"bench {which}: not the JAX bench's line: "
+                                 f"{lines[-1]}")
+        if not (got["value"] > 0.0
+                and got["vs_baseline"] == got["value"] / 3.55e4):
+            raise AssertionError(f"bench {which}: value {got['value']}, "
+                                 f"vs_baseline {got['vs_baseline']}")
+        counts = re.search(r"# launches in the timed steps: (.*)",
+                           res.stderr)
+        steps = re.search(r"# (\d+) steps in ", res.stderr)
+        if counts is None or steps is None:
+            raise AssertionError(f"bench {which}: no launch counts on "
+                                 f"stderr")
+        launched = {k: int(n) for k, n in (
+            item.rsplit(" ", 1) for item in counts.group(1).split(", "))}
+        want = dict.fromkeys(DEFAULT_ROUTE, int(steps.group(1)))
+        if launched != want:
+            raise AssertionError(f"bench {which}: launches {launched}, "
+                                 f"expected {want}")
+        log(f"  bench {which}: each default-route kernel launched once a "
+            f"timed step ({launched}); a wrapper on a CUDA tensor launches "
+            f"its kernel or raises, so no plain version ran")
+
+
+# ---------------------------------------------------------------------------
+# phase 20: timing
 # ---------------------------------------------------------------------------
 
 
@@ -2343,7 +2481,9 @@ def bound(name, args, out):
 
     if name == "therm_newton":
         nbytes = unique_bytes(args[2:]) + unique_bytes(out)
-        ops = OPS_NEWTON_ITER * float(out["niter_cells"].sum())
+        p = args[0]
+        ops = (OPS_NEWTON_FIXED + OPS_NEWTON_ROW * (p.nslyr + p.nilyr + 1)) \
+            * float(out["niter_cells"].sum())
         dtype = args[-1].dtype
     elif name in ("evp_subcycle", "evp_wholegrid"):
         p, grid = args[0], args[1]
@@ -2582,31 +2722,67 @@ def log_design(name, args, ms):
 
 def time_newton_layers(p, device, card):
     """Device ms per therm_newton launch on the seeded inputs of
-    `kernel_check` at the gx1 shape (5, 384, 320), f32, with the gx1
-    path's layer counts and with NEWTON_TIMED, in the order gx1, other,
-    other, gx1; each call held against its plain version."""
+    `kernel_check` at the gx1 shape (5, 384, 320), f32: the register
+    instance at the gx1 path's layer counts, the generic instance at the
+    same counts and the register instance at NEWTON_TIMED, in the order
+    a, b, c, c, b, a; each call held against its plain version."""
     from cice4_tpu_torch import kernel_check
     from cice4_tpu_torch.ops import therm_vertical as tv
 
     calls = {}
-    for q in (p, layer_params(p, *NEWTON_TIMED)):
+    for q, generic in ((p, False), (p, True),
+                       (layer_params(p, *NEWTON_TIMED), False)):
         args = kernel_check.make_inputs(q, 5, 384, 320, seed=11,
                                         device=device, dtype=torch.float32)
-        kern = tv.temperature_changes(q, DT, *args)
+
+        def call(q=q, args=args, generic=generic):
+            return tv._temperature_changes_cuda(q, DT, *args,
+                                                generic=generic)
+        kern = call()
         plain = tv._temperature_changes_core(q, DT, *args)
         torch.cuda.synchronize()
         if not kernel_check.compare(kern, plain, args[0],
                                     torch.float32)["ok"]:
             raise AssertionError(f"therm_newton disagrees at nilyr "
-                                 f"{q.nilyr} nslyr {q.nslyr}")
-        calls[f"{q.nilyr}x{q.nslyr}"] = (
-            lambda q=q, args=args: tv.temperature_changes(q, DT, *args))
-    (a, b), order = list(calls), []
-    for key in (a, b, b, a):
+                                 f"{q.nilyr} nslyr {q.nslyr}, generic "
+                                 f"{generic}")
+        calls[f"{q.nilyr}x{q.nslyr}" + (" generic" if generic else "")] = call
+    keys, order = list(calls), []
+    for key in keys + keys[::-1]:
         order.append((key, device_ms(calls[key], 50)))
     out = {key: min(t for k, t in order if k == key) for key in calls}
     log(f"  therm_newton on the seeded inputs at (5, 384, 320), f32: "
         + "; ".join(f"nilyr x nslyr {k}: {t:.4f} ms" for k, t in order)
+        + f" (device time per launch, in this order); card: {card}")
+    return out
+
+
+def time_generic_at(args, card):
+    """therm_newton's generic instance at a path's captured arguments, held
+    against the register instance and the plain version there, and both
+    instances' device time per launch in the order register, generic,
+    generic, register: {"generic_ms": ..., "register_ms": ...}."""
+    from cice4_tpu_torch import kernel_check
+    from cice4_tpu_torch.ops import therm_vertical as tv
+
+    calls = {"register": lambda: tv._temperature_changes_cuda(*args),
+             "generic": lambda: tv._temperature_changes_cuda(
+                 *args, generic=True)}
+    gen, reg = calls["generic"](), calls["register"]()
+    plain = tv._temperature_changes_core(*args)
+    torch.cuda.synchronize()
+    for ref_name, ref in (("register instance", reg),
+                          ("plain version", plain)):
+        rep = kernel_check.compare(gen, ref, args[2], args[-1].dtype)
+        if not rep["ok"]:
+            raise AssertionError(f"therm_newton's generic instance disagrees "
+                                 f"with the {ref_name} at the path's inputs")
+    order = [(k, device_ms(calls[k], 50))
+             for k in ("register", "generic", "generic", "register")]
+    out = {f"{k}_ms": min(t for kk, t in order if kk == k) for k in calls}
+    log(f"  therm_newton at the gx1 path's inputs, register vs generic "
+        f"instance (both within tolerance of each other and of the plain "
+        f"version): " + "; ".join(f"{k} {t:.4f} ms" for k, t in order)
         + f" (device time per launch, in this order); card: {card}")
     return out
 
@@ -2632,10 +2808,11 @@ def evp_graph_capture(args):
     return f"yes, replay {'equals' if same else 'DIFFERS FROM'} the eager call"
 
 
-def measure_kernel(name, args, card):
+def measure_kernel(name, args, card, where=None):
     """Kernel against plain on a path's captured arguments: (max |kernel
     - plain|, kernel device ms per launch, plain ms, bound_ms, bound_by).
-    Raises when they disagree beyond the kernel's tolerance."""
+    Raises when they disagree beyond the kernel's tolerance.  `where`
+    names the path (by default PATH_OF's)."""
     kern_fn, plain_fn = kernel_and_plain(name, args)
     kern, plain = kern_fn(), plain_fn()
     torch.cuda.synchronize()
@@ -2649,7 +2826,8 @@ def measure_kernel(name, args, card):
     kern_ms, plain_ms = time_pair(kern_fn, plain_fn, reps_plain=reps_plain)
     bound_ms, bound_by, nbytes, ops = bound(name, args, kern)
     ms = min(k[0] for k in kern_ms)
-    log(f"  {name} at the {PATH_OF.get(name, 'split')} path's inputs: "
+    where = where or f"the {PATH_OF.get(name, 'split')} path's"
+    log(f"  {name} at {where} inputs: "
         f"kernel device time {kern_ms[0][0]:.4f} / {kern_ms[1][0]:.4f} ms "
         f"per launch, wall {kern_ms[0][1]:.4f} / {kern_ms[1][1]:.4f} ms per "
         f"call with the wrapper; plain version {plain_ms[0]:.3f} / "
@@ -2805,12 +2983,12 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     card = card_line()
-    log(f"[1/18 device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
+    log(f"[1/20 device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
         f"torch {torch.__version__} CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     libs = cuda_build.load_all(LIBRARIES)
-    log(f"[2/18 build] {len(libs)} kernel libraries in "
+    log(f"[2/20 build] {len(libs)} kernel libraries in "
         f"{time.perf_counter() - t0:.2f} s wall, built in parallel")
     for name, lib in libs.items():
         log(f"  {name}: built={lib.built} nvcc {lib.seconds:.2f} s -> "
@@ -2821,12 +2999,12 @@ def main() -> int:
 
     cfg = make_config(MAIN)
     ny, nx = cfg.domain.ny_global, cfg.domain.nx_global
-    log("[3/18 kernels vs plain versions on the card]")
+    log("[3/20 kernels vs plain versions on the card]")
     model, _, _ = make_run(cfg, device, torch.float32)
     check_newton(model.thermo, device)
     check_dynamics_kernels(device)
 
-    log(f"[4/18 gx1 main path] gx1 default step {ny}x{nx}, ncat "
+    log(f"[4/20 gx1 main path] gx1 default step {ny}x{nx}, ncat "
         f"{cfg.domain.ncat}, nilyr {cfg.domain.nilyr}, nslyr "
         f"{cfg.domain.nslyr}, ndte {cfg.dynamics.ndte}, advection "
         f"{cfg.transport.advection}, f32, {MAIN_STEPS} steps of {DT:.0f} s")
@@ -2838,7 +3016,7 @@ def main() -> int:
     log(f"  ridge iterations per step: {ridge} (cap 20; "
         f"{sum(r == 20 for r in ridge)} steps at the cap)")
 
-    log(f"[5/18 earlier path] gx1 thermodynamics only, f32, {THERMO_STEPS} "
+    log(f"[5/20 earlier path] gx1 thermodynamics only, f32, {THERMO_STEPS} "
         f"steps")
     thermo_run = drive_path(
         "thermo-only path", make_config(THERMO_ONLY), device, THERMO_STEPS,
@@ -2847,7 +3025,7 @@ def main() -> int:
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         bcfg = box_config()
-        log(f"[6/18 box path] IceModelRun, doubly-periodic box "
+        log(f"[6/20 box path] IceModelRun, doubly-periodic box "
             f"{bcfg.domain.ny_global}x{bcfg.domain.nx_global} ("
             f"{bcfg.grid.dx_rect / 1e3:.0f} km cells from "
             f"{bcfg.grid.lat_origin}N), EW {bcfg.domain.ew_boundary_type} NS "
@@ -2857,14 +3035,14 @@ def main() -> int:
         box_run, launches["box"], driver_step_ms = phase_box_driver(
             device, workdir / "box")
 
-        log(f"[7/18 split route] the box, {SPLIT_STEPS} steps with "
+        log(f"[7/20 split route] the box, {SPLIT_STEPS} steps with "
             f"CICE4_FORCE_PALLAS_REMAP=1 (K0 in GA mode, K1, K2)")
         launches["split"], worst_split = phase_split_route(device)
         log(f"  split vs default route after {SPLIT_STEPS} steps: worst "
             f"difference {worst_split:.3e} of the field's scale (limit "
             f"{SPLIT_RTOL})")
 
-        log(f"[8/18 CLI] python -m cice4_tpu_torch run, the box cut to "
+        log(f"[8/20 CLI] python -m cice4_tpu_torch run, the box cut to "
             f"{BOX_CLI['domain.ny_global']}x{BOX_CLI['domain.nx_global']}, "
             f"{CLI_STEPS} steps")
         (workdir / "cli").mkdir()
@@ -2872,18 +3050,18 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    log(f"[9/18 ACCESS-OM2 tripole] {ACCESS025[0]}x{ACCESS025[1]} (0.25 "
+    log(f"[9/20 ACCESS-OM2 tripole] {ACCESS025[0]}x{ACCESS025[1]} (0.25 "
         f"degree) and {ACCESS1[0]}x{ACCESS1[1]} (1 degree), f32, analytic "
         f"forcing from day {YDAY0:.0f}; card: {card}")
     access = phase_access(device, card, ACCESS025, detail=True)
     phase_access(device, card, ACCESS1, detail=False)
 
-    log(f"[10/18 dEdd path] gx1 {ny}x{nx} with delta-Eddington shortwave "
+    log(f"[10/20 dEdd path] gx1 {ny}x{nx} with delta-Eddington shortwave "
         f"and melt ponds, f32, {DEDD_STEPS} steps from day {YDAY0:.0f} from "
         f"the ponded state; card: {card}")
     dedd = phase_dedd(device, card)
 
-    log(f"[11/18 coupled path] gx1 {ny}x{nx} with the coupled radiation "
+    log(f"[11/20 coupled path] gx1 {ny}x{nx} with the coupled radiation "
         f"order, constant albedos, atmbndy='constant' and kitd=0, f32, "
         f"{COUPLED_STEPS} steps")
     _, cstate, _, _, _ = drive_path(
@@ -2898,14 +3076,14 @@ def main() -> int:
     log(f"  coupled path: shortwave carried to the next step, fswsfcn max "
         f"{carried:.4g} W/m^2")
 
-    log(f"[12/18 transport options] gx1 {ny}x{nx}, f32, {OPT_STEPS} steps a "
+    log(f"[12/20 transport options] gx1 {ny}x{nx}, f32, {OPT_STEPS} steps a "
         f"path from day {YDAY0:.0f}: (a) l_dp_midpt with the conservation "
         f"and monotonicity checks, (b) l_fixed_area, (c) upwind; (d) the "
         f"box on the split route with l_dp_midpt, {SPLIT_MIDPT_STEPS} steps; "
         f"card: {card}")
     options = phase_transport_options(device, card)
 
-    log(f"[13/18 thermo and grid variants] gx1 {ny}x{nx}, f32, "
+    log(f"[13/20 thermo and grid variants] gx1 {ny}x{nx}, f32, "
         f"{VARIANT_STEPS} steps a path: (e) heat_capacity=False, (f) calc_Tsfc=False, (g) "
         f"both; (h) a POP binary grid, (i) the same as netCDF, (j) a "
         f"pan-Arctic grid; card: {card}")
@@ -2915,7 +3093,7 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    log(f"[14/18 file forcing] gx1 {ny}x{nx}, f32, IceModelRun from 1 "
+    log(f"[14/20 file forcing] gx1 {ny}x{nx}, f32, IceModelRun from 1 "
         f"January 1997 under seeded files in the reference's layout, "
         f"{FILE_STEPS} steps a path: (k) NCAR with the ocean climatology "
         f"and SST restoring, (l) monthly with calc_strair=False; card: "
@@ -2926,7 +3104,7 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    log(f"[15/18 coupled component] IceComponent, f32, "
+    log(f"[15/20 coupled component] IceComponent, f32, "
         f"{COUPLED_INTERVALS} intervals of {INTERVAL_STEPS} steps from seeded "
         f"imports: (m) ACCESS-OM {ACCESS025[0]}x{ACCESS025[1]} with the GFDL "
         f"open-water fluxes, dt {ACCESS_OM025['run.dt']:.0f} s, (n) "
@@ -2938,7 +3116,7 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    log(f"[16/18 decomposed] the model on a mesh of blocks: (o) gx1 "
+    log(f"[16/20 decomposed] the model on a mesh of blocks: (o) gx1 "
         f"{ny}x{nx} on {DECOMP_MESH[0]}x{DECOMP_MESH[1]} blocks in one "
         f"process, {DECOMP_STEPS} steps against one device, then timed; (p) "
         f"ACCESS-OM2 {ACCESS1[0]}x{ACCESS1[1]} on the same mesh, 2 steps; "
@@ -2951,7 +3129,7 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    log("[17/18 small parity] 24x32 f64, card vs CPU, 3 steps")
+    log("[17/20 small parity] 24x32 f64, card vs CPU, 3 steps")
     from cice4_tpu_torch.kernel_check import ponded_state
     for name, pcfg, prepare in (
             ("gx1 main path", make_config(MAIN, **SMALL), None),
@@ -2988,7 +3166,19 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    log(f"[18/18 timing] card: {card}")
+    log(f"[18/20 deep column] gx1 {ny}x{nx}, nilyr "
+        f"{DEEP['domain.nilyr']}, nslyr {cfg.domain.nslyr}, f32, "
+        f"{DEEP_STEPS} steps from day {YDAY0:.0f}: therm_newton's generic "
+        f"instance; card: {card}")
+    deep, deep_plain_ms = phase_deep(device, card)
+
+    log(f"[19/20 bench] python -m cice4_tpu_torch bench, BENCH_CONFIG "
+        f"{' and '.join(BENCH_CONFIGS)}, each in a process of its own; "
+        f"card: {card}")
+    torch.cuda.empty_cache()
+    phase_bench()
+
+    log(f"[20/20 timing] card: {card}")
     ms_ev, ms_host, ridge_t = time_path(model, state, forcing, 8,
                                         first=MAIN_STEPS)
     log(f"  gx1 main path: {ms_ev:.3f} ms/step (CUDA events, 8 steps after "
@@ -3051,6 +3241,7 @@ def main() -> int:
                  "bound_ms": bound_ms, "bound_by": bound_by,
                  "library_ms": None, "path": path}
         for key, at in (("access025", access), ("dedd", dedd),
+                        ("nilyr10", deep),
                         ("midpt", options["midpt"]),
                         ("fixed_area", options["fixed_area"]),
                         ("ncar_clim", filed["ncar_clim"]),
@@ -3065,6 +3256,9 @@ def main() -> int:
         if name == "therm_newton":
             entry["ms_at_layers"] = time_newton_layers(
                 seen[name][0], device, card)
+            entry["generic_ms"] = time_generic_at(seen[name],
+                                                  card)["generic_ms"]
+            entry["nilyr10_plain_ms"] = deep_plain_ms
         if name == "remap_gsh":
             # the same kernel in GA mode, on the split route's inputs
             ga = measure_kernel("remap_ga", seen["remap_ga"], card)

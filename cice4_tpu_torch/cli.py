@@ -1,11 +1,13 @@
-"""Command-line interface: ``python -m cice4_tpu_torch run [config.toml]``.
+"""Command-line interface: ``python -m cice4_tpu_torch run [config.toml]``
+and ``python -m cice4_tpu_torch bench``.
 
 Port of :mod:`cice4_tpu.cli`: a TOML file with sections matching the
 Config dataclasses, named presets and dotted ``--set`` overrides, plus
 ``--device`` (default ``cuda``).  The run needs a CUDA device unless it
 is given ``--device cpu``: without one it exits with status 2 and runs
-nothing.  The JAX package's ``bench`` subcommand waits for the port's
-benchmark (ROADMAP queue 1 item 3).
+nothing.  ``bench`` runs :mod:`cice4_tpu_torch.bench` (the configuration
+of ``BENCH_CONFIG``) on the card; without one it exits with status 2 and
+prints nothing on stdout.
 """
 
 from __future__ import annotations
@@ -52,14 +54,21 @@ def main(argv=None):
     runp.add_argument("--device", default="cuda",
                       help="torch device of the run (default cuda)")
 
+    sub.add_parser("bench", help="run the benchmark (BENCH_CONFIG=gx1, "
+                   "access025 or gx3) on the card")
+
     args = p.parse_args(argv)
     import torch
 
-    device = torch.device(args.device)
+    device = torch.device("cuda" if args.cmd == "bench" else args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        print("cice4_tpu_torch: no CUDA device; the port runs on the GPU "
-              "unless given --device cpu", file=sys.stderr)
+        print("cice4_tpu_torch: no CUDA device; the port runs on the GPU"
+              + ("" if args.cmd == "bench" else " unless given --device cpu"),
+              file=sys.stderr)
         return 2
+    if args.cmd == "bench":
+        from cice4_tpu_torch.bench import main as bench_main
+        return bench_main()
 
     from cice4_tpu_torch.driver import IceModelRun
 

@@ -40,11 +40,46 @@
 // Instances, not a generic kernel with run-time counts: with run-time trip
 // counts the arrays would be indexed dynamically and live in local memory.
 //
+// Every other count goes to therm_newton_generic, one instance per type whose
+// layer counts are run-time arguments (the TPU kernel, _tc_kernel :632, is
+// traced for any count).  Its per-layer arrays cannot stay in registers, and
+// in local memory each thread's arrays would sit in its own stretch of
+// memory, one line a thread; so they live in dynamic shared memory, laid out
+// [array][layer][thread], where a warp's 32 threads read neighbouring words
+// (conflict-free in f32; in f64 a warp's 256 bytes are two wavefronts, the
+// least there is).  It carries across the Newton iterations only what lives
+// across them: Iswabs, Tin_init and Tin (nilyr each), the ice interfaces'
+// conductivities (nilyr + 1; the snow's are two scalars, never reduced),
+// Sswabs, Tsn_init and Tsn (nslyr each); and, as the scratch of one
+// iteration, the Thomas solve's sp, d and rhs (nslyr + nilyr + 1 each, the
+// solution written over rhs).  The rest is recomputed: qin and qsn from the
+// final temperatures (the inputs read again where no iteration ran), the
+// conductivity reduction's over-warm test from the solution, the
+// conductivity of each layer where its interfaces are built.  That is
+// 7 nilyr + 6 nslyr + 4 words a thread, and the salinity and melting
+// profiles (2 nilyr words) once a block.  The threads per block are the
+// multiple of 32, at most 128, whose arrays fit in 227 KB.  One warp's
+// arrays (with the profiles) fit up to nilyr 255 with nslyr 1 and 254 with
+// nslyr 3 in f32, and up to 127 and 125 in f64; beyond, the launch returns
+// kErrLayers and the wrapper raises with the count and the bytes.  It
+// keeps no spill and no stack frame (ptxas: 157 registers in f32, 210 in
+// f64), so registers, not shared memory, cap its blocks on an SM.  Its
+// bound is the bytes of
+// the layer stacks, which grow linearly with nilyr + nslyr, over 3.35 TB/s;
+// the shared-memory traffic of each iteration (about 3 words a row of the
+// solve, a thread) is what it pays for the run-time counts.
+//
 // C interface: therm_newton_f32 / therm_newton_f64 take a table of pointers,
 // a table of strides, the sizes, a table of double parameters (dt, l_brine,
-// bubbly, nilyr, nslyr, salin[nilyr], tmlt[nilyr]) and the CUDA stream; they
-// return cudaGetLastError() after the launch, or -2 for a layer count
-// beyond the instances built.
+// bubbly, nilyr, nslyr, salin[nilyr], tmlt[nilyr]), a device pointer to the
+// profiles salin[nilyr], tmlt[nilyr] in the working type (read by the generic
+// instance only) and the CUDA stream; they return cudaGetLastError() after
+// the launch, or kErrLayers (-2) for a layer count below 1 or beyond what one
+// warp's shared memory holds.  therm_newton_generic_{f32,f64}, with the same
+// arguments, launch the generic instance whatever the count (to hold it
+// against the templated one); therm_newton_generic_bytes gives its dynamic
+// shared memory and threads per block at a layer count (threads 0, and one
+// warp's bytes, beyond the largest).
 
 #include <cuda_runtime.h>
 
@@ -474,17 +509,428 @@ therm_newton_kernel(const Args<T, NI> a) {
   }
 }
 
+// --- the generic instance: layer counts at run time --------------------------
+
+// the pointer and stride tables of Args, without the profiles
+template <typename T>
+struct GenericArgs {
+  const uint8_t* has_ice;
+  int64_t has_ice_cs;
+  const T* in_plane[kInPlanes];
+  int64_t plane_cs[kInPlanes];
+  const T* in_layer[kInLayers];
+  int64_t layer_cs[kInLayers];
+  int64_t layer_ls[kInLayers];
+  T* out_plane[kOutPlanes];
+  uint8_t* converged;
+  int32_t* why;
+  int32_t* niter;
+  T* out_layer[kOutLayers];
+  int64_t ncat, ncell;
+  T dt;
+  int l_brine, bubbly;
+  const T* profile;                   // salin[ni], tmlt[ni]
+  int ni, ns;
+};
+
+// words of shared memory a thread (see the note at the top) and a block
+__host__ __device__ constexpr int generic_words(int ni, int ns) {
+  return 7 * ni + 6 * ns + 4;
+}
+constexpr int64_t kSharedMax = 232448;  // 227 KB, a block's dynamic maximum
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+therm_newton_generic(const GenericArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  const int ni = a.ni, ns = a.ns, nm = ns + ni + 1;
+  const int nt = blockDim.x, tid = threadIdx.x;
+  // the profiles, once a block, behind the threads' arrays
+  T* const salin = sm + static_cast<int64_t>(generic_words(ni, ns)) * nt;
+  T* const tmlt = salin + ni;
+  for (int k = tid; k < ni; k += nt) {
+    salin[k] = a.profile[k];
+    tmlt[k] = a.profile[ni + k];
+  }
+  __syncthreads();
+
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * nt + tid;
+  if (idx >= a.ncat * a.ncell) return;
+  const int64_t c = idx / a.ncell;
+  const int64_t p = idx - c * a.ncell;
+
+  // this thread's rows: [array][layer][thread]
+  const int rIsw = 0, rTin0 = ni, rTin = 2 * ni, rKh = 3 * ni;  // rKh: ni + 1
+  const int rSsw = 4 * ni + 1, rTsn0 = rSsw + ns, rTsn = rTsn0 + ns;
+  const int rSp = rTsn + ns, rD = rSp + nm, rRhs = rD + nm;
+  auto at = [&](int row) -> T& { return sm[row * nt + tid]; };
+
+  const T puny = T(kPuny);
+  const T dt = a.dt;
+  const bool l_brine = a.l_brine != 0;
+
+  auto P = [&](int k) { return a.in_plane[k][c * a.plane_cs[k] + p]; };
+  auto L = [&](int k, int l) {
+    return a.in_layer[k][c * a.layer_cs[k] + l * a.layer_ls[k] + p];
+  };
+
+  const bool has_ice = a.has_ice[c * a.has_ice_cs + p] != 0;
+  const T rhoa = P(RHOA), flw = P(FLW), potT = P(POTT), Qa = P(QA);
+  const T shcoef = P(SHCOEF), lhcoef = P(LHCOEF);
+  T fswsfc = P(FSWSFC), fswint = P(FSWINT);
+  const T fswthrun = P(FSWTHRUN), hilyr = P(HILYR), hslyr = P(HSLYR);
+  const T Tsf0 = P(TSF), Tbot = P(TBOT), einit = P(EINIT);
+
+  for (int k = 0; k < ns; ++k) {
+    at(rSsw + k) = L(SSWABS, k);
+    at(rTsn0 + k) = L(TSN, k);
+  }
+  for (int k = 0; k < ni; ++k) {
+    at(rIsw + k) = L(ISWABS, k);
+    at(rTin0 + k) = L(TIN, k);
+  }
+
+  const bool l_snow = has_ice && (hslyr > T(kHsMin / ns));
+  const T dt_rhoi_hlyr = dt / (T(kRhoi) * vmax(hilyr, puny));
+  const T etas = l_snow ? dt / (T(kRhos * kCpIce) * vmax(hslyr, puny)) : T(0);
+
+  // --- conductivities (_conductivity): the snow's two values, the ice
+  // interfaces' kh[ns + k] in rows rKh + k ------------------------------------
+  const T kh0 = l_snow ? T(2.0 * kKsno) / vmax(hslyr, puny) : T(0);
+  const T khs = l_snow ? T(2.0 * kKsno * kKsno)
+                         / vmax(T(kKsno + kKsno) * hslyr, puny) : T(0);
+  {
+    auto kil = [&](int k) {
+      const T tin0 = at(rTin0 + k);
+      const T tneg = vmin(tin0, -puny);
+      T ki;
+      if (a.bubbly)
+        ki = (T(2.11) - T(0.011) * tin0 + T(0.09) * salin[k] / tneg)
+             * T(kRhoi) / T(917.0);
+      else
+        ki = T(kKice) + T(kBetak) * salin[k] / tneg;
+      return vmax(ki, T(kKimin));
+    };
+    const T ks = T(kKsno);
+    T kprev = kil(0);
+    at(rKh) = l_snow ? T(2.0 * kKsno) * kprev
+                      / vmax(ks * hilyr + kprev * hslyr, puny)
+                    : T(2) * kprev / vmax(hilyr, puny);
+    for (int k = 1; k < ni; ++k) {
+      const T kcur = kil(k);
+      at(rKh + k) = T(2) * kprev * kcur / vmax((kprev + kcur) * hilyr, puny);
+      kprev = kcur;
+    }
+    at(rKh + ni) = T(2) * kprev / vmax(hilyr, puny);
+  }
+  // kh of interface k (0: the top surface, ns: snow over ice)
+  auto kh = [&](int k) -> T { return k == 0 ? kh0 : (k < ns ? khs : at(rKh + k - ns)); };
+
+  // --- move excess absorbed SW into the surface (_move_sw_to_surface) -------
+  {
+    const T frac = T(0.9), dTemp = T(0.02);
+    for (int k = 0; k < ni; ++k) {
+      const T tin0 = at(rTin0 + k), isw = at(rIsw + k), tm = tmlt[k];
+      T room;
+      bool is_cold;
+      if (l_brine) {
+        const T m = vmin(tin0, -puny);
+        const T ci0 = T(kCpIce) - T(kLfresh) * tm / (m * m);
+        room = frac * (tm - tin0) * ci0 / dt_rhoi_hlyr;
+        is_cold = tin0 <= (tm - dTemp);
+      } else {
+        room = frac * (-tin0) * T(kCpIce) / dt_rhoi_hlyr;
+        is_cold = tin0 <= -dTemp;
+      }
+      T t = is_cold ? vmin(isw, room) : T(0);
+      t = (t < puny) ? T(0) : t;
+      const T dswabs = vmin(isw - t, fswint);
+      fswsfc = fswsfc + dswabs;
+      fswint = fswint - dswabs;
+      at(rIsw + k) = isw - dswabs;
+    }
+    for (int k = 0; k < ns; ++k) {
+      const T tsn0 = at(rTsn0 + k), ssw = at(rSsw + k);
+      T t = (tsn0 <= -dTemp)
+                ? vmin(ssw, -frac * tsn0 / vmax(etas, puny)) : T(0);
+      t = (ssw < puny) ? T(0) : t;
+      const T dswabs = l_snow ? vmin(ssw - t, fswint) : T(0);
+      fswsfc = fswsfc + dswabs;
+      fswint = fswint - dswabs;
+      at(rSsw + k) = ssw - dswabs;
+    }
+  }
+  const T fswabsn = fswsfc + fswint + fswthrun;
+
+  // --- iteration state ------------------------------------------------------
+  T Tsf = Tsf0;
+  for (int k = 0; k < ns; ++k) at(rTsn + k) = at(rTsn0 + k);
+  for (int k = 0; k < ni; ++k) at(rTin + k) = at(rTin0 + k);
+  T dTsf_prev = T(0), fsurfn = T(0), fcondtopn = T(0), fcondbot = T(0);
+  T fsensn = T(0), flatn = T(0), flwoutn = T(0), dq_col = T(0);
+  bool converged = false;
+  int why = 0, niter = 0;
+
+  if (has_ice) {
+    const T eps32 = T(32.0 * Eps<T>::v);
+    for (niter = 0; niter < kNitermax && !converged; ++niter) {
+      // surface flux linearization (_surface_fluxes)
+      const T TsfK = Tsf + T(kTffresh);
+      const T inv = T(1) / TsfK;
+      const T qsat = T(kQqqice) * exp(T(-kTTTice) * inv);
+      const T Qsfc = qsat / rhoa;
+      const T dQsfcdT = T(kTTTice) * inv * inv * Qsfc;
+      const T TsfK2 = TsfK * TsfK;
+      const T sf_flwoutn = T(-kEmissivity * kStefan) * (TsfK2 * TsfK2);
+      const T sf_fsensn = shcoef * (potT - TsfK);
+      const T sf_flatn = lhcoef * (Qa - Qsfc);
+      const T dflwout_dT = T(-kEmissivity * kStefan * 4.0) * (TsfK * TsfK2);
+      const T dfsens_dT = -shcoef;
+      const T dflat_dT = -lhcoef * dQsfcdT;
+      const T sf_fsurfn = fswsfc + T(kEmissivity) * flw + sf_flwoutn
+                          + sf_fsensn + sf_flatn;
+      const T dfsurf_dT = dflwout_dT + dfsens_dT + dflat_dT;
+
+      const T fct = l_snow ? kh0 * (Tsf - at(rTsn)) : kh(ns) * (Tsf - at(rTin));
+      T Tsf_c = (sf_fsurfn < fct) ? vmin(Tsf, -puny) : Tsf;
+      const T Tsf_start = Tsf_c;
+      const bool l_cold = Tsf_c <= -puny;
+
+      // assemble the tridiagonal system row by row, eliminating as it goes
+      // (the Thomas forward sweep of _tridiag): rows rSp, rD, rRhs keep each
+      // row's sp and its eliminated d and rhs
+      const bool cold_snow = l_cold && l_snow;
+      T d_prev = cold_snow ? dfsurf_dT - kh0 : T(1);
+      T sp_prev = cold_snow ? kh0 : T(0);
+      T rhs_prev = cold_snow ? dfsurf_dT * Tsf_c - sf_fsurfn : T(0);
+      at(rSp) = sp_prev; at(rD) = d_prev; at(rRhs) = rhs_prev;
+      auto eliminate = [&](int r, T sbk, T dk, T spk, T rhk) {
+        const T w = sbk / d_prev;
+        dk = dk - w * sp_prev;
+        rhk = rhk - w * rhs_prev;
+        at(rSp + r) = spk; at(rD + r) = dk; at(rRhs + r) = rhk;
+        d_prev = dk; sp_prev = spk; rhs_prev = rhk;
+      };
+      for (int k = 0; k < ns; ++k) {
+        const int r = k + 1;
+        T sbk = -etas * kh(k);
+        T spk = -etas * kh(k + 1);
+        T dk = T(1) + etas * (kh(k) + kh(k + 1));
+        T rhk = at(rTsn0 + k) + etas * at(rSsw + k);
+        if (k == 0) {
+          sbk = l_cold ? sbk : T(0);
+          rhk = rhk + (l_cold ? T(0) : etas * kh0 * Tsf_c);
+        }
+        if (r == ns) {
+          const bool cold_nosnow = l_cold && !l_snow;
+          sbk = l_snow ? sbk : T(0);
+          dk = l_snow ? dk : (cold_nosnow ? dfsurf_dT - kh(ns) : T(1));
+          spk = l_snow ? spk : (cold_nosnow ? kh(ns) : T(0));
+          rhk = l_snow ? rhk
+                       : (cold_nosnow ? dfsurf_dT * Tsf_c - sf_fsurfn : T(0));
+        } else {
+          dk = l_snow ? dk : T(1);
+          sbk = l_snow ? sbk : T(0);
+          spk = l_snow ? spk : T(0);
+          rhk = l_snow ? rhk : T(0);
+        }
+        eliminate(r, sbk, dk, spk, rhk);
+      }
+      for (int ki = 0; ki < ni; ++ki) {
+        const int k = ki + ns;
+        const T tin = at(rTin + ki), tin0 = at(rTin0 + ki);
+        const T ci = l_brine
+            ? T(kCpIce) - T(kLfresh) * tmlt[ki]
+                  / (vmin(tin, -puny) * vmin(tin0, -puny))
+            : T(kCpIce);
+        const T etai = dt_rhoi_hlyr / ci;
+        const T kha = kh(k), khb = kh(k + 1);
+        T sbk = -etai * kha;
+        T spk = -etai * khb;
+        const T dk = T(1) + etai * (kha + khb);
+        T rhk = tin0 + etai * at(rIsw + ki);
+        if (ki == 0) {
+          const bool warm_nosnow = !l_snow && !l_cold;
+          rhk = rhk + (warm_nosnow ? etai * kha * Tsf_c : T(0));
+          sbk = warm_nosnow ? T(0) : sbk;
+        }
+        if (ki == ni - 1) {
+          rhk = rhk + etai * khb * Tbot;
+          spk = T(0);
+        }
+        eliminate(k + 1, sbk, dk, spk, rhk);
+      }
+
+      // back substitution, the solution x[k] written over rhs
+      T x_next = at(rRhs + nm - 1) / at(rD + nm - 1);
+      at(rRhs + nm - 1) = x_next;
+      for (int k = nm - 2; k >= 0; --k) {
+        x_next = (at(rRhs + k) - at(rSp + k) * x_next) / at(rD + k);
+        at(rRhs + k) = x_next;
+      }
+      auto x = [&](int k) -> T { return at(rRhs + k); };
+
+      // extract the solution and test convergence
+      T Tsf_new = l_cold ? (l_snow ? x(0) : x(ns)) : T(0);
+      T dTsf = Tsf_new - Tsf_start;
+      T avg_Tsi = T(0), avg_Tsf = T(0);
+      const bool c1v = Tsf_new > puny;                    // condition 1
+      if (c1v) { Tsf_new = T(0); dTsf = -Tsf_start; }
+      if (l_brine && c1v) avg_Tsi = T(1);
+      const bool c2v = niter > 0 && Tsf_start <= -puny    // condition 2
+                       && fabs(dTsf) > puny && fabs(dTsf_prev) > puny
+                       && (-dTsf / (dTsf_prev + T(kPuny * kPuny)) > T(0.5));
+      if (l_brine && c2v) { avg_Tsf = T(1); avg_Tsi = T(1); }
+      if (c2v) dTsf = T(0.5) * dTsf;
+      Tsf_new = Tsf_new + avg_Tsf * T(0.5) * (Tsf_start - Tsf_new);
+
+      // the new temperatures, merged in place (this cell is active), and
+      // the column's energy
+      T esn = T(0), ein = T(0), dq = T(0), tsn_top = T(0);
+      for (int k = 0; k < ns; ++k) {
+        T t = l_snow ? x(k + 1) : T(0);
+        if (l_brine) t = vmin(t, T(0));
+        t = t + avg_Tsi * T(0.5) * (at(rTsn + k) - t);
+        at(rTsn + k) = t;
+        if (k == 0) tsn_top = t;
+        esn = esn + hslyr * (T(-kRhos) * (T(kLfresh) - T(kCpIce) * t));
+      }
+      // the Tmlt clamp of an over-warm layer: its energy dqmat
+      auto clamp_energy = [&](int ki, T t, bool& over) {
+        const T tm = tmlt[ki];
+        over = l_brine && t > (tm - puny);
+        if (!over) return T(0);
+        const T dT = t - tm;
+        const T m = vmin(t, -puny);
+        return T(kRhoi) * dT * (T(kCpIce) - T(kLfresh) * tm / (m * m));
+      };
+      T tin_top = T(0), tin_bot = T(0);
+      for (int ki = 0; ki < ni; ++ki) {
+        T t = x(ns + 1 + ki);
+        const T tm = tmlt[ki];
+        bool over;
+        const T dqmat = clamp_energy(ki, t, over);
+        if (over) t = tm;
+        t = t + avg_Tsi * T(0.5) * (at(rTin + ki) - t);
+        at(rTin + ki) = t;
+        if (ki == 0) tin_top = t;
+        if (ki == ni - 1) tin_bot = t;
+        T qin_new;
+        if (l_brine) {
+          const T ts = vmin(t, -puny);
+          qin_new = T(-kRhoi) * (T(kCpIce) * (tm - ts)
+                                 + T(kLfresh) * (T(1) - tm / ts)
+                                 - T(kCpOcn) * tm);
+        } else {
+          qin_new = T(-kRhoi) * (T(-kCpIce) * t + T(kLfresh));
+        }
+        ein = ein + hilyr * (qin_new - dqmat);
+        dq = dq + hilyr * dqmat;
+      }
+      const T enew = esn + ein;
+
+      const T fsurfn_new = sf_fsurfn + dTsf * dfsurf_dT;
+      const T fct_new = l_snow ? kh0 * (Tsf_new - tsn_top)
+                               : kh(ns) * (Tsf_new - tin_top);
+      const bool c3v = fabs(dTsf) > T(kTsfErrmax);                   // cond 3
+      const bool c4v = (Tsf_new > -puny) && (fsurfn_new < fct_new);  // cond 4
+      const T fcbot = kh(ns + ni) * (tin_bot - Tbot);                // cond 5
+      const T ferr = fabs((enew - einit) / dt - (fct_new - fcbot + fswint));
+      const T noise = fabs(einit) / dt + fabs(fct_new) + fabs(fcbot) + fabs(fswint);
+      const T ferrmax_eff = vmax(T(kFerrmax), eps32 * noise);
+      const bool bad_e = ferr > T(0.9) * ferrmax_eff;
+
+      // conductivity reduction for overshooting layers, chained; the
+      // over-warm test and dqmat again from the solution
+      if (bad_e) {
+        const T denom = vmax(fabs(fct_new - fcbot), puny);
+        const T fracr = vmax(T(0.5) * (T(1) - ferr / denom), T(0.1));
+        for (int ki = 0; ki < ni; ++ki) {
+          bool over;
+          const T dqmat = clamp_energy(ki, x(ns + 1 + ki), over);
+          if (over && dqmat > T(0)) {
+            const T below = at(rKh + ki + 1) * fracr;
+            at(rKh + ki + 1) = below;
+            at(rKh + ki) = below * fracr;
+          }
+        }
+      }
+
+      // merge (this cell is active)
+      Tsf = Tsf_new;
+      dTsf_prev = dTsf;
+      fsurfn = fsurfn_new;
+      fcondtopn = fct_new;
+      fcondbot = fcbot;
+      fsensn = sf_fsensn + dTsf * dfsens_dT;
+      flatn = sf_flatn + dTsf * dflat_dT;
+      flwoutn = sf_flwoutn + dTsf * dflwout_dT;
+      dq_col = dq;
+      why = int(c1v) * 1 + int(c2v) * 2 + int(c3v) * 4 + int(c4v) * 8
+            + int(bad_e) * 16;
+      converged = !(c1v || c2v || c3v || c4v || bad_e);
+    }
+  }
+
+  // --- store ----------------------------------------------------------------
+  const int64_t o = c * a.ncell + p;
+  a.out_plane[O_TSF][o] = Tsf;
+  a.out_plane[O_FSURFN][o] = fsurfn;
+  a.out_plane[O_FCONDTOPN][o] = fcondtopn;
+  a.out_plane[O_FCONDBOT][o] = fcondbot;
+  a.out_plane[O_FSENSN][o] = fsensn;
+  a.out_plane[O_FLATN][o] = flatn;
+  a.out_plane[O_FLWOUTN][o] = flwoutn;
+  a.out_plane[O_FSWABSN][o] = fswabsn;
+  a.out_plane[O_FSWSFC][o] = fswsfc;
+  a.out_plane[O_FSWINT][o] = fswint;
+  a.out_plane[O_DQFLUX][o] = dq_col / dt;
+  a.converged[o] = converged ? 1 : 0;
+  a.why[o] = why;
+  a.niter[o] = niter;
+  // an iteration leaves qsn, qin the enthalpies of the final temperatures;
+  // without one they are the inputs
+  for (int k = 0; k < ns; ++k) {
+    const int64_t ol = (c * ns + k) * a.ncell + p;
+    const T t = at(rTsn + k);
+    a.out_layer[O_TSN][ol] = t;
+    a.out_layer[O_QSN][ol] = niter > 0
+        ? T(-kRhos) * (T(kLfresh) - T(kCpIce) * t) : L(QSN, k);
+    a.out_layer[O_SSWABS][ol] = at(rSsw + k);
+  }
+  for (int k = 0; k < ni; ++k) {
+    const int64_t ol = (c * ni + k) * a.ncell + p;
+    const T t = at(rTin + k);
+    T q;
+    if (niter == 0) {
+      q = L(QIN, k);
+    } else if (l_brine) {
+      const T tm = tmlt[k];
+      const T ts = vmin(t, -puny);
+      q = T(-kRhoi) * (T(kCpIce) * (tm - ts) + T(kLfresh) * (T(1) - tm / ts)
+                       - T(kCpOcn) * tm);
+    } else {
+      q = T(-kRhoi) * (T(-kCpIce) * t + T(kLfresh));
+    }
+    a.out_layer[O_TIN][ol] = t;
+    a.out_layer[O_QIN][ol] = q;
+    a.out_layer[O_ISWABS][ol] = at(rIsw + k);
+  }
+}
+
 // the layer counts built: nilyr 1..kMaxNI x nslyr 1..kMaxNS, one template
 // instance each, so every per-layer array of the kernel stays in registers
 constexpr int kMaxNI = 8, kMaxNS = 3;
-// returned for a layer count beyond them (cudaError_t values are >= 0)
+// returned for a layer count below 1 or beyond what one warp's shared memory
+// holds in the generic instance (cudaError_t values are >= 0)
 constexpr int kErrLayers = -2;
 
-template <typename T, int NI, int NS>
-int launch_layers(const int64_t* ptrs, const int64_t* strides, int64_t ncat,
-                  int64_t ny, int64_t nx, const double* params,
-                  void* stream) {
-  Args<T, NI> a;
+// the pointer and stride tables and the scalars, common to Args and
+// GenericArgs
+template <typename T, typename A>
+void fill_tables(A& a, const int64_t* ptrs, const int64_t* strides,
+                 int64_t ncat, int64_t ny, int64_t nx, const double* params) {
   int ip = 0, is = 0;
   a.has_ice = reinterpret_cast<const uint8_t*>(ptrs[ip++]);
   a.has_ice_cs = strides[is++];
@@ -507,6 +953,14 @@ int launch_layers(const int64_t* ptrs, const int64_t* strides, int64_t ncat,
   a.dt = T(params[0]);
   a.l_brine = params[1] != 0.0;
   a.bubbly = params[2] != 0.0;
+}
+
+template <typename T, int NI, int NS>
+int launch_layers(const int64_t* ptrs, const int64_t* strides, int64_t ncat,
+                  int64_t ny, int64_t nx, const double* params,
+                  void* stream) {
+  Args<T, NI> a;
+  fill_tables<T>(a, ptrs, strides, ncat, ny, nx, params);
   for (int k = 0; k < NI; ++k) {
     a.salin[k] = T(params[5 + k]);
     a.tmlt[k] = T(params[5 + NI + k]);
@@ -516,6 +970,50 @@ int launch_layers(const int64_t* ptrs, const int64_t* strides, int64_t ncat,
   const int64_t blocks = (n + kThreads - 1) / kThreads;
   therm_newton_kernel<T, NI, NS><<<static_cast<unsigned>(blocks), kThreads, 0,
                                    static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// (threads per block, dynamic shared bytes) of the generic instance: the
+// most threads, a multiple of 32 and at most kThreads, whose arrays and the
+// block's profiles fit in kSharedMax; threads 0 when one warp's do not
+int64_t generic_plan(int ni, int ns, int64_t elem, int* threads) {
+  const int64_t per_thread = generic_words(ni, ns) * elem;
+  const int64_t profiles = 2 * static_cast<int64_t>(ni) * elem;
+  int64_t warps = (kSharedMax - profiles) / (32 * per_thread);
+  if (warps > kThreads / 32) warps = kThreads / 32;
+  if (warps < 1) {
+    *threads = 0;
+    return 32 * per_thread + profiles;
+  }
+  *threads = static_cast<int>(32 * warps);
+  return *threads * per_thread + profiles;
+}
+
+template <typename T>
+int launch_generic(const int64_t* ptrs, const int64_t* strides, int64_t ncat,
+                   int64_t ny, int64_t nx, const double* params,
+                   const void* profile, void* stream) {
+  GenericArgs<T> a;
+  fill_tables<T>(a, ptrs, strides, ncat, ny, nx, params);
+  a.ni = static_cast<int>(params[3]);
+  a.ns = static_cast<int>(params[4]);
+  a.profile = static_cast<const T*>(profile);
+  if (a.ni < 1 || a.ns < 1) return kErrLayers;
+  int threads = 0;
+  const int64_t smem = generic_plan(a.ni, a.ns, sizeof(T), &threads);
+  if (threads == 0) return kErrLayers;
+  const int64_t n = ncat * ny * nx;
+  if (n == 0) return 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        therm_newton_generic<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int64_t blocks = (n + threads - 1) / threads;
+  therm_newton_generic<T><<<static_cast<unsigned>(blocks), threads,
+                            static_cast<size_t>(smem),
+                            static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -531,18 +1029,23 @@ int launch_snow(int nslyr, const int64_t* ptrs, const int64_t* strides,
   }
 }
 
+// the register instance for the counts built, the generic one otherwise
 template <typename T>
 int launch(const int64_t* ptrs, const int64_t* strides, int64_t ncat,
-           int64_t ny, int64_t nx, const double* params, void* stream) {
+           int64_t ny, int64_t nx, const double* params, const void* profile,
+           void* stream) {
   static_assert(kMaxNI == 8 && kMaxNS == 3, "the switches list the counts");
   const int ni = static_cast<int>(params[3]), ns = static_cast<int>(params[4]);
+  if (ns < 1 || ns > kMaxNS)
+    return launch_generic<T>(ptrs, strides, ncat, ny, nx, params, profile, stream);
 #define THERM_NEWTON_ICE(NI) \
   case NI: return launch_snow<T, NI>(ns, ptrs, strides, ncat, ny, nx, params, stream);
   switch (ni) {
     THERM_NEWTON_ICE(1) THERM_NEWTON_ICE(2) THERM_NEWTON_ICE(3)
     THERM_NEWTON_ICE(4) THERM_NEWTON_ICE(5) THERM_NEWTON_ICE(6)
     THERM_NEWTON_ICE(7) THERM_NEWTON_ICE(8)
-    default: return kErrLayers;
+    default:
+      return launch_generic<T>(ptrs, strides, ncat, ny, nx, params, profile, stream);
   }
 #undef THERM_NEWTON_ICE
 }
@@ -551,12 +1054,40 @@ int launch(const int64_t* ptrs, const int64_t* strides, int64_t ncat,
 
 extern "C" int therm_newton_f32(const int64_t* ptrs, const int64_t* strides,
                                 int64_t ncat, int64_t ny, int64_t nx,
-                                const double* params, void* stream) {
-  return launch<float>(ptrs, strides, ncat, ny, nx, params, stream);
+                                const double* params, const void* profile,
+                                void* stream) {
+  return launch<float>(ptrs, strides, ncat, ny, nx, params, profile, stream);
 }
 
 extern "C" int therm_newton_f64(const int64_t* ptrs, const int64_t* strides,
                                 int64_t ncat, int64_t ny, int64_t nx,
-                                const double* params, void* stream) {
-  return launch<double>(ptrs, strides, ncat, ny, nx, params, stream);
+                                const double* params, const void* profile,
+                                void* stream) {
+  return launch<double>(ptrs, strides, ncat, ny, nx, params, profile, stream);
+}
+
+extern "C" int therm_newton_generic_f32(const int64_t* ptrs,
+                                        const int64_t* strides, int64_t ncat,
+                                        int64_t ny, int64_t nx,
+                                        const double* params,
+                                        const void* profile, void* stream) {
+  return launch_generic<float>(ptrs, strides, ncat, ny, nx, params, profile,
+                               stream);
+}
+
+extern "C" int therm_newton_generic_f64(const int64_t* ptrs,
+                                        const int64_t* strides, int64_t ncat,
+                                        int64_t ny, int64_t nx,
+                                        const double* params,
+                                        const void* profile, void* stream) {
+  return launch_generic<double>(ptrs, strides, ncat, ny, nx, params, profile,
+                                stream);
+}
+
+// the generic instance's dynamic shared memory for (nilyr, nslyr) and an
+// element of `elem` bytes, and in *threads its threads per block (0 when
+// one warp's arrays do not fit: the bytes are then one warp's)
+extern "C" int64_t therm_newton_generic_bytes(int ni, int ns, int elem,
+                                              int* threads) {
+  return generic_plan(ni, ns, elem, threads);
 }

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -569,38 +570,69 @@ _TC_OUT_PLANES = ("Tsf", "fsurfn", "fcondtopn", "fcondbot", "fsensn",
 _TC_OUT_LAYERS = ("Tsn", "Tin", "qsn", "qin", "Sswabs", "Iswabs")
 _TC_LAYERS = dict(Sswabs="s", Iswabs="i", qin="i", Tin="i", qsn="s",
                   Tsn="s")
-# the layer counts the kernel is built for (csrc/therm_newton.cu kMaxNI,
-# kMaxNS: one template instance per nilyr 1..8 and nslyr 1..3)
-TC_MAX_NILYR, TC_MAX_NSLYR = 8, 3
-# what therm_newton_{f32,f64} return for a layer count beyond them
+# the layer counts with a register instance (csrc/therm_newton.cu kMaxNI,
+# kMaxNS: one template instance per nilyr 1..8 and nslyr 1..3); every other
+# count runs the generic instance
+TC_REGISTER_NILYR, TC_REGISTER_NSLYR = 8, 3
+# what therm_newton_{f32,f64} return for a layer count below 1 or beyond
+# what one warp's shared memory holds in the generic instance
 _TC_ERR_LAYERS = -2
 
 
-def _therm_newton_fn(dtype):
+def _therm_newton_fn(dtype, generic=False):
     from cice4_tpu_torch import cuda_build
 
     lib = cuda_build.load("therm_newton").lib
-    fn = lib.therm_newton_f32 if dtype == torch.float32 \
-        else lib.therm_newton_f64
+    name = "therm_newton_generic" if generic else "therm_newton"
+    fn = getattr(lib, f"{name}_{'f32' if dtype == torch.float32 else 'f64'}")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                    ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-                   ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _temperature_changes_cuda(p: ThermoParams, dt, has_ice, *args):
+def therm_newton_generic_bytes(nilyr, nslyr, dtype):
+    """(dynamic shared bytes, threads per block) of the generic instance
+    at these layer counts; threads 0 where one warp's arrays do not fit in
+    a block's 227 KB (the bytes are then one warp's)."""
+    from cice4_tpu_torch import cuda_build
+
+    fn = cuda_build.load("therm_newton").lib.therm_newton_generic_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int64
+    threads = ctypes.c_int(0)
+    nbytes = fn(nilyr, nslyr, torch.empty((), dtype=dtype).element_size(),
+                ctypes.addressof(threads))
+    return nbytes, threads.value
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_profile(salin, tmlt, dtype, device):
+    """The salinity and melting-temperature profiles, which the generic
+    instance reads, as one tensor on `device` (made once: a copy to the
+    device synchronises)."""
+    return torch.tensor(salin + tmlt, dtype=dtype, device=device)
+
+
+def _temperature_changes_cuda(p: ThermoParams, dt, has_ice, *args,
+                              generic=False):
     """Launch the therm_newton kernel: one thread per (category, j, i)
     cell, all categories in one launch.  Planes are (ny, nx) or
     (ncat, ny, nx) (broadcast along categories by a zero stride); layer
     stacks (..., nlyr, ny, nx).  Returns the dict of
     :func:`_temperature_changes_core`, with `niter` the maximum of the
-    per-cell iteration counts (a 0-dim device tensor)."""
-    if not (1 <= p.nilyr <= TC_MAX_NILYR and 1 <= p.nslyr <= TC_MAX_NSLYR):
-        raise NotImplementedError(
-            f"therm_newton is built for nilyr 1..{TC_MAX_NILYR} and nslyr "
-            f"1..{TC_MAX_NSLYR}; got nilyr={p.nilyr}, nslyr={p.nslyr} "
-            f"(ROADMAP queue 2 item 10)")
+    per-cell iteration counts (a 0-dim device tensor).
+
+    Layer counts of 1..TC_REGISTER_NILYR ice and 1..TC_REGISTER_NSLYR snow
+    layers run the register instance built for them, every other count
+    the generic instance (layer counts at run time, per-layer arrays in
+    shared memory); `generic` launches the generic instance whatever the
+    count, to hold the two against each other."""
+    if p.nilyr < 1 or p.nslyr < 1:
+        raise ValueError(f"therm_newton needs at least one ice and one snow "
+                         f"layer; got nilyr={p.nilyr}, nslyr={p.nslyr}")
     if p.conduct not in ("MU71", "bubbly"):
         raise ValueError(f"unknown conduct {p.conduct!r}")
     fields = dict(zip(_TC_ARGS, args))
@@ -654,18 +686,25 @@ def _temperature_changes_cuda(p: ThermoParams, dt, has_ice, *args):
     stride_arr = (ctypes.c_int64 * len(strides))(*strides)
     par_arr = (ctypes.c_double * len(params))(*params)
 
-    fn = _therm_newton_fn(dtype)
+    generic = generic or p.nilyr > TC_REGISTER_NILYR \
+        or p.nslyr > TC_REGISTER_NSLYR
+    fn = _therm_newton_fn(dtype, generic)
+    profile = _tc_profile(tuple(p.salin[:p.nilyr]), tuple(p.tmlt[:p.nilyr]),
+                          dtype, device).data_ptr() if generic else None
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(ctypes.addressof(ptr_arr), ctypes.addressof(stride_arr),
-                ncat, ny, nx, ctypes.addressof(par_arr), stream)
+                ncat, ny, nx, ctypes.addressof(par_arr), profile, stream)
     if rc == _TC_ERR_LAYERS:
+        nbytes, _ = therm_newton_generic_bytes(p.nilyr, p.nslyr, dtype)
         raise NotImplementedError(
-            f"therm_newton has no instance for nilyr={p.nilyr}, nslyr="
-            f"{p.nslyr} (ROADMAP queue 2 item 10)")
+            f"therm_newton at nilyr={p.nilyr}, nslyr={p.nslyr} in {dtype}: "
+            f"one warp's per-layer arrays need {nbytes} bytes of shared "
+            f"memory, more than a block's 232448 (ROADMAP queue 2 item 10)")
     if rc != 0:
         raise RuntimeError(f"therm_newton launch failed: cudaError {rc}")
     temperature_changes.launches += 1
+    _temperature_changes_cuda.generic_launches += int(generic)
 
     def shaped(x):
         return x if lead else x[0]
@@ -690,7 +729,9 @@ def temperature_changes(p: ThermoParams, dt, has_ice,
     On CUDA tensors this launches the therm_newton kernel (or raises);
     on CPU tensors it runs the plain version
     :func:`_temperature_changes_core`.  `temperature_changes.launches`
-    counts the kernel launches.
+    counts the kernel launches, `_temperature_changes_cuda.
+    generic_launches` those of the generic instance (layer counts beyond
+    8 ice or 3 snow layers).
     """
     args = (rhoa, flw, potT, Qa, shcoef, lhcoef, fswsfc, fswint, fswthrun,
             Sswabs, Iswabs, hilyr, hslyr, qin, Tin, qsn, Tsn, Tsf, Tbot,
@@ -704,6 +745,9 @@ def temperature_changes(p: ThermoParams, dt, has_ice,
 
 
 temperature_changes.launches = 0
+# of which the generic instance's (layer counts outside 1..8 x 1..3), kept
+# on the launcher so that a stand-in for the wrapper needs no new count
+_temperature_changes_cuda.generic_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -31,8 +31,9 @@ def _thermo_params(nilyr=4, nslyr=1):
     return tv.make_thermo_params(cfg, make_itd_params(cfg))
 
 
-# (nilyr, nslyr): the default, then counts of other instances of the kernel
-LAYERS = [(4, 1), (7, 1), (2, 1), (4, 2)]
+# (nilyr, nslyr): the default, then counts of other register instances of
+# the kernel, then counts of its generic instance (layer counts at run time)
+LAYERS = [(4, 1), (7, 1), (2, 1), (4, 2), (9, 1), (16, 2), (32, 3)]
 
 
 @pytest.mark.gpu
@@ -80,20 +81,80 @@ def test_therm_newton_on_a_plane_and_rejects_bad_input(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("layers", [(tv.TC_MAX_NILYR + 1, 1),
-                                    (4, tv.TC_MAX_NSLYR + 1), (0, 1)])
-def test_therm_newton_refuses_counts_beyond_its_instances(cuda_device,
-                                                          layers):
-    """A layer count the kernel is not built for raises and names the
-    ROADMAP item, without a launch."""
-    p = _thermo_params()
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("layers", [(9, 1), (4, 4)],
+                         ids=lambda v: f"{v[0]}x{v[1]}")
+def test_therm_newton_runs_counts_beyond_its_register_instances(
+        cuda_device, dtype, layers):
+    """A layer count past the register instances (8 ice, 3 snow layers)
+    launches the generic instance, which agrees with the plain version."""
+    p = _thermo_params(*layers)
     args = kernel_check.make_inputs(p, 2, 40, 24, seed=3,
-                                    device=cuda_device, dtype=torch.float64)
-    p2 = tv.ThermoParams(**{**vars(p), "nilyr": layers[0],
-                            "nslyr": layers[1]})
+                                    device=cuda_device, dtype=dtype)
+    before = (tv.temperature_changes.launches,
+              tv._temperature_changes_cuda.generic_launches)
+    kern = tv.temperature_changes(p, 3600.0, *args)
+    assert (tv.temperature_changes.launches,
+            tv._temperature_changes_cuda.generic_launches) == \
+        (before[0] + 1, before[1] + 1)
+    plain = tv._temperature_changes_core(p, 3600.0, *args)
+    torch.cuda.synchronize()
+    report = kernel_check.compare(kern, plain, args[0], dtype)
+    assert report["ok"], report
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_therm_newton_generic_instance_matches_the_register_one(cuda_device,
+                                                                 dtype):
+    """The generic instance at the gx1 counts (4, 1) against the register
+    instance, and both against the plain version."""
+    p = _thermo_params()
+    args = kernel_check.make_inputs(p, 5, 64, 128, seed=7,
+                                    device=cuda_device, dtype=dtype)
+    reg = tv.temperature_changes(p, 3600.0, *args)
+    gen = tv._temperature_changes_cuda(p, 3600.0, *args, generic=True)
+    plain = tv._temperature_changes_core(p, 3600.0, *args)
+    torch.cuda.synchronize()
+    for ref in (reg, plain):
+        report = kernel_check.compare(gen, ref, args[0], dtype)
+        assert report["ok"], report
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,layers", [
+    (torch.float64, (0, 1)), (torch.float64, (4, 0)),
+    (torch.float64, (128, 1)), (torch.float64, (126, 3)),
+    (torch.float32, (256, 1)), (torch.float32, (255, 3))],
+    ids=lambda v: f"{v[0]}x{v[1]}" if isinstance(v, tuple) else str(v)[6:])
+def test_therm_newton_refuses_counts_beyond_its_instances(cuda_device,
+                                                          dtype, layers):
+    """No layer, or one more than the generic instance's stated largest
+    count (csrc/therm_newton.cu: 127 x 1 and 125 x 3 in f64, 255 x 1 and
+    254 x 3 in f32), raises without a launch; past the largest count the
+    error gives the count and the bytes and names the ROADMAP item."""
+    p = _thermo_params()
+    if min(layers) < 1:
+        p2 = tv.ThermoParams(**{**vars(p), "nilyr": layers[0],
+                                "nslyr": layers[1]})
+    else:
+        p = p2 = _thermo_params(*layers)
+    args = kernel_check.make_inputs(p, 2, 40, 24, seed=3, device=cuda_device,
+                                    dtype=dtype)
     before = tv.temperature_changes.launches
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 10"):
-        tv.temperature_changes(p2, 3600.0, *args)
+    if min(layers) < 1:
+        with pytest.raises(ValueError, match="at least one"):
+            tv.temperature_changes(p2, 3600.0, *args)
+    else:
+        nbytes, threads = tv.therm_newton_generic_bytes(*layers, dtype)
+        assert threads == 0 and nbytes > 232448
+        with pytest.raises(NotImplementedError,
+                           match=f"nilyr={layers[0]}, nslyr={layers[1]}.*"
+                                 f"{nbytes} bytes.*ROADMAP queue 2 item 10"):
+            tv.temperature_changes(p2, 3600.0, *args)
+        one_less = tv.therm_newton_generic_bytes(layers[0] - 1, layers[1],
+                                                 dtype)
+        assert one_less[1] >= 32 and one_less[0] <= 232448
     assert tv.temperature_changes.launches == before
 
 

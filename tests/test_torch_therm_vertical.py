@@ -105,11 +105,12 @@ def solve_case():
 
 
 # (reference, (nilyr, nslyr)): the gx1 counts keep their ids; 7 ice layers
-# and 2 snow layers run other instances of the port's CUDA kernel
+# and 2 snow layers run other register instances of the port's CUDA kernel,
+# 10 x 1 and 12 x 3 its generic instance (layer counts at run time)
 SOLVE_CASES = [pytest.param(ref, layers, id="-".join(
     [ref] + ([] if layers == (4, 1) else [f"nilyr{layers[0]}",
                                           f"nslyr{layers[1]}"])))
-    for layers in ((4, 1), (7, 1), (4, 2))
+    for layers in ((4, 1), (7, 1), (4, 2), (10, 1), (12, 3))
     for ref in ("core", "pallas_interpret")]
 
 
