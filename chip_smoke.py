@@ -18,9 +18,10 @@ versions:
   contraction of the default route;
 * ``remap_construct`` and ``remap_contract`` (``csrc/remap_k1k2.cu``),
   K1 and K2 of the split route;
-* ``evp_rounds``, the EVP kernel in its round mode: k gated subcycles
-  and no final one on a padded block of a decomposed grid, doubly cyclic
-  to the kernel (the whole-grid TPU kernel's mode).
+* ``evp_rounds`` (``csrc/evp_rounds.cu``), the k-halo rounds of a
+  decomposed grid: k gated subcycles and no final one on a padded block,
+  doubly cyclic, tile by tile with k-wide aprons in shared memory (the
+  whole-grid TPU kernel's function on the padded block).
 
 The paths: the default gx1 step (``gx1_config()`` on the spherical
 lat-lon grid without a land-mask file, f32, 320x384, 5 categories, 4 ice
@@ -64,7 +65,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
    its generic instance (layer counts at run time) on the smaller, where
    the generic instance is also held against the register one at
    (4, 1); the dynamics kernels at 384x320 and 116x100 with ice-free
-   bands, EW cyclic and closed, NS closed, open and cyclic, and
+   bands, EW cyclic and closed, NS closed, open and cyclic (the round
+   kernel on the doubly cyclic grids, rounds of 10 and 9), and
    the tripole and tripoleT folds on the all-ocean grid (remap_gsh at
    quadrature orders 1-3), where the split route's kernels must refuse
    the fold;
@@ -155,15 +157,20 @@ Phases, each of which ends the run with a non-zero exit on failure:
 16. the decomposed model (``parallel/``, ``ops/evp_sharded.py``), f32:
     (o) gx1 at 320x384 on 2x2 blocks of 192x160 in one process (one
     thread a block), 3 steps with the counters (a block's step launches
-    therm_newton, remap_gsh and remap_k12 once and the EVP kernel once in
-    each of its 12 k-halo rounds and once for the final subcycle, and no
-    plain version; no phase is gathered), each step's state held against
-    the one-device step's within ``kernel_check.DECOMP_RTOL`` (and whether
-    it is bit-equal logged), then ms/step and the device time and
-    launches of a step beside the one-device step's, the EVP kernel's
-    share apart; (p) ACCESS-OM2 at 360x300 on 2x2 blocks, 2 steps: the
-    U-fold exchanged into the EVP rounds, the remap gathered on every
-    block and counted, against one device; (q) ``python -m
+    therm_newton, remap_gsh and remap_k12 once, the round kernel once in
+    each of its 12 k-halo rounds and the EVP kernel once for the final
+    subcycle, and no plain version; no phase is gathered), each step's
+    state held against the one-device step's within
+    ``kernel_check.DECOMP_RTOL`` (and whether it is bit-equal logged),
+    then ms/step and the device time and launches of a step beside the
+    one-device step's, the EVP's share apart (the rounds' and the final
+    subcycle's, beside the 2.9223 ms in 52 launches the EVP took a step
+    before the round kernel, PERF.md section 6), and the round
+    kernel held against its plain version at (o)'s first round and timed
+    there with its tile, recompute share, registers and launches; (p)
+    ACCESS-OM2 at 360x300 on 2x2 blocks, 2 steps: the U-fold exchanged
+    into the EVP rounds, the remap gathered on every block and counted,
+    against one device; (q) ``python -m
     cice4_tpu_torch.parallel.launch`` as 2 processes over gloo (1x2
     blocks, the strips staged through pinned host buffers), 2 gx1 steps,
     the gathered state against the one-device steps and the sharded
@@ -183,7 +190,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
     steps: therm_newton's generic instance, evp_subcycle, remap_gsh and
     remap_k12 once a step, no plain version, the state physical as in
     phase 4; therm_newton against its plain version at this path's inputs
-    and timed beside its bound;
+    and timed beside its bound; the generic instance's registers, local
+    bytes and warps an SM as the runtime reports them at (10, 1) and
+    (4, 1), and its time at (4, 1) beside the register instance's;
 19. bench: ``python -m cice4_tpu_torch bench`` in a process of its own
     with ``BENCH_CONFIG=gx1`` and with ``BENCH_CONFIG=access025``: the
     last line of its stdout is one JSON object with the JAX bench's four
@@ -393,9 +402,9 @@ KERNELS = {
                         "cice4_tpu/ops/remap_pallas.py:373"),
     "remap_contract": ("cice4_tpu_torch/csrc/remap_k1k2.cu",
                        "cice4_tpu/ops/remap_pallas.py:391"),
-    # the EVP kernel's round mode on the padded blocks of a decomposed
-    # grid, doubly cyclic to the kernel: the whole-grid TPU kernel's mode
-    "evp_rounds": ("cice4_tpu_torch/csrc/evp_subcycle.cu",
+    # the k-halo rounds on the padded blocks of a decomposed grid, doubly
+    # cyclic: the whole-grid TPU kernel's function on the padded block
+    "evp_rounds": ("cice4_tpu_torch/csrc/evp_rounds.cu",
                    "cice4_tpu/ops/evp_pallas.py:83"),
 }
 LIBRARIES = sorted({Path(src).stem for src, _ in KERNELS.values()})
@@ -715,7 +724,8 @@ def check_dynamics_kernels(device):
     """The dynamics kernels against their plain versions, f32 and f64,
     gx1 and a ragged shape, EW cyclic and closed, NS closed, open, cyclic
     and the tripole and tripoleT folds: evp_subcycle (the whole-grid
-    kernel on NS-cyclic grids), remap_gsh in GSH and GA mode, remap_k12,
+    kernel on NS-cyclic grids), the round kernel (on the doubly cyclic
+    grids), remap_gsh in GSH and GA mode, remap_k12,
     remap_construct (K1) and remap_contract (K2); on a fold the split
     route's three (GA mode, K1, K2) must refuse it.  The NS-cyclic and
     fold cases run on the all-ocean box grid (ice, stresses and
@@ -756,6 +766,19 @@ def check_dynamics_kernels(device):
                 log(f"  {name}: icy T cells {int(args[1].sum())}, U points "
                     f"{int(args[2].sum())}")
                 _check_pair(name, tag, kern, plain, kc.EVP_RTOL[dtype])
+                if ew == ns == "cyclic":
+                    # the round kernel on a doubly cyclic block: a round and
+                    # the remainder round, tiles ragged at 116x100
+                    for k in (10, 9):
+                        q = dataclasses.replace(p, ndte=k)
+                        got = evp_cuda.evp_rounds(q, grid, *args)
+                        want = evp_ops._evp_rounds_plain(q, grid, *args)
+                        same = all(map(torch.equal, got, want))
+                        _check_pair("evp_rounds", f"{tag}, {k} subcycles "
+                                    f"(bit-equal: {same})",
+                                    dict(enumerate(got)),
+                                    dict(enumerate(want)),
+                                    kc.ROUNDS_RTOL[dtype])
 
                 dx, dy, afac, mm, tm = kc.remap_inputs(grid, seed=5, ncat=5,
                                                        meta=meta, dtype=dtype)
@@ -2017,8 +2040,8 @@ def time_decomposed(tag, model, state, forcing, mesh, models, states, first,
     _, rows_dec = profiled(lambda: block_steps(models, states, forcing, mesh,
                                                first, 1))
 
-    def evp(rows):
-        sel = [r for r in rows if "evp_persistent" in r[0]]
+    def evp(rows, key=("evp_persistent", "evp_round_tiles")):
+        sel = [r for r in rows if any(k in r[0] for k in key)]
         return sum(r[1] for r in sel), sum(r[2] for r in sel)
 
     for name, rows, ms, host in (("one device", rows_one, ms_one, host_one),
@@ -2032,16 +2055,20 @@ def time_decomposed(tag, model, state, forcing, mesh, models, states, first,
         dev = sum(r[1] for r in rows)
         n = sum(r[2] for r in rows)
         evp_ms, evp_n = evp(rows)
+        rounds_ms, rounds_n = evp(rows, ("evp_round_tiles",))
         log(f"  {tag}, {name}: {ms:.3f} ms/step (CUDA events, "
             f"{DECOMP_TIMED} steps after {first}), {host:.3f} ms/step (host "
             f"clock); one step: {dev:.3f} ms device time in {n} launches "
-            f"({100 * dev / ms:.1f}% busy); the EVP kernel {evp_ms:.4f} ms "
-            f"in {evp_n} launches; card: {card}")
+            f"({100 * dev / ms:.1f}% busy); the EVP {evp_ms:.4f} ms in "
+            f"{evp_n} launches (the round kernel {rounds_ms:.4f} ms in "
+            f"{rounds_n}, the final subcycle's evp_subcycle "
+            f"{evp_ms - rounds_ms:.4f} in {evp_n - rounds_n}; before the "
+            f"round kernel, 2.9223 ms in 52 at 2x2); card: {card}")
     return ms_one, ms_dec
 
 
 def capture_rounds(models, states, forcing, mesh, first):
-    """The arguments of the first round-mode EVP launch of one decomposed
+    """The arguments of the first round kernel call of one decomposed
     step (the step's results are discarded)."""
     from cice4_tpu_torch.ops import evp_cuda
 
@@ -2136,9 +2163,22 @@ def compare_saved(tag, path, ref, rtol):
     return worst, equal
 
 
+def rounds_a_step(ndte, H):
+    """(rounds, round kernel launches) of a block's EVP a step: ndte - 1
+    gated subcycles in rounds of H - 1 and the remainder, each round in
+    the launches `evp_cuda.round_plan` gives it in f32."""
+    from cice4_tpu_torch.ops import evp_cuda
+
+    k = H - 1
+    ks = [k] * ((ndte - 1) // k) + ([(ndte - 1) % k] if (ndte - 1) % k
+                                    else [])
+    return len(ks), sum(len(evp_cuda.round_plan(x, torch.float32)[2])
+                        for x in ks)
+
+
 def phase_decomposed(device, card, workdir):
     """Paths (o)-(r) of the decomposed model; returns the counts of (o)
-    and the arguments of its first round-mode EVP launch."""
+    and the arguments of its first round kernel call."""
     from cice4_tpu_torch.config import access_om_config
     from cice4_tpu_torch.convert import gather_blocks
     from cice4_tpu_torch.kernel_check import DECOMP_RTOL
@@ -2154,20 +2194,21 @@ def phase_decomposed(device, card, workdir):
     by = cfg.domain.ny_global // DECOMP_MESH[0]
     bx = cfg.domain.nx_global // DECOMP_MESH[1]
     H = min(evp_sharded.DEFAULT_H, by, bx)
-    rounds = (ndte - 1) // (H - 1) + (1 if (ndte - 1) % (H - 1) else 0)
+    rounds, round_calls = rounds_a_step(ndte, H)
     tag = (f"(o) gx1 {cfg.domain.ny_global}x{cfg.domain.nx_global} on "
            f"{DECOMP_MESH[0]}x{DECOMP_MESH[1]} blocks of {by}x{bx}")
-    log(f"  {tag}: EVP halo {H}, {rounds} rounds + the final launch a block "
-        f"and step (padded {by + 2 * H}x{bx + 2 * H}), remap halo 6 (padded "
+    log(f"  {tag}: EVP halo {H}, {rounds} rounds ({round_calls} round "
+        f"kernel launches) + the final subcycle's launch a block and step "
+        f"(padded {by + 2 * H}x{bx + 2 * H}), remap halo 6 (padded "
         f"{by + 12}x{bx + 12})")
     n = DECOMP_STEPS
-    # the final subcycle's launch on a padded block is the kernel's
+    # the final subcycle's launch on a padded block is the EVP kernel's
     # doubly cyclic (whole-grid) mode
     (mesh, models, states, counts, gathered, worst, equal,
      refs) = drive_decomposed(
         tag, model, state, forcing, DECOMP_MESH, n,
         expected(therm_newton=nb * n, evp_subcycle=nb * n,
-                 evp_wholegrid=nb * n, evp_rounds=nb * rounds * n,
+                 evp_wholegrid=nb * n, evp_rounds=nb * round_calls * n,
                  remap_gsh=nb * n, remap_k12=nb * n), rtol)
     if gathered:
         raise AssertionError(f"{tag}: gathered phases {gathered} where the "
@@ -2175,6 +2216,9 @@ def phase_decomposed(device, card, workdir):
     ms_one, ms_dec = time_decomposed(tag, model, refs[-1], forcing, mesh,
                                      models, states, n, card)
     rounds_args = capture_rounds(models, states, forcing, mesh, n)
+    _, rounds_ms, _, _, _ = measure_kernel("evp_rounds", rounds_args, card,
+                                           where="(o)'s first round's")
+    log_design("evp_rounds", rounds_args, rounds_ms)
 
     # (p) ACCESS-OM2 at 1 degree: the U-fold into the EVP rounds, the
     # remap gathered
@@ -2182,8 +2226,7 @@ def phase_decomposed(device, card, workdir):
     pmodel, pstate, pforce = make_run(pcfg, device, torch.float32)
     pby, pbx = ACCESS1[0] // DECOMP_MESH[0], ACCESS1[1] // DECOMP_MESH[1]
     pH = min(evp_sharded.DEFAULT_H, pby - 1, pbx)
-    pn = pcfg.dynamics.ndte
-    prounds = (pn - 1) // (pH - 1) + (1 if (pn - 1) % (pH - 1) else 0)
+    prounds = rounds_a_step(pcfg.dynamics.ndte, pH)[1]
     ptag = (f"(p) ACCESS-OM2 {ACCESS1[0]}x{ACCESS1[1]} (tripole) on "
             f"{DECOMP_MESH[0]}x{DECOMP_MESH[1]} blocks")
     m = 2
@@ -2284,6 +2327,15 @@ def phase_deep(device, card):
     err, ms, plain_ms, bound_ms, _ = measure_kernel(
         "therm_newton", args["therm_newton"], card,
         where="the deep column's (nilyr 10)")
+    for layers in ((10, 1), (4, 1)):
+        occ = tv.therm_newton_generic_occupancy(*layers, torch.float32)
+        log(f"  the generic instance at {layers}, f32, as the runtime "
+            f"reports it: {occ['registers']} registers and "
+            f"{occ['local_bytes']} local bytes a thread, {occ['threads']} "
+            f"threads a block, {occ['blocks_per_sm']} blocks "
+            f"({occ['warps_per_sm']} warps) an SM")
+    p4 = layer_params(args["therm_newton"][0], 4, 1)
+    time_newton_layers(p4, device, card)
     return {"therm_newton": (launches["therm_newton"], ms, bound_ms,
                              err)}, plain_ms
 
@@ -2602,12 +2654,14 @@ def what_binds(nbytes, ops, ms, dtype, device):
 
 
 def log_design(name, args, ms):
-    """Log what the EVP kernel and the remap kernels K0, K12, K1 and K2
-    ran at a path's inputs, as the kernels and the runtime report it; the
-    EVP kernel's time without ice (its grid barriers, active lists and
-    final full-grid subcycle alone); K0's share of halo moments computed
-    again; and what binds K0, K1 and K2 (a copy of their bytes, their
-    operation rate, for K1 and K2 their time without tracers).  Call it
+    """Log what the EVP kernel, the round kernel and the remap kernels
+    K0, K12, K1 and K2 ran at a path's inputs, as the kernels and the
+    runtime report it; the EVP kernel's time without ice (its grid
+    barriers, active lists and final full-grid subcycle alone); the round
+    kernel's tiles, those with ice and its recompute share; K0's share of
+    halo moments computed again; and what binds K0, K1 and K2 (a copy of
+    their bytes, their operation rate, for K1 and K2 their time without
+    tracers).  Call it
     right after `measure_kernel`, whose last kernel call was at `args` and
     took `ms`."""
     if name in ("evp_subcycle", "evp_wholegrid"):
@@ -2639,6 +2693,50 @@ def log_design(name, args, ms):
             else "evp_persistentId"
         for fold, lb in (("", "Lb0E"), (", tripole instance", "Lb1E")):
             log(f"    ptxas{fold}: {ptxas_lines('evp_subcycle', entry + lb)}")
+    elif name == "evp_rounds":
+        from cice4_tpu_torch.ops import evp_cuda
+
+        p, dtype, icet, iceu = args[0], args[-1].dtype, args[3], args[4]
+        ny, nx = icet.shape
+        rows, cols, launches = evp_cuda.round_plan(p.ndte, dtype)
+        sms = torch.cuda.get_device_properties(
+            icet.device).multi_processor_count
+        tiles = -(-ny // rows) * -(-nx // cols)
+        for k in sorted(set(launches)):
+            # cells a tile stages, and computes a subcycle on average (the
+            # stress pass's region, one ring wider than the momentum's),
+            # over its core cells
+            staged = (rows + 2 * k) * (cols + 2 * k) / (rows * cols)
+            stress = sum((rows + 2 * m + 1) * (cols + 2 * m + 1)
+                         for m in range(k)) / (k * rows * cols)
+            momentum = sum((rows + 2 * m) * (cols + 2 * m)
+                           for m in range(k)) / (k * rows * cols)
+            # tiles whose core holds an active cell (the others write
+            # zeros), and those whose k-wide apron (cyclic) does
+            live = (icet | iceu).to(torch.float32)[None, None]
+            cores = torch.nn.functional.max_pool2d(
+                live, (rows, cols), stride=(rows, cols), ceil_mode=True)
+            wrapped = live[0, 0].repeat(3, 3)[ny - k:2 * ny + k + rows,
+                                              nx - k:2 * nx + k + cols]
+            aprons = torch.nn.functional.max_pool2d(
+                wrapped[None, None], (rows + 2 * k, cols + 2 * k),
+                stride=(rows, cols))[0, 0, :-(-ny // rows), :-(-nx // cols)]
+            occ = evp_cuda.round_occupancy(rows, cols, k, dtype)
+            log(f"    {rows} x {cols} core tiles, apron {k}: "
+                f"{occ['smem_bytes']} bytes of "
+                f"shared memory a block, {occ['threads']} threads, "
+                f"{occ['blocks_per_sm']} block(s) an SM, "
+                f"{occ['registers']} registers and {occ['local_bytes']} "
+                f"local bytes a thread (as the runtime reports them); "
+                f"{tiles} tiles on {ny}x{nx}, {int(cores.sum())} with ice in "
+                f"their core (computed), {int(aprons.sum())} in their apron "
+                f"({sms} SMs); recompute share: {staged:.2f} "
+                f"cells staged, {stress:.2f} stress and {momentum:.2f} "
+                f"momentum cells computed a subcycle, a core cell")
+        log(f"    a round of {p.ndte} subcycles in launches of {launches}")
+        entry = "evp_round_tilesIf" if dtype == torch.float32 \
+            else "evp_round_tilesId"
+        log(f"    ptxas: {ptxas_lines('evp_rounds', entry)}")
     elif name in ("remap_gsh", "remap_ga"):
         from cice4_tpu_torch.ops import remap_cuda
 

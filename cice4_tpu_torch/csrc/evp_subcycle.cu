@@ -42,17 +42,11 @@
 //    strain sums and prs_sig of every T cell; zero u, v, strint and strocn
 //    off iceumask), with one more barrier between its two passes.
 // Barriers per call: 2 (phase 0) + 2 (ndte - 1) + 1 = 2 ndte + 1.
-// Round mode (flags bit 2), for the k-halo rounds of a decomposed grid
-// (cice4_tpu_torch/ops/evp_sharded.py): ndte gated subcycles, the owned
-// stresses stored, and no final subcycle (2 + 2 ndte barriers).  The
-// wrapper launches it on a padded block, which is doubly cyclic to the
-// kernel: the wrap of its neighbour reads lands in the outermost ghost
-// ring, which the shrinking-halo schedule never reads, and the active
-// lists cover the ghosts as their exchanged masks say.  The
-// stress pass reads velocities and writes only same-cell stresses and str8,
-// the momentum pass reads str8 and writes only same-point velocities, so no
-// double buffer is needed.  A launch that cannot be co-resident is refused
-// by the runtime and its error returned.
+// The stress pass reads velocities and writes only same-cell stresses and
+// str8, the momentum pass reads str8 and writes only same-point velocities,
+// so no double buffer is needed.  A launch that cannot be co-resident is
+// refused by the runtime and its error returned.  (The k-halo rounds of a
+// decomposed grid have a kernel of their own, evp_rounds.cu.)
 //
 // Activity gating: a T cell outside icetmask keeps zero stresses and str8,
 // and a U point outside iceumask zero velocities (the reference's
@@ -85,15 +79,15 @@
 // the lists and the final subcycle alone (chip_smoke.py times it).
 //
 // Arithmetic follows the plain version expression by expression, in the same
-// order; the source is built with -fmad=false so that no a*b+c is contracted.
+// order (evp_cell.cuh, shared with evp_rounds.cu); the source is built with
+// -fmad=false so that no a*b+c is contracted.
 //
 // C interface: evp_subcycle_f32 / evp_subcycle_f64 take a table of 38
 // pointers (the last an int32 scratch of 2 x blocks + 5 + 2 x ny x nx
 // entries, blocks as evp_subcycle_resident gives them), the grid size, the
 // EW boundary (1 = cyclic), the NS boundary (0 = cyclic, 1 = open or closed,
 // 2 = tripole, 3 = tripoleT), a table of 9 double parameters, ndte,
-// flags (bit 0 evp_damping, bit 1 hemi_turning, bit 2 round mode) and the
-// CUDA stream; they
+// flags (bit 0 evp_damping, bit 1 hemi_turning) and the CUDA stream; they
 // return the launch's error code.  The kernel leaves in scratch[2 x blocks
 // ...] what it ran: its active T cells and U points, the grid barriers it
 // passed, its blocks and threads per block.
@@ -105,17 +99,11 @@
 
 #include <cstdint>
 
+#include "evp_cell.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr double p055 = 1.0 / 18.0;
-constexpr double p111 = 1.0 / 9.0;
-constexpr double p166 = 1.0 / 6.0;
-constexpr double p222 = 2.0 / 9.0;
-constexpr double p25 = 0.25;
-constexpr double p333 = 1.0 / 3.0;
-constexpr double p5 = 0.5;
 
 constexpr int kMaxWarps = 16;
 // what a call reports after its block counts in the scratch: active T
@@ -149,8 +137,7 @@ struct Args {
   T* out[9];
   int* scratch;  // block counts (2 x blocks), kStats, tlist, ulist (np)
   int ny, nx, ew_cyclic, ns_cyclic, ndte;
-  T dte2T, denom1, denom2, rcon, ecci, cosw, sinw, dragw, puny;
-  bool damping, hemi, rounds;
+  evp::Params<T> p;
   int fold;  // 0, or the NS code of a fold: 2 tripole, 3 tripoleT
 };
 
@@ -180,7 +167,7 @@ __device__ __forceinline__ T at(const T* f, int j, int i, const Args<T>& a) {
 template <typename T>
 struct Cell {
   int c, j, i;
-  T cyp, cxp, cym, cxm, dxt, dyt, dxhy, dyhx, tiny, strength;
+  evp::CellGeom<T> g;
   T sp[4], sm[4], s12[4];
 };
 
@@ -188,7 +175,7 @@ struct Cell {
 template <typename T>
 struct Point {
   int c, j, i;
-  T aiu, uocn, vocn, waterx, watery, forcex, forcey, umassdtei, fm, uarear;
+  evp::PointConst<T> k;
   T u, v;
 };
 
@@ -198,16 +185,16 @@ __device__ __forceinline__ void load_geom(const Args<T>& a, int c,
   s.c = c;
   s.j = c / a.nx;
   s.i = c - s.j * a.nx;
-  s.cyp = a.geom[0][c];
-  s.cxp = a.geom[1][c];
-  s.cym = a.geom[2][c];
-  s.cxm = a.geom[3][c];
-  s.dxt = a.geom[4][c];
-  s.dyt = a.geom[5][c];
-  s.dxhy = a.geom[6][c];
-  s.dyhx = a.geom[7][c];
-  s.tiny = a.geom[8][c];
-  s.strength = a.strength[c];
+  s.g.cyp = a.geom[0][c];
+  s.g.cxp = a.geom[1][c];
+  s.g.cym = a.geom[2][c];
+  s.g.cxm = a.geom[3][c];
+  s.g.dxt = a.geom[4][c];
+  s.g.dyt = a.geom[5][c];
+  s.g.dxhy = a.geom[6][c];
+  s.g.dyhx = a.geom[7][c];
+  s.g.tiny = a.geom[8][c];
+  s.g.strength = a.strength[c];
 }
 
 template <typename T>
@@ -241,16 +228,16 @@ __device__ __forceinline__ void load_point(const Args<T>& a, int c,
   q.c = c;
   q.j = c / a.nx;
   q.i = c - q.j * a.nx;
-  q.aiu = a.c[0][c];
-  q.uocn = a.c[1][c];
-  q.vocn = a.c[2][c];
-  q.waterx = a.c[3][c];
-  q.watery = a.c[4][c];
-  q.forcex = a.c[5][c];
-  q.forcey = a.c[6][c];
-  q.umassdtei = a.c[7][c];
-  q.fm = a.c[8][c];
-  q.uarear = a.geom[9][c];
+  q.k.aiu = a.c[0][c];
+  q.k.uocn = a.c[1][c];
+  q.k.vocn = a.c[2][c];
+  q.k.waterx = a.c[3][c];
+  q.k.watery = a.c[4][c];
+  q.k.forcex = a.c[5][c];
+  q.k.forcey = a.c[6][c];
+  q.k.umassdtei = a.c[7][c];
+  q.k.fm = a.c[8][c];
+  q.k.uarear = a.geom[9][c];
   q.u = a.u[c];
   q.v = a.v[c];
 }
@@ -267,133 +254,12 @@ __device__ __forceinline__ void stress(const Args<T>& a, Cell<T>& s,
           u_sw = at(a.u, j - 1, i - 1, a);
   const T v = a.v[c], v_w = at(a.v, j, i - 1, a), v_s = at(a.v, j - 1, i, a),
           v_sw = at(a.v, j - 1, i - 1, a);
-  const T cyp = s.cyp, cxp = s.cxp, cym = s.cym, cxm = s.cxm, dxt = s.dxt,
-          dyt = s.dyt;
-
-  T div[4], ten[4], shr[4];
-  div[0] = cyp * u - dyt * u_w + cxp * v - dxt * v_s;
-  div[1] = cym * u_w + dyt * u + cxp * v_w - dxt * v_sw;
-  div[2] = cym * u_sw + dyt * u_s + cxm * v_sw + dxt * v_w;
-  div[3] = cyp * u_s - dyt * u_sw + cxm * v_s + dxt * v;
-
-  ten[0] = -cym * u - dyt * u_w + cxm * v + dxt * v_s;
-  ten[1] = -cyp * u_w + dyt * u + cxm * v_w + dxt * v_sw;
-  ten[2] = -cyp * u_sw + dyt * u_s + cxp * v_sw - dxt * v_w;
-  ten[3] = -cym * u_s - dyt * u_sw + cxp * v_s - dxt * v;
-
-  shr[0] = -cym * v - dyt * v_w - cxm * u - dxt * u_s;
-  shr[1] = -cyp * v_w + dyt * v - cxm * u_w - dxt * u_sw;
-  shr[2] = -cyp * v_sw + dyt * v_s - cxp * u_sw + dxt * u_w;
-  shr[3] = -cym * v_s - dyt * v_sw - cxp * u_s + dxt * u;
-
-  const T strength = s.strength;
-  const T tiny = s.tiny;
-  T delta[4], c1[4];
-  T prs = T(0);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    delta[k] = sqrt(div[k] * div[k] + a.ecci * (ten[k] * ten[k] +
-                                                shr[k] * shr[k]));
-    T c0;
-    if (a.damping) {
-      const T floor = T(4.0) * tiny;
-      c0 = fmin(strength / fmax(delta[k], floor), a.rcon);
-      if (k == 0) prs = strength * delta[0] / fmax(delta[0], floor);
-    } else {
-      c0 = strength / fmax(delta[k], tiny);
-      if (k == 0) prs = c0 * delta[0];
-    }
-    c1[k] = c0 * a.dte2T;
-  }
-
-  T sp[4], sm[4], s12[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    if (icet) {
-      sp[k] = (s.sp[k] + c1[k] * (div[k] - delta[k])) * a.denom1;
-      sm[k] = (s.sm[k] + c1[k] * ten[k]) * a.denom2;
-      s12[k] = (s.s12[k] + c1[k] * shr[k] * T(p5)) * a.denom2;
-    } else {
-      sp[k] = sm[k] = s12[k] = T(0);
-    }
-    s.sp[k] = sp[k];
-    s.sm[k] = sm[k];
-    s.s12[k] = s12[k];
-  }
-
+  T str[8], sums[5];
+  evp::stress_cell<T, FINAL>(a.p, s.g, u, u_w, u_s, u_sw, v, v_w, v_s, v_sw,
+                             icet, s.sp, s.sm, s.s12, str, sums);
   if (FINAL) {
-    a.out[4][c] = div[0] + div[1] + div[2] + div[3];
-    a.out[5][c] = delta[0] + delta[1] + delta[2] + delta[3];
-    a.out[6][c] = ten[0] + ten[1] + ten[2] + ten[3];
-    a.out[7][c] = shr[0] + shr[1] + shr[2] + shr[3];
-    a.out[8][c] = prs;
-  }
-
-  // str8 (_str8_from_stress)
-  T str[8];
-  if (icet) {
-    const T dxhy = s.dxhy, dyhx = s.dyhx;
-    const T P055 = T(p055), P111 = T(p111), P166 = T(p166), P222 = T(p222),
-            P25 = T(p25), P333 = T(p333), P5 = T(p5), P0555 = T(p055 * p5);
-    const T ssigpn = sp[0] + sp[1], ssigps = sp[2] + sp[3],
-            ssigpe = sp[0] + sp[3], ssigpw = sp[1] + sp[2],
-            ssigp1 = (sp[0] + sp[2]) * P055, ssigp2 = (sp[1] + sp[3]) * P055;
-    const T ssigmn = sm[0] + sm[1], ssigms = sm[2] + sm[3],
-            ssigme = sm[0] + sm[3], ssigmw = sm[1] + sm[2],
-            ssigm1 = (sm[0] + sm[2]) * P055, ssigm2 = (sm[1] + sm[3]) * P055;
-    const T ssig12n = s12[0] + s12[1], ssig12s = s12[2] + s12[3],
-            ssig12e = s12[0] + s12[3], ssig12w = s12[1] + s12[2],
-            ssig121 = (s12[0] + s12[2]) * P111,
-            ssig122 = (s12[1] + s12[3]) * P111;
-
-    const T csigpne = P111 * sp[0] + ssigp2 + P0555 * sp[2];
-    const T csigpnw = P111 * sp[1] + ssigp1 + P0555 * sp[3];
-    const T csigpsw = P111 * sp[2] + ssigp2 + P0555 * sp[0];
-    const T csigpse = P111 * sp[3] + ssigp1 + P0555 * sp[1];
-
-    const T csigmne = P111 * sm[0] + ssigm2 + P0555 * sm[2];
-    const T csigmnw = P111 * sm[1] + ssigm1 + P0555 * sm[3];
-    const T csigmsw = P111 * sm[2] + ssigm2 + P0555 * sm[0];
-    const T csigmse = P111 * sm[3] + ssigm1 + P0555 * sm[1];
-
-    const T csig12ne = P222 * s12[0] + ssig122 + P055 * s12[2];
-    const T csig12nw = P222 * s12[1] + ssig121 + P055 * s12[3];
-    const T csig12sw = P222 * s12[2] + ssig122 + P055 * s12[0];
-    const T csig12se = P222 * s12[3] + ssig121 + P055 * s12[1];
-
-    const T str12ew = P5 * dxt * (P333 * ssig12e + P166 * ssig12w);
-    const T str12we = P5 * dxt * (P333 * ssig12w + P166 * ssig12e);
-    const T str12ns = P5 * dyt * (P333 * ssig12n + P166 * ssig12s);
-    const T str12sn = P5 * dyt * (P333 * ssig12s + P166 * ssig12n);
-
-    T strp = P25 * dyt * (P333 * ssigpn + P166 * ssigps);
-    T strm = P25 * dyt * (P333 * ssigmn + P166 * ssigms);
-    str[0] = -strp - strm - str12ew + dxhy * (-csigpne + csigmne) +
-             dyhx * csig12ne;
-    str[1] = strp + strm - str12we + dxhy * (-csigpnw + csigmnw) +
-             dyhx * csig12nw;
-    strp = P25 * dyt * (P333 * ssigps + P166 * ssigpn);
-    strm = P25 * dyt * (P333 * ssigms + P166 * ssigmn);
-    str[2] = -strp - strm + str12ew + dxhy * (-csigpse + csigmse) +
-             dyhx * csig12se;
-    str[3] = strp + strm + str12we + dxhy * (-csigpsw + csigmsw) +
-             dyhx * csig12sw;
-
-    strp = P25 * dxt * (P333 * ssigpe + P166 * ssigpw);
-    strm = P25 * dxt * (P333 * ssigme + P166 * ssigmw);
-    str[4] = -strp + strm - str12ns - dyhx * (csigpne + csigmne) +
-             dxhy * csig12ne;
-    str[5] = strp - strm - str12sn - dyhx * (csigpse + csigmse) +
-             dxhy * csig12se;
-    strp = P25 * dxt * (P333 * ssigpw + P166 * ssigpe);
-    strm = P25 * dxt * (P333 * ssigmw + P166 * ssigme);
-    str[6] = -strp + strm + str12ns - dyhx * (csigpnw + csigmnw) +
-             dxhy * csig12nw;
-    str[7] = strp - strm + str12sn - dyhx * (csigpsw + csigmsw) +
-             dxhy * csig12sw;
-  } else {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) str[k] = T(0);
+    for (int k = 0; k < 5; ++k) a.out[4 + k][c] = sums[k];
   }
 #pragma unroll
   for (int k = 0; k < 8; ++k) a.str8[k * np + c] = str[k];
@@ -405,17 +271,6 @@ template <typename T, bool FINAL, bool FOLD>
 __device__ __forceinline__ void momentum(const Args<T>& a, Point<T>& q) {
   const int j = q.j, i = q.i, c = q.c;
   const int64_t np = (int64_t)a.ny * a.nx;
-  const T u = q.u, v = q.v;
-
-  const T du = q.uocn - u, dv = q.vocn - v;
-  const T vrel = q.aiu * a.dragw * sqrt(du * du + dv * dv);
-  const T taux = vrel * q.waterx;
-  const T tauy = vrel * q.watery;
-  const T cca = q.umassdtei + vrel * a.cosw;
-  const T sgn = (a.hemi && q.fm < T(0)) ? T(-1) : T(1);
-  const T ccb = q.fm + sgn * vrel * a.sinw;
-  const T ab2 = cca * cca + ccb * ccb;
-
   const T* s = a.str8;
   const T s0 = s[c], s4 = s[4 * np + c];
   const T s1e = at(s + 1 * np, j, i + 1, a), s6e = at(s + 6 * np, j, i + 1, a);
@@ -441,21 +296,14 @@ __device__ __forceinline__ void momentum(const Args<T>& a, Point<T>& q) {
     s3ne = s[3 * np + ne];
     s7ne = s[7 * np + ne];
   }
-  const T strintx = q.uarear * (s0 + s1e + s2n + s3ne);
-  const T strinty = q.uarear * (s4 + s5n + s6e + s7ne);
-
-  const T cc1 = strintx + q.forcex + taux + q.umassdtei * u;
-  const T cc2 = strinty + q.forcey + tauy + q.umassdtei * v;
-  const T den = fmax(ab2, a.puny);
-  q.u = (cca * cc1 + ccb * cc2) / den;
-  q.v = (cca * cc2 - ccb * cc1) / den;
+  T out[4];
+  evp::momentum_point<T, FINAL>(a.p, q.k, q.u, q.v, s0, s1e, s2n, s3ne, s4,
+                                s5n, s6e, s7ne, out);
   a.u[c] = q.u;
   a.v[c] = q.v;
   if (FINAL) {
-    a.out[0][c] = strintx;
-    a.out[1][c] = strinty;
-    a.out[2][c] = taux;
-    a.out[3][c] = tauy;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) a.out[k][c] = out[k];
   }
 }
 
@@ -562,8 +410,7 @@ __global__ void __launch_bounds__(Launch<T>::threads, 1)
   Point<T> ps;
   if (own_t) load_cell(a, tlist[g], cs);
   if (own_u) load_point(a, ulist[g], ps);
-  const int gated = a.rounds ? a.ndte : a.ndte - 1;
-  for (int n = 0; n < gated; ++n) {
+  for (int n = 0; n < a.ndte - 1; ++n) {
     if (own_t) stress<T, false>(a, cs, true);
     for (int k = g + R; k < nt; k += R) {  // overflow: state in memory
       Cell<T> s;
@@ -579,18 +426,6 @@ __global__ void __launch_bounds__(Launch<T>::threads, 1)
       momentum<T, false, FOLD>(a, q);
     }
     sync();
-  }
-
-  if (a.rounds) {  // a k-halo round: the owned stresses back to memory
-    if (own_t) store_stress(a, cs);
-    if (b == 0 && threadIdx.x == 0) {
-      stats[0] = nt;
-      stats[1] = nu;
-      stats[2] = barriers;
-      stats[3] = nb;
-      stats[4] = kThreads;
-    }
-    return;
   }
 
   // --- the final subcycle over every cell --------------------------------
@@ -657,7 +492,7 @@ template <typename T>
 int run(const int64_t* ptrs, int ny, int nx, int ew_cyclic, int ns,
         const double* par, int ndte, int flags, cudaStream_t stream) {
   if ((int64_t)ny * nx >= (int64_t)1 << 30 || ndte < 1 || ns < 0 || ns > 3 ||
-      (ns >= 2 && ny < 2))
+      (ns >= 2 && ny < 2) || (flags & ~3) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Args<T> a;
   for (int k = 0; k < 10; ++k) a.geom[k] = reinterpret_cast<const T*>(ptrs[k]);
@@ -679,18 +514,7 @@ int run(const int64_t* ptrs, int ny, int nx, int ew_cyclic, int ns,
   a.ns_cyclic = ns == 0;
   a.fold = ns >= 2 ? ns : 0;
   a.ndte = ndte;
-  a.dte2T = T(par[0]);
-  a.denom1 = T(par[1]);
-  a.denom2 = T(par[2]);
-  a.rcon = T(par[3]);
-  a.ecci = T(par[4]);
-  a.cosw = T(par[5]);
-  a.sinw = T(par[6]);
-  a.dragw = T(par[7]);
-  a.puny = T(par[8]);
-  a.damping = (flags & 1) != 0;
-  a.hemi = (flags & 2) != 0;
-  a.rounds = (flags & 4) != 0;
+  a.p = evp::make_params<T>(par, flags);
 
   // the scratch holds the counts of the grid evp_subcycle_resident gives:
   // the fold's instance must launch the same

@@ -61,13 +61,21 @@
 // multiple of 32, at most 128, whose arrays fit in 227 KB.  One warp's
 // arrays (with the profiles) fit up to nilyr 255 with nslyr 1 and 254 with
 // nslyr 3 in f32, and up to 127 and 125 in f64; beyond, the launch returns
-// kErrLayers and the wrapper raises with the count and the bytes.  It
-// keeps no spill and no stack frame (ptxas: 157 registers in f32, 210 in
-// f64), so registers, not shared memory, cap its blocks on an SM.  Its
-// bound is the bytes of
-// the layer stacks, which grow linearly with nilyr + nslyr, over 3.35 TB/s;
-// the shared-memory traffic of each iteration (about 3 words a row of the
-// solve, a thread) is what it pays for the run-time counts.
+// kErrLayers and the wrapper raises with the count and the bytes.  Its
+// bound is the bytes of the layer stacks, which grow linearly with
+// nilyr + nslyr, over 3.35 TB/s; the shared-memory traffic of each
+// iteration (about 3 words a row of the solve, a thread) is what it pays
+// for the run-time counts, and warps in flight are what hide it.  So in
+// f32 its per-layer loops inside the Newton iteration are not unrolled
+// (each row of the solve depends on the last, so unrolling bought no
+// overlap and cost registers: 157), and __launch_bounds__ asks for 4
+// blocks of 128 threads an SM: 93 registers, no spill and no stack frame,
+// so at (10, 1) shared memory (41 KB a block) and not registers caps it at
+// 5 blocks, 20 warps, an SM (12 before).  In f64 the loops are unrolled by
+// 4, the compiler's own choice (210 registers): not unrolled, ptxas fuses
+// other multiplies and adds than in the register instance, and the two
+// instances no longer agree bit for bit at (4, 1), as they do in both
+// types with these loops (on an H100, PERF.md section 6).
 //
 // C interface: therm_newton_f32 / therm_newton_f64 take a table of pointers,
 // a table of strides, the sizes, a table of double parameters (dt, l_brine,
@@ -539,8 +547,16 @@ __host__ __device__ constexpr int generic_words(int ni, int ns) {
 }
 constexpr int64_t kSharedMax = 232448;  // 227 KB, a block's dynamic maximum
 
+// the blocks an SM must hold at 128 threads, which bounds the generic
+// instance's registers: in f32 four (16 warps, at most 128 registers a
+// thread), in f64 one
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+struct GenericBlocks {
+  static constexpr int min = sizeof(T) == 4 ? 4 : 1;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, GenericBlocks<T>::min)
 therm_newton_generic(const GenericArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const sm = reinterpret_cast<T*>(smem_raw);
@@ -712,6 +728,7 @@ therm_newton_generic(const GenericArgs<T> a) {
         at(rSp + r) = spk; at(rD + r) = dk; at(rRhs + r) = rhk;
         d_prev = dk; sp_prev = spk; rhs_prev = rhk;
       };
+#pragma unroll (sizeof(T) == 4 ? 1 : 4)
       for (int k = 0; k < ns; ++k) {
         const int r = k + 1;
         T sbk = -etas * kh(k);
@@ -737,6 +754,7 @@ therm_newton_generic(const GenericArgs<T> a) {
         }
         eliminate(r, sbk, dk, spk, rhk);
       }
+#pragma unroll (sizeof(T) == 4 ? 1 : 4)
       for (int ki = 0; ki < ni; ++ki) {
         const int k = ki + ns;
         const T tin = at(rTin + ki), tin0 = at(rTin0 + ki);
@@ -765,6 +783,7 @@ therm_newton_generic(const GenericArgs<T> a) {
       // back substitution, the solution x[k] written over rhs
       T x_next = at(rRhs + nm - 1) / at(rD + nm - 1);
       at(rRhs + nm - 1) = x_next;
+#pragma unroll (sizeof(T) == 4 ? 1 : 4)
       for (int k = nm - 2; k >= 0; --k) {
         x_next = (at(rRhs + k) - at(rSp + k) * x_next) / at(rD + k);
         at(rRhs + k) = x_next;
@@ -788,6 +807,7 @@ therm_newton_generic(const GenericArgs<T> a) {
       // the new temperatures, merged in place (this cell is active), and
       // the column's energy
       T esn = T(0), ein = T(0), dq = T(0), tsn_top = T(0);
+#pragma unroll (sizeof(T) == 4 ? 1 : 4)
       for (int k = 0; k < ns; ++k) {
         T t = l_snow ? x(k + 1) : T(0);
         if (l_brine) t = vmin(t, T(0));
@@ -806,6 +826,7 @@ therm_newton_generic(const GenericArgs<T> a) {
         return T(kRhoi) * dT * (T(kCpIce) - T(kLfresh) * tm / (m * m));
       };
       T tin_top = T(0), tin_bot = T(0);
+#pragma unroll (sizeof(T) == 4 ? 1 : 4)
       for (int ki = 0; ki < ni; ++ki) {
         T t = x(ns + 1 + ki);
         const T tm = tmlt[ki];
@@ -846,6 +867,7 @@ therm_newton_generic(const GenericArgs<T> a) {
       if (bad_e) {
         const T denom = vmax(fabs(fct_new - fcbot), puny);
         const T fracr = vmax(T(0.5) * (T(1) - ferr / denom), T(0.1));
+#pragma unroll (sizeof(T) == 4 ? 1 : 4)
         for (int ki = 0; ki < ni; ++ki) {
           bool over;
           const T dqmat = clamp_energy(ki, x(ns + 1 + ki), over);
@@ -1050,6 +1072,31 @@ int launch(const int64_t* ptrs, const int64_t* strides, int64_t ncat,
 #undef THERM_NEWTON_ICE
 }
 
+// therm_newton_generic_occupancy's work for one type
+template <typename T>
+int generic_occupancy(int ni, int ns, int* out) {
+  int threads = 0;
+  const int64_t smem = generic_plan(ni, ns, sizeof(T), &threads);
+  if (threads == 0) return kErrLayers;
+  cudaError_t e =
+      smem > 48 * 1024
+          ? cudaFuncSetAttribute(therm_newton_generic<T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem))
+          : cudaSuccess;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[0], therm_newton_generic<T>, threads, smem);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&attr, therm_newton_generic<T>);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[1] = threads;
+  out[2] = attr.numRegs;
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" int therm_newton_f32(const int64_t* ptrs, const int64_t* strides,
@@ -1090,4 +1137,14 @@ extern "C" int therm_newton_generic_f64(const int64_t* ptrs,
 extern "C" int64_t therm_newton_generic_bytes(int ni, int ns, int elem,
                                               int* threads) {
   return generic_plan(ni, ns, elem, threads);
+}
+
+// what the runtime reports of the generic instance of `elem` bytes at
+// (nilyr, nslyr) on the current device: in out[0..3] its blocks resident an
+// SM, threads per block, registers a thread and local (stack and spill)
+// bytes a thread; returns the runtime's error code
+extern "C" int therm_newton_generic_occupancy(int ni, int ns, int elem,
+                                              int* out) {
+  return elem == 4 ? generic_occupancy<float>(ni, ns, out)
+                   : generic_occupancy<double>(ni, ns, out);
 }

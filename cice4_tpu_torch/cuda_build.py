@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # operation by operation, so nvcc must not contract a*b+c into an FMA that
 # eager PyTorch does not do (it could flip the remap geometry's case tests)
 EXTRA_FLAGS = {"evp_subcycle": ("-fmad=false",),
+               "evp_rounds": ("-fmad=false",),
                "remap_gsh": ("-fmad=false",),
                "remap_k12": ("-fmad=false",),
                "remap_k1k2": ("-fmad=false",)}

@@ -24,12 +24,15 @@ closed on both axes, and the tripole and tripoleT folds north-south (the
 kernel folds the str8 reads of the momentum pass; `evp` makes the top
 row of U points symmetric before the call).
 
-:func:`evp_rounds` is the kernel in round mode, for the k-halo rounds of
-a decomposed grid (:mod:`cice4_tpu_torch.ops.evp_sharded`): on a padded
-block, doubly cyclic to the kernel, it runs p.ndte gated subcycles and
-no final one, and returns the velocities and stresses.  Its launches
-count in ``evp_rounds.launches``; its plain version is
-:func:`_evp_rounds_plain`.
+:func:`evp_rounds` runs the k-halo rounds of a decomposed grid
+(:mod:`cice4_tpu_torch.ops.evp_sharded`) through a kernel of their own,
+``csrc/evp_rounds.cu``: on a padded block, doubly cyclic, p.ndte gated
+subcycles and no final one, tile by tile with k-wide aprons in shared
+memory, returning the velocities and stresses in new tensors.  A round
+whose apron does not fit a block's shared memory runs as launches of
+fewer subcycles (:func:`round_plan`; the arithmetic is the same), each
+one :func:`round_launch`.  Its launches count in ``evp_rounds.launches``;
+its plain version is :func:`_evp_rounds_plain`.
 """
 
 from __future__ import annotations
@@ -86,10 +89,29 @@ def resident_grid(dtype, device_index: int):
     return blocks.value, threads.value
 
 
+def _fit(x, shape, dtype, device):
+    """`x` contiguous, after checking its device, type and shape."""
+    if x.device != device or x.dtype != dtype:
+        raise TypeError(f"EVP kernel input on {x.device} as {x.dtype}; "
+                        f"expected {device} as {dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"EVP kernel input of shape {tuple(x.shape)}; "
+                         f"expected {shape}")
+    return x.contiguous()
+
+
+def _params(p: EvpParams):
+    """The kernels' table of 9 double parameters and their flags."""
+    params = [p.dte2T, p.denom1, p.denom2, p.rcon, p.ecci, p.cosw, p.sinw,
+              p.dragw, cn.puny]
+    return ((ctypes.c_double * len(params))(*params),
+            int(p.evp_damping) | (int(p.hemi_turning) << 1))
+
+
 def _evp_subcycle_cuda(p: EvpParams, grid, strength, icetmask, iceumask,
                        aiu, uocn, vocn, waterx, watery, forcex, forcey,
                        umassdtei, fm, uvel, vvel, stressp, stressm,
-                       stress12, rounds: bool = False):
+                       stress12):
     bc = grid.bc
     if bc.ns not in KERNEL_BC_CODE or bc.ew not in ("cyclic", "open",
                                                     "closed"):
@@ -102,13 +124,7 @@ def _evp_subcycle_cuda(p: EvpParams, grid, strength, icetmask, iceumask,
     ny, nx = uvel.shape
 
     def fit(x, shape, dt_=dtype):
-        if x.device != device or x.dtype != dt_:
-            raise TypeError(f"evp_subcycle input on {x.device} as "
-                            f"{x.dtype}; expected {device} as {dt_}")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"evp_subcycle input of shape "
-                             f"{tuple(x.shape)}; expected {shape}")
-        return x.contiguous()
+        return _fit(x, shape, dt_, device)
 
     plane = (ny, nx)
     geom = [fit(getattr(grid, k), plane) for k in _GEOM]
@@ -135,12 +151,7 @@ def _evp_subcycle_cuda(p: EvpParams, grid, strength, icetmask, iceumask,
     ptrs = [x.data_ptr() for x in geom + const + state + [str8] + outs
             + [scratch]]
     ptr_arr = (ctypes.c_int64 * len(ptrs))(*ptrs)
-    params = [p.dte2T, p.denom1, p.denom2, p.rcon, p.ecci, p.cosw, p.sinw,
-              p.dragw, cn.puny]
-    par_arr = (ctypes.c_double * len(params))(*params)
-    # bit 2: round mode, p.ndte gated subcycles and no final one
-    flags = (int(p.evp_damping) | (int(p.hemi_turning) << 1)
-             | (int(rounds) << 2))
+    par_arr, flags = _params(p)
     fn = _evp_fn(dtype)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -150,9 +161,6 @@ def _evp_subcycle_cuda(p: EvpParams, grid, strength, icetmask, iceumask,
     if rc != 0:
         raise RuntimeError(f"evp_subcycle launch failed: cudaError {rc}")
     evp_subcycle.stats = scratch[2 * blocks:2 * blocks + len(_STATS)]
-    if rounds:
-        evp_rounds.launches += 1
-        return tuple(state)
     evp_subcycle.launches += 1
     if bc.ns == "cyclic":
         evp_subcycle.ns_cyclic_launches += 1
@@ -181,18 +189,122 @@ def evp_subcycle(p: EvpParams, grid, strength, icetmask, iceumask, aiu,
         f"evp_subcycle has no path for device {uvel.device}")
 
 
+# the round kernel's tile (rows, columns of its core) and the subcycles a
+# launch runs at most, by type; a round of more subcycles runs as several
+# launches.  8 x 16 is the fastest one-launch tile that
+# tools/time_round_tiles.py times at gx1's rounds on an H100 (PERF.md
+# section 6); two launches of 5 take 13% less device time but add a
+# launch's host time to each round of a host-bound path.  In f64 the apron
+# of 10 does not fit a block's shared memory, that of 7 does (the kernel
+# refuses a tile that does not fit).
+ROUND_TILE = {torch.float32: (8, 16, 10), torch.float64: (8, 16, 7)}
+
+
+def round_launches(k: int, most: int) -> list[int]:
+    """The subcycles of each launch of a round of `k` subcycles, at most
+    `most` a launch, as even as they divide: 10 at most 5 is [5, 5], 9 is
+    [5, 4]."""
+    n = -(-k // most)
+    return [k // n + 1] * (k % n) + [k // n] * (n - k % n)
+
+
+def round_plan(k: int, dtype) -> tuple[int, int, list[int]]:
+    """(rows, columns, subcycles of each launch) of a round of `k`
+    subcycles: ROUND_TILE's."""
+    rows, cols, most = ROUND_TILE[dtype]
+    return rows, cols, round_launches(k, most)
+
+
+def round_occupancy(rows: int, cols: int, k: int, dtype) -> dict:
+    """What the runtime reports of the round kernel with a rows x cols
+    tile and k subcycles on the current card: blocks resident an SM,
+    threads per block, registers and local (stack and spill) bytes a
+    thread, and the shared-memory bytes of a block."""
+    from cice4_tpu_torch import cuda_build
+
+    fn = cuda_build.load("evp_rounds").lib.evp_rounds_occupancy
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    rc = fn(rows, cols, k, torch.empty((), dtype=dtype).element_size(),
+            ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"evp_rounds_occupancy: cudaError {rc}")
+    return dict(zip(("blocks_per_sm", "threads", "registers", "local_bytes",
+                     "smem_bytes"), out))
+
+
+def _rounds_fn(dtype):
+    from cice4_tpu_torch import cuda_build
+
+    lib = cuda_build.load("evp_rounds").lib
+    fn = lib.evp_rounds_f32 if dtype == torch.float32 else lib.evp_rounds_f64
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def round_launch(p: EvpParams, grid, strength, icetmask, iceumask, aiu,
+                 uocn, vocn, waterx, watery, forcex, forcey, umassdtei, fm,
+                 uvel, vvel, stressp, stressm, stress12, rows, cols, k):
+    """One launch of the round kernel: `k` subcycles with a rows x cols
+    core tile, into new tensors (uvel, vvel, stressp, stressm, stress12).
+    Counted in ``evp_rounds.launches``."""
+    dtype, device = uvel.dtype, uvel.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"evp_rounds takes float32 or float64, not {dtype}")
+    ny, nx = uvel.shape
+    plane = (ny, nx)
+    const = [_fit(getattr(grid, n), plane, dtype, device) for n in _GEOM] + [
+        _fit(strength, plane, dtype, device),
+        _fit(icetmask, plane, torch.bool, device),
+        _fit(iceumask, plane, torch.bool, device)] + [
+        _fit(x, plane, dtype, device) for x in (aiu, uocn, vocn, waterx,
+                                                watery, forcex, forcey,
+                                                umassdtei, fm)]
+    state = [_fit(x, plane, dtype, device) for x in (uvel, vvel)] + [
+        _fit(s, (4, ny, nx), dtype, device)
+        for s in (stressp, stressm, stress12)]
+    out = [torch.empty_like(x) for x in state]
+    ptrs = [x.data_ptr() for x in const + state + out]
+    ptr_arr = (ctypes.c_int64 * len(ptrs))(*ptrs)
+    par_arr, flags = _params(p)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _rounds_fn(dtype)(ctypes.addressof(ptr_arr), ny, nx, rows, cols,
+                               k, ctypes.addressof(par_arr), flags, stream)
+    if rc != 0:
+        raise RuntimeError(f"evp_rounds launch failed: cudaError {rc}")
+    evp_rounds.launches += 1
+    return tuple(out)
+
+
+def _evp_rounds_cuda(p: EvpParams, *args):
+    """The round on the card: `round_plan`'s launches of the round
+    kernel."""
+    if p.ndte < 1:
+        raise ValueError(f"ndte must be >= 1, got {p.ndte}")
+    *const, uvel, vvel, stressp, stressm, stress12 = args
+    state = (uvel, vvel, stressp, stressm, stress12)
+    rows, cols, launches = round_plan(p.ndte, uvel.dtype)
+    for k in launches:
+        state = round_launch(p, *const, *state, rows, cols, k)
+    return state
+
+
 def evp_rounds(p: EvpParams, grid, strength, icetmask, iceumask, aiu,
                uocn, vocn, waterx, watery, forcex, forcey, umassdtei, fm,
                uvel, vvel, stressp, stressm, stress12):
-    """p.ndte gated EVP subcycles and no final one (a k-halo round):
-    returns (uvel, vvel, stressp, stressm, stress12).  The kernel in
-    round mode for CUDA tensors, :func:`_evp_rounds_plain` for CPU
-    ones."""
+    """p.ndte gated EVP subcycles and no final one (a k-halo round) on a
+    doubly cyclic padded block: returns (uvel, vvel, stressp, stressm,
+    stress12).  The round kernel for CUDA tensors, :func:`_evp_rounds_plain`
+    for CPU ones."""
     args = (p, grid, strength, icetmask, iceumask, aiu, uocn, vocn, waterx,
             watery, forcex, forcey, umassdtei, fm, uvel, vvel, stressp,
             stressm, stress12)
     if uvel.device.type == "cuda":
-        return _evp_subcycle_cuda(*args, rounds=True)
+        return _evp_rounds_cuda(*args)
     if uvel.device.type == "cpu":
         return _evp_rounds_plain(*args)
     raise NotImplementedError(

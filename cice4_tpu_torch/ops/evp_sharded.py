@@ -14,12 +14,14 @@ doubly cyclic boundary that the padded geometry carries; the roll's
 wrap only reaches the outermost ring, which the shrinking schedule
 never reads).
 
-On the card each round is one launch of the ``evp_subcycle`` kernel on
-the padded block in its doubly cyclic mode (the mode of the whole-grid
-TPU kernel, ``cice4_tpu/ops/evp_pallas.py:468``), told to run k gated
-subcycles and no final one (:func:`cice4_tpu_torch.ops.evp_cuda.
-evp_rounds`); the final subcycle is a launch with ``ndte = 1``.  On the
-CPU the body is the plain `_stress_update`/`_stepu` loop.
+On the card each round goes through the round kernel
+(:func:`cice4_tpu_torch.ops.evp_cuda.evp_rounds`, ``csrc/evp_rounds.cu``):
+tiles of the padded block with k-wide aprons in shared memory, k gated
+subcycles and no final one, no grid barrier; the final subcycle is a
+launch of the ``evp_subcycle`` kernel with ``ndte = 1`` in its doubly
+cyclic mode (the mode of the whole-grid TPU kernel,
+``cice4_tpu/ops/evp_pallas.py:468``).  On the CPU the body is the plain
+`_stress_update`/`_stepu` loop.
 
 Boundaries: cyclic/open/closed on both axes and the production U-fold
 (``tripole``): the top mesh row fills its north ghosts from the

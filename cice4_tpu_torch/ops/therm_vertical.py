@@ -608,6 +608,26 @@ def therm_newton_generic_bytes(nilyr, nslyr, dtype):
     return nbytes, threads.value
 
 
+def therm_newton_generic_occupancy(nilyr, nslyr, dtype) -> dict:
+    """What the runtime reports of the generic instance at these layer
+    counts on the current card: blocks resident an SM, threads per block,
+    registers and local (stack and spill) bytes a thread, warps an SM."""
+    from cice4_tpu_torch import cuda_build
+
+    fn = cuda_build.load("therm_newton").lib.therm_newton_generic_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    rc = fn(nilyr, nslyr, torch.empty((), dtype=dtype).element_size(),
+            ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"therm_newton_generic_occupancy: error {rc}")
+    blocks, threads, regs, local = list(out)
+    return dict(blocks_per_sm=blocks, threads=threads, registers=regs,
+                local_bytes=local, warps_per_sm=blocks * threads // 32)
+
+
 @functools.lru_cache(maxsize=None)
 def _tc_profile(salin, tmlt, dtype, device):
     """The salinity and melting-temperature profiles, which the generic

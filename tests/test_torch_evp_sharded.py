@@ -19,8 +19,8 @@
 * `transport_remap_sharded` against the one-device `transport_remap`,
   bit for bit (JAX's ``cice4_tpu/ops/remap.py:1277-1279`` claims the
   same), for each transport option.
-* On the card (`gpu`): the kernel's round mode against its plain
-  version, and the k-halo EVP against the one-device launch.  The file
+* On the card (`gpu`): the round kernel against its plain version, and
+  the k-halo EVP against the one-device launch.  The file
   imports JAX only inside the tests that use it, so that these run where
   JAX is absent: ``python -m pytest --noconftest -m gpu
   tests/test_torch_evp_sharded.py``.
@@ -372,28 +372,54 @@ def cuda_device():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("k", [1, 10])
-def test_round_mode_matches_plain(cuda_device, dtype, k):
-    from cice4_tpu_torch.ops.evp_cuda import evp_rounds
+@pytest.mark.parametrize("shape,k", [((34, 40), 1), ((34, 40), 10),
+                                     ((214, 182), 10), ((214, 182), 9),
+                                     ((37, 45), 10)],
+                         ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else str(v))
+def test_round_mode_matches_plain(cuda_device, dtype, shape, k):
+    """The round kernel (csrc/evp_rounds.cu) against `_evp_rounds_plain`
+    on the whole doubly cyclic block: (o)'s padded 214x182 block at a
+    round of 10 and the remainder round of 9, and blocks that the 8 x 16
+    tiles do not divide; one launch a round in f32, launches of at most 7
+    subcycles in f64."""
+    from cice4_tpu_torch.ops.evp_cuda import evp_rounds, round_plan
 
     cfg = Config().with_values(**{
-        "domain.ny_global": 34, "domain.nx_global": 40,
+        "domain.ny_global": shape[0], "domain.nx_global": shape[1],
         "domain.ew_boundary_type": "cyclic",
         "domain.ns_boundary_type": "cyclic", "grid.grid_type": "column"})
     grid = make_grid(cfg, device=CPU, dtype=dtype)
     inputs = kernel_check.evp_inputs(grid, 5, dtype=dtype)
-    p = make_evp_params(dataclasses.replace(cfg.dynamics, ndte=k),
-                        cfg.run.dt)
+    p = dataclasses.replace(make_evp_params(cfg.dynamics, cfg.run.dt),
+                            ndte=k)
     want = _evp_rounds_plain(p, grid, *inputs)
     ggrid = make_grid(cfg, device=cuda_device, dtype=dtype)
     launches = evp_rounds.launches
     got = evp_rounds(p, ggrid, *(x.to(cuda_device) for x in inputs))
-    assert evp_rounds.launches == launches + 1
+    assert evp_rounds.launches == launches + len(round_plan(k, dtype)[2])
     rtol = kernel_check.ROUNDS_RTOL[dtype]
     for name, a, b in zip(("uvel", "vvel", "stressp", "stressm",
                            "stress12"), got, want):
         a = a.cpu()
         assert (a - b).abs().max() <= rtol * (b.abs().max() + 1e-30), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,smem", [(torch.float32, 171360),
+                                        (torch.float64, 223080)])
+def test_round_tile_fits_a_blocks_shared_memory(cuda_device, dtype, smem):
+    """ROUND_TILE's apron fits a block's shared memory with no spill, and
+    one more subcycle a launch in f64 is refused."""
+    from cice4_tpu_torch.ops.evp_cuda import ROUND_TILE, round_occupancy
+
+    occ = round_occupancy(*ROUND_TILE[dtype], dtype)
+    assert occ["smem_bytes"] == smem
+    assert occ["blocks_per_sm"] >= 1 and occ["local_bytes"] == 0
+    if dtype == torch.float64:
+        rows, cols, most = ROUND_TILE[dtype]
+        with pytest.raises(RuntimeError, match="cudaError"):
+            round_occupancy(rows, cols, most + 1, dtype)
 
 
 @pytest.mark.gpu

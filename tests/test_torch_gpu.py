@@ -33,7 +33,7 @@ def _thermo_params(nilyr=4, nslyr=1):
 
 # (nilyr, nslyr): the default, then counts of other register instances of
 # the kernel, then counts of its generic instance (layer counts at run time)
-LAYERS = [(4, 1), (7, 1), (2, 1), (4, 2), (9, 1), (16, 2), (32, 3)]
+LAYERS = [(4, 1), (7, 1), (2, 1), (4, 2), (9, 1), (10, 1), (16, 2), (32, 3)]
 
 
 @pytest.mark.gpu
@@ -119,6 +119,20 @@ def test_therm_newton_generic_instance_matches_the_register_one(cuda_device,
     for ref in (reg, plain):
         report = kernel_check.compare(gen, ref, args[0], dtype)
         assert report["ok"], report
+    # the same expressions in the same order, fused alike by ptxas
+    # (csrc/therm_newton.cu): bit for bit
+    for name, x in reg.items():
+        assert torch.equal(gen[name], x), name
+
+
+@pytest.mark.gpu
+def test_therm_newton_generic_instance_holds_16_warps_an_sm(cuda_device):
+    """At (10, 1) in f32 the generic instance keeps its registers within
+    what 4 blocks of 128 threads an SM allow (16 warps), with no local
+    memory (stack or spill)."""
+    occ = tv.therm_newton_generic_occupancy(10, 1, torch.float32)
+    assert occ["warps_per_sm"] >= 16, occ
+    assert occ["registers"] <= 128 and occ["local_bytes"] == 0, occ
 
 
 @pytest.mark.gpu

@@ -10,7 +10,9 @@ against the JAX package's mesh and the port's global shifts, on the CPU.
 * the padded k-halo exchange fills each H-wide ring with the global
   neighbours (or the global edge's zeros) bit for bit;
 * the reductions over blocks, and the failure of one block, which must
-  reach the caller instead of leaving the others waiting;
+  reach the caller instead of leaving the others waiting, and blocks
+  whose communication calls differ in number, which raise instead of
+  waiting for one another;
 * the new modules import neither JAX nor the JAX package.
 """
 
@@ -139,6 +141,25 @@ def test_block_failure_reaches_the_caller():
         mesh.run(work)
     with pytest.raises(ValueError, match="equal blocks"):
         mesh.block_slices(0, 13, 16)
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_uneven_communication_calls_raise(extra):
+    """Block `extra` makes one exchange more than the other: once the
+    other has finished, the turn comes back to it and its exchange finds
+    no message, so Mesh.run raises instead of waiting."""
+    mesh = Mesh(1, 2)
+    bc = h.BoundaryConditions()
+
+    def work(b):
+        bcb = h.BlockBC(bc, mesh, b, NY, NX)
+        x = torch.zeros(NY, NX // 2)
+        for _ in range(2 if b == extra else 1):
+            x = h.nbr_e(x, bcb)
+        return x
+
+    with pytest.raises(KeyError):
+        mesh.run(work)
 
 
 def test_new_modules_import_no_jax():

@@ -20,6 +20,7 @@ import re
 import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -43,6 +44,8 @@ ROOT = Path(__file__).resolve().parent.parent
 OVERRIDES = ["domain.nx_global=32", "domain.ny_global=16",
              "grid.grid_type='rectangular'", "grid.lat_origin=66.0",
              "dynamics.ndte=8", "transport.advection='remap'"]
+# the two processes of a launch together (about 6 s each on the CPU)
+LAUNCH_TIMEOUT_S = 300.0
 
 
 def _free_port():
@@ -51,6 +54,22 @@ def _free_port():
     port = s.getsockname()[1]
     s.close()
     return port
+
+
+def _wait_all(procs, timeout):
+    """Wait for every process until one deadline, `timeout` seconds away;
+    kill those still running then.  Returns their indices."""
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        try:
+            p.wait(timeout=max(0.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            break
+    hung = [i for i, p in enumerate(procs) if p.poll() is None]
+    for i in hung:
+        procs[i].kill()
+        procs[i].wait()
+    return hung
 
 
 def _cfg():
@@ -100,8 +119,7 @@ def test_two_gloo_processes_match_in_process_run(tmp_path, shape):
         procs.append(subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=log,
                                       stderr=subprocess.STDOUT))
     try:
-        for p in procs:
-            p.wait(timeout=300)
+        hung = _wait_all(procs, LAUNCH_TIMEOUT_S)
     finally:
         for p in procs:
             if p.poll() is None:
@@ -109,6 +127,9 @@ def test_two_gloo_processes_match_in_process_run(tmp_path, shape):
         for log in logs:
             log.close()
     outs = [(tmp_path / f"worker{i}.log").read_text() for i in range(2)]
+    assert not hung, (
+        f"processes {hung} still ran after {LAUNCH_TIMEOUT_S:.0f} s and were "
+        f"killed:\n" + "\n".join(outs[i][-2000:] for i in hung))
     for i, p in enumerate(procs):
         assert p.returncode == 0, f"worker {i} failed:\n{outs[i][-3000:]}"
     assert "backend gloo" in outs[0]

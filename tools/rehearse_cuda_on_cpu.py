@@ -2,9 +2,10 @@
 
     python tools/rehearse_cuda_on_cpu.py [--out build/cpu_rehearsal]
 
-Compiles ``evp_subcycle.cu``, ``remap_gsh.cu`` and ``remap_k12.cu`` (with
-the headers they include) with ``g++ -std=c++20 -ffp-contract=off``
-against a stand-in CUDA runtime written into ``--out``: each block's
+Compiles ``evp_subcycle.cu``, ``evp_rounds.cu``, ``remap_gsh.cu``,
+``remap_k12.cu`` and ``therm_newton.cu`` (with the headers they include)
+with ``g++ -std=c++20 -ffp-contract=off`` against a stand-in CUDA
+runtime written into ``--out``: each block's
 threads run as ``std::thread``s meeting at a ``std::barrier``, blocks one
 after another, or, for the EVP kernel's cooperative launch, every block
 at once with a grid-wide barrier; ``__ballot_sync`` and
@@ -13,7 +14,11 @@ plain copy.  The kernels' C interfaces are then called through ctypes on
 CPU tensors and each result is held against the plain PyTorch version
 with the tolerances of ``cice4_tpu_torch.kernel_check``, on small
 ragged shapes and every boundary pair the kernels take, the tripole and
-tripoleT folds on the all-ocean grid included, in f32 and f64.
+tripoleT folds on the all-ocean grid included, in f32 and f64;
+``therm_newton`` through its wrapper (the runtime's stream and device
+calls stood in), its generic instance at several layer counts and bit for
+bit against the register instance at (4, 1).  The stand-in's ``exp`` of a
+float is the double one's, so f32 Newton results agree within tolerance.
 
 What it shows: that the kernels' index arithmetic, masking, staging and
 synchronisation compute the plain version's function.  What it cannot
@@ -26,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import re
 import subprocess
 import sys
@@ -55,8 +61,13 @@ RUNTIME = r"""#pragma once
 #include <memory>
 #include <thread>
 #include <vector>
+using std::exp;
+using std::fabs;
+using std::fmax;
+using std::fmin;
 using std::max;
 using std::min;
+using std::sqrt;
 #define __global__
 #define __device__
 #define __host__
@@ -79,7 +90,19 @@ inline thread_local unsigned char* g_block_shared = nullptr;
 struct Warp { std::barrier<> bar{32}; int slot[32]; };
 inline thread_local Warp* g_warp = nullptr;
 inline std::barrier<>* g_grid_bar = nullptr;
+inline thread_local int* g_block_or = nullptr;
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
+// every thread's flag ORed; a barrier first, so that the last call's
+// reset (by thread 0, after its read) precedes this call's stores
+inline int __syncthreads_or(int p) {
+  g_bar->arrive_and_wait();
+  if (p) __atomic_store_n(g_block_or, 1, __ATOMIC_SEQ_CST);
+  g_bar->arrive_and_wait();
+  const int r = __atomic_load_n(g_block_or, __ATOMIC_SEQ_CST);
+  g_bar->arrive_and_wait();
+  if (threadIdx.x == 0) __atomic_store_n(g_block_or, 0, __ATOMIC_SEQ_CST);
+  return r;
+}
 inline unsigned __ballot_sync(unsigned, bool p) {
   const int lane = threadIdx.x & 31;
   g_warp->slot[lane] = p;
@@ -116,6 +139,10 @@ inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
 template <class K> int cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
   return 0;
 }
+struct cudaFuncAttributes { int numRegs = 0; size_t localSizeBytes = 0; };
+template <class K> int cudaFuncGetAttributes(cudaFuncAttributes*, K) {
+  return 0;
+}
 template <class K>
 int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
   *n = 1;
@@ -132,6 +159,7 @@ void launch(F f, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... args) {
     for (unsigned bx = 0; bx < grid.x; ++bx) {
       std::memset(buf.data(), 0xcd, buf.size());  // garbage, as on a card
       std::barrier<> bar(n);
+      int block_or = 0;
       std::vector<std::thread> ts;
       for (unsigned t = 0; t < n; ++t)
         ts.emplace_back([&, t] {
@@ -139,6 +167,7 @@ void launch(F f, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... args) {
           threadIdx = {t % block.x, (t / block.x) % block.y,
                        t / (block.x * block.y)};
           g_bar = &bar;
+          g_block_or = &block_or;
           g_dyn_smem = buf.data();
           f(args...);
           bar.arrive_and_drop();
@@ -188,14 +217,15 @@ inline grid_group this_grid() { return {}; }
 }
 """
 
-LIBRARIES = ("evp_subcycle", "remap_gsh", "remap_k12")
+LIBRARIES = ("evp_subcycle", "evp_rounds", "remap_gsh", "remap_k12",
+             "therm_newton")
 
 
 def translate(name: str, src: str) -> str:
     """The source as the stand-in runtime takes it."""
     src = src.replace("extern __shared__ __align__(16) unsigned char "
                       "smem_raw[];", "unsigned char* smem_raw = g_dyn_smem;")
-    if name == "remap_tile.cuh":
+    if name in ("remap_tile.cuh", "evp_rounds.cu"):
         src = re.sub(r"(void copy_async\(T\* dst, const T\* src\) \{).*?\n\}\n",
                      r"\1 *dst = *src; }\n", src, flags=re.S)
         src = src.replace('asm volatile("cp.async.commit_group;\\n" ::);', "")
@@ -214,8 +244,8 @@ def translate(name: str, src: str) -> str:
                      "a);", src)
         if "coop_launch" not in src:
             raise SystemExit("the cooperative launch was not translated")
-    return re.sub(r"([\w:]+(?:<[^<>;]*>)?)<<<([^>]*)>>>\(", r"launch(\1, \2, ",
-                  src)
+    return re.sub(r"([\w:]+(?:<[^<>;]*>)?)<<<(.*?)>>>\(", r"launch(\1, \2, ",
+                  src, flags=re.S)
 
 
 def build(out: Path) -> dict:
@@ -310,6 +340,72 @@ def evp_kernel(lib, p, grid, *args):
         o[k] for k in evp_cuda._OUT[:4]))
 
 
+def rounds_kernel(lib, p, grid, *args, tile):
+    """`evp_cuda._evp_rounds_cuda` on CPU tensors and the stand-in, with
+    `tile` (rows, columns, most subcycles a launch) in place of
+    `evp_cuda.ROUND_TILE`."""
+    dtype = args[-1].dtype
+    ny, nx = grid.ny, grid.nx
+    const = [getattr(grid, k).contiguous() for k in evp_cuda._GEOM] + [
+        x.contiguous() for x in args[:12]]
+    state = [x.contiguous() for x in args[12:]]
+    rows, cols, most = tile
+    launches = evp_cuda.round_launches(p.ndte, most)
+    par_arr, flags = evp_cuda._params(p)
+    fn = _sym(lib, "evp_rounds", dtype, [V] + [I] * 5 + [V, I, V])
+    for k in launches:
+        out = [torch.full_like(x, float("nan")) for x in state]
+        ptrs = [x.data_ptr() for x in const + state + out]
+        ptr_arr = (ctypes.c_int64 * len(ptrs))(*ptrs)
+        rc = fn(ctypes.addressof(ptr_arr), ny, nx, rows, cols, k,
+                ctypes.addressof(par_arr), flags, None)
+        if rc:
+            raise RuntimeError(f"evp_rounds returned {rc}")
+        state = out
+    return state
+
+
+def check_newton(lib) -> list[str]:
+    """therm_newton through its wrapper on CPU tensors, the stand-in
+    library loaded in place of the card's: the generic instance against the
+    plain version at counts past the register instances, and against the
+    register instance at (4, 1) bit for bit."""
+    import contextlib
+    from types import SimpleNamespace
+
+    from cice4_tpu_torch import cuda_build
+    from cice4_tpu_torch.config import gx1_config
+    from cice4_tpu_torch.ops import therm_vertical as tv
+    from cice4_tpu_torch.state import make_itd_params
+
+    cuda_build._loaded["therm_newton"] = cuda_build.Library(
+        lib=lib, path=Path(lib._name), built=True, seconds=0.0, log="")
+    torch.cuda.device = lambda _d: contextlib.nullcontext()
+    torch.cuda.current_stream = lambda _d=None: SimpleNamespace(
+        cuda_stream=None)
+    failed = []
+    for layers in ((4, 1), (9, 1), (10, 1), (16, 2)):
+        cfg = gx1_config().with_values(**{"domain.nilyr": layers[0],
+                                          "domain.nslyr": layers[1]})
+        p = tv.make_thermo_params(cfg, make_itd_params(cfg))
+        for dtype in (torch.float64, torch.float32):
+            args = kc.make_inputs(p, 2, 40, 24, seed=7, device="cpu",
+                                  dtype=dtype)
+            gen = tv._temperature_changes_cuda(p, 3600.0, *args,
+                                               generic=True)
+            rep = kc.compare(gen, tv._temperature_changes_core(
+                p, 3600.0, *args), args[0], dtype)
+            ok = rep["ok"]
+            if layers == (4, 1):
+                reg = tv._temperature_changes_cuda(p, 3600.0, *args)
+                ok &= all(torch.equal(gen[k], reg[k]) for k in reg)
+            print(f"therm_newton generic {layers} {dtype}: "
+                  f"{'ok' if ok else 'FAILED'}", flush=True)
+            if not ok:
+                failed.append(f"therm_newton generic {layers} {dtype}: {rep}")
+    return failed
+
+
 def grid_of(shape, ew, ns, dtype):
     """The all-ocean 10 km grid (ice and stresses reach every edge)."""
     cfg = Config().with_values(**{
@@ -375,8 +471,30 @@ def main() -> int:
                     rep = kc.compare_fields(k, p, kc.EVP_RTOL[dtype])
                     if not kc.fields_ok(rep):
                         failed.append(f"evp_subcycle {tag} ice {ice}: {rep}")
+                if ew == ns == "cyclic":
+                    # the round kernel on a doubly cyclic block against its
+                    # plain version (PyTorch's CPU x**2 is not x*x to the
+                    # last bit, so within tolerance), and each tiling
+                    # bit-equal to the first: tiles that divide the block
+                    # or not, a round in one launch and split in three
+                    rp = dataclasses.replace(params, ndte=7)
+                    args = kc.evp_inputs(grid, seed=5, dtype=dtype)
+                    want = dict(zip(kc.EVP_OUTPUTS, evp_ops._evp_rounds_plain(
+                        rp, grid, *args)))
+                    first = None
+                    for tile in ((4, 8, 7), (16, 16, 5), (6, 5, 3)):
+                        got = dict(zip(kc.EVP_OUTPUTS, rounds_kernel(
+                            libs["evp_rounds"], rp, grid, *args, tile=tile)))
+                        rep = kc.compare_fields(got, want,
+                                                kc.ROUNDS_RTOL[dtype])
+                        first = first or got
+                        if not kc.fields_ok(rep) or not all(
+                                torch.equal(got[k], first[k]) for k in got):
+                            failed.append(f"evp_rounds {tag} tile {tile}: "
+                                          f"{rep}")
                 print(f"{tag}: {'ok' if not failed else 'FAILED'}",
                       flush=True)
+    failed += check_newton(libs["therm_newton"])
     for line in failed:
         print(line)
     print(f"{len(failed)} case(s) disagree")
