@@ -18,12 +18,13 @@ after the last, as the JAX bench times ``jax.block_until_ready``.  The
 host syncs inside a step (the ridging loop's exit test, the remap's, the
 guards) are part of the step and inside the window.  Diagnostics on
 stderr, each line starting with ``#``: the card's name and power limit,
-the seconds of the warm-up step (the kernel builds included), the median,
-lowest and highest device time of a timed step by CUDA events (recorded
-on the stream between the steps, read after the window), the launches of
-the four default-route kernels in the window (their wrappers' counters),
-and the device time and launches of one more step after the window
-(``torch.profiler``).
+the seconds of the warm-up step (the kernel builds included), the timed
+steps' regions (:class:`~cice4_tpu_torch.timers.Timers`, each step a
+"Step" region: its time to the device finishing the step on a card, the
+host time of the spans inside it) and counters, and the launches of the
+four default-route kernels in the window (their wrappers' counters).
+For end-to-end numbers of the port as its users run it, see
+``benchmark/``.
 
 Baseline: the reference CICE 4.1 gx3 log (`ice.log.Linux.LANL.coyote:
 782`) — 100x116 x 744 steps / 60.75 s on 4 MPI ranks = 1.42e5
@@ -37,7 +38,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -102,33 +102,16 @@ def _card_line() -> str:
         return f"nvidia-smi not read ({type(exc).__name__})"
 
 
-def _profiled_step(step):
-    """(device ms, kernel launches) of one call of `step`, or None where
-    the profiler records no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
-    rows = [(e.self_device_time_total, e.count) for e in prof.key_averages()
-            if "CUDA" in str(getattr(e, "device_type", ""))
-            and getattr(e, "self_device_time_total", 0) > 0]
-    if not rows:
-        return None
-    return sum(r[0] for r in rows) / 1e3, sum(r[1] for r in rows)
-
-
 def run_bench(cfg, which: str, *, device="cuda", dtype=torch.float32,
               nsteps: int = NSTEPS, log=_stderr) -> BenchResult:
     """Warm-up step and `nsteps` timed steps of the configuration `cfg`
     under ``AnalyticForcing(1.0, 0.0)`` held fixed, step k at yday
-    1 + k/24 and sec (k mod 24) * 3600.  The CUDA diagnostics (events,
-    profiler, card) are taken only on a CUDA device."""
+    1 + k/24 and sec (k mod 24) * 3600.  The card's line is read only on
+    a CUDA device."""
     from cice4_tpu_torch.io.forcing_data import AnalyticForcing
     from cice4_tpu_torch.model import Model
     from cice4_tpu_torch.state import init_state
+    from cice4_tpu_torch.timers import Timers
 
     device = torch.device(device)
     cuda = device.type == "cuda"
@@ -152,17 +135,14 @@ def run_bench(cfg, which: str, *, device="cuda", dtype=torch.float32,
     log(f"# first step (kernel builds included): "
         f"{time.perf_counter() - t0:.1f} s")
 
-    events = [torch.cuda.Event(enable_timing=True)
-              for _ in range(nsteps + 1)] if cuda else []
+    timers = Timers(device)
     before = _launch_counts()
     sync()
     t0 = time.perf_counter()
     for k in range(nsteps):
-        if cuda:
-            events[k].record()
-        state, _ = model(state, forcing, 1.0 + k / 24.0, (k % 24) * 3600.0)
-    if cuda:
-        events[nsteps].record()
+        with timers("Step"):
+            state, _ = model(state, forcing, 1.0 + k / 24.0,
+                             (k % 24) * 3600.0)
     sync()
     wall = time.perf_counter() - t0
     launches = {k: n - before[k] for k, n in _launch_counts().items()}
@@ -172,18 +152,14 @@ def run_bench(cfg, which: str, *, device="cuda", dtype=torch.float32,
     log(f"# {nsteps} steps in {wall:.3f} s on {device.type} (host wall "
         f"clock, time.perf_counter, synchronised before the first step and "
         f"after the last)")
-    if cuda:
-        ms = [events[k].elapsed_time(events[k + 1]) for k in range(nsteps)]
-        log(f"# step by CUDA events, ms: median {statistics.median(ms):.3f}, "
-            f"lowest {min(ms):.3f}, highest {max(ms):.3f}")
+    totals = timers.totals
+    log("# regions a timed step, ms (Step to the device's end, the spans "
+        "inside it host time): " + ", ".join(
+            f"{path} {1e3 * s / nsteps:.3f}" for path, s in totals.items()))
+    log("# counters in the timed steps: " + (", ".join(
+        f"{k} {n}" for k, n in timers.counters.items()) or "none"))
     log("# launches in the timed steps: " + ", ".join(
         f"{k} {n}" for k, n in launches.items()))
-    if cuda:
-        prof = _profiled_step(lambda: model(
-            state, forcing, 1.0 + nsteps / 24.0, (nsteps % 24) * 3600.0))
-        log("# one step after the window, torch.profiler: " + (
-            "no device time recorded (not measured)" if prof is None else
-            f"device time {prof[0]:.3f} ms in {prof[1]} launches"))
     line = json.dumps({
         "metric": f"{which} full-model cell-steps/s (1 chip)",
         "value": rate,

@@ -10,7 +10,8 @@ The ESMF machinery maps onto plain Python: a component object with
 named (ny, nx) tensors, and the host's own clock (the component advances
 its calendar by `n_steps` model steps per `run` call).  The model runs in
 the port's :class:`~cice4_tpu_torch.driver.IceModelRun` on its device
-(``cuda`` unless the caller asks for another).
+(``cuda`` unless the caller asks for another), and times its Receive,
+Step, History and Send regions on the runner's `Timers`.
 
 Two field-set flavors:
 
@@ -80,11 +81,12 @@ class IceComponent:
         self.runner = IceModelRun(self.cfg, dtype=self.dtype, log=self.log,
                                   device=self.device).initialize(state=state)
         cal = self.runner.calendar
-        f0 = self.runner.forcing_provider(cal.yday, cal.sec, cal=cal,
-                                          state=self.runner.state)
-        self._boundary = coupling.CouplerBoundary(
-            f0, tmask=self.runner.grid.tmask,
-            gfdl_surface_flux=self.gfdl_surface_flux)
+        with self.runner.timers("Init"):
+            f0 = self.runner.forcing_provider(cal.yday, cal.sec, cal=cal,
+                                              state=self.runner.state)
+            self._boundary = coupling.CouplerBoundary(
+                f0, tmask=self.runner.grid.tmask,
+                gfdl_surface_flux=self.gfdl_surface_flux)
         self._last_fluxes = None
         return self
 
@@ -131,18 +133,23 @@ class IceComponent:
         from_atm/from_ocn/into_ocn/into_atm exchange of
         ``cpl_interface.F90``)."""
         r = self.runner
-        self.receive(import_state)
+        timer = r.timers
+        with timer("Receive"):
+            self.receive(import_state)
         cal = r.calendar
         fluxes = None
         for _ in range(n_steps):
-            r.state, fluxes = r.model(r.state, self._boundary.forcing,
-                                      cal.yday, cal.sec)
+            with timer("Step"):
+                r.state, fluxes = r.model(r.state, self._boundary.forcing,
+                                          cal.yday, cal.sec)
             cal.advance()
-            r.history.accumulate(r.state, fluxes)
-            for p in r.history.write_due(cal):
-                self.log(f"wrote history {p}")
+            with timer("History"):
+                r.history.accumulate(r.state, fluxes)
+                for p in r.history.write_due(cal):
+                    self.log(f"wrote history {p}")
         self._last_fluxes = fluxes
-        return self.send(fluxes)
+        with timer("Send"):
+            return self.send(fluxes)
 
     def finalize(self):
         """`CICE_Finalize` (``drivers/esmf/CICE_FinalMod.F90``)."""

@@ -6,9 +6,11 @@ Port of :mod:`cice4_tpu.driver` (the standalone driver
 state and forcing on a device, owns the model clock, steps `Model.forward`
 eagerly (the JAX package jits its step), emits diagnostics every
 `diagfreq` steps, accumulates history means, and writes restart dumps on
-`dumpfreq`.  A run with ``run.runtype="continue"`` resumes from the
-restart the pointer file names, which may come from either package.  With
-an ocean climatology the initial SST is the climatology's.
+`dumpfreq`, each under CICE's timer of its name (:mod:`timers`: Init,
+Forcing, Step, History, Diags, ReadWrite; the step's phases below Step).
+A run with ``run.runtype="continue"`` resumes from the restart the
+pointer file names, which may come from either package.  With an ocean
+climatology the initial SST is the climatology's.
 """
 
 from __future__ import annotations
@@ -125,24 +127,27 @@ class IceModelRun:
             diag_step = (cfg.run.diagfreq
                          and (cal.istep + 1) % cfg.run.diagfreq == 0)
             with self.timers("Forcing"):
-                f = self.forcing_provider(cal.yday, cal.sec, cal=cal,
-                                          state=self.state)
-                self.state = self.forcing_provider.ocean_update(
-                    self.state, cal, dt)
+                with self.timers("Read"):
+                    f = self.forcing_provider(cal.yday, cal.sec, cal=cal,
+                                              state=self.state)
+                with self.timers("Ocean"):
+                    self.state = self.forcing_provider.ocean_update(
+                        self.state, cal, dt)
             if diag_step:
                 # start-of-step totals for the budget-closure errors
                 # (init_mass_diags, ice_diagnostics.F90:853-927)
-                init_diag = init_mass_diags(self.state, self.grid)
+                with self.timers("Diags"):
+                    init_diag = init_mass_diags(self.state, self.grid)
             with self.timers("Step"):
                 self.state, fluxes = self.model(self.state, f, cal.yday,
                                                 cal.sec)
-            # abort-with-coordinates (guards.py): inspect the PREVIOUS
-            # step's violation records, then queue this step's
-            if self._pending_guards:
-                raise_on_violation(self._pending_guards)
-            self._pending_guards = fluxes.pop("_guards", None)
-            if self._restore is not None:
-                self.state = self._restore(self.state)
+                # abort-with-coordinates (guards.py): inspect the PREVIOUS
+                # step's violation records, then queue this step's
+                if self._pending_guards:
+                    raise_on_violation(self._pending_guards)
+                self._pending_guards = fluxes.pop("_guards", None)
+                if self._restore is not None:
+                    self.state = self._restore(self.state)
             cal.advance()
             with self.timers("History"):
                 self.history.accumulate(self.state, fluxes, forcing=f,

@@ -35,6 +35,7 @@ import torch
 from torch import nn
 
 from cice4_tpu_torch import constants as cn
+from cice4_tpu_torch import timers
 from cice4_tpu_torch.config import Config
 from cice4_tpu_torch.forcing import Forcing
 from cice4_tpu_torch.grid import GRID_FIELDS, Grid, make_grid
@@ -327,40 +328,45 @@ def _step_dynamics(model: Model, state: State, grid: Grid, f: Forcing,
 
     tr = cfg.transport
     aice0_adv = None
-    if tr.advection == "remap" and isinstance(grid.bc, BlockBC):
-        # a block of a decomposed grid: the k-halo remap, or the gathered
-        # one where it is refused (cice4_tpu/model.py:354-368)
-        out = transport_remap_decomposed(state, grid, dt, tr)
-        state, aice0_adv = out[:2]
-        if len(out) == 3:
-            fluxes["_guards"].update(out[2])
-    elif tr.advection == "remap":
-        out = transport_remap(
-            state, grid, dt, tr.integral_order, tr.l_dp_midpt,
-            tr.l_fixed_area, conservation_check=tr.conservation_check,
-            monotonicity_check=tr.monotonicity_check)
-        state, aice0_adv = out[:2]
-        if len(out) == 3:
-            fluxes["_guards"].update(out[2])
-    elif tr.advection == "upwind":
-        state, aice0_adv = transport_upwind(state, grid, dt)
+    with timers.span("Advection"):
+        if tr.advection == "remap" and isinstance(grid.bc, BlockBC):
+            # a block of a decomposed grid: the k-halo remap, or the
+            # gathered one where it is refused (cice4_tpu/model.py:354-368)
+            out = transport_remap_decomposed(state, grid, dt, tr)
+            state, aice0_adv = out[:2]
+            if len(out) == 3:
+                fluxes["_guards"].update(out[2])
+        elif tr.advection == "remap":
+            out = transport_remap(
+                state, grid, dt, tr.integral_order, tr.l_dp_midpt,
+                tr.l_fixed_area, conservation_check=tr.conservation_check,
+                monotonicity_check=tr.monotonicity_check)
+            state, aice0_adv = out[:2]
+            if len(out) == 3:
+                fluxes["_guards"].update(out[2])
+        elif tr.advection == "upwind":
+            state, aice0_adv = transport_upwind(state, grid, dt)
 
-    state, rdg = mechred.ridge_ice(state, itd, cfg.dynamics, dt,
-                                   dyn_diag["rdg_conv"],
-                                   dyn_diag["rdg_shear"], grid.tmask,
-                                   aice0=aice0_adv, guards=cfg.run.guards)
-    if "_guard" in rdg:
-        fluxes["_guards"]["ridging: area sum != 1"] = rdg.pop("_guard")
-    fluxes["fresh"] = fluxes["fresh"] + rdg["fresh"]
-    fluxes["fhocn"] = fluxes["fhocn"] + rdg["fhocn"]
-    for k in ("dardg1dt", "dardg2dt", "dvirdgdt", "opening"):
-        fluxes[k] = rdg[k]
-    fluxes["_ridge_niter"] = rdg["niter"]
+    # ridging and the cleanup after it: CICE's Ridging timer, inside its
+    # Column timer (ice_step_mod.F90 step_dynamics)
+    with timers.span("Ridging"):
+        state, rdg = mechred.ridge_ice(state, itd, cfg.dynamics, dt,
+                                       dyn_diag["rdg_conv"],
+                                       dyn_diag["rdg_shear"], grid.tmask,
+                                       aice0=aice0_adv,
+                                       guards=cfg.run.guards)
+        if "_guard" in rdg:
+            fluxes["_guards"]["ridging: area sum != 1"] = rdg.pop("_guard")
+        fluxes["fresh"] = fluxes["fresh"] + rdg["fresh"]
+        fluxes["fhocn"] = fluxes["fhocn"] + rdg["fhocn"]
+        for k in ("dardg1dt", "dardg2dt", "dvirdgdt", "opening"):
+            fluxes[k] = rdg[k]
+        fluxes["_ridge_niter"] = rdg["niter"]
 
-    state, zap = itd_ops.cleanup_itd(state, itd, grid.tmask, dt)
-    fluxes["fresh"] = fluxes["fresh"] + zap["dfresh"]
-    fluxes["fsalt"] = fluxes["fsalt"] + zap["dfsalt"]
-    fluxes["fhocn"] = fluxes["fhocn"] + zap["dfhocn"]
+        state, zap = itd_ops.cleanup_itd(state, itd, grid.tmask, dt)
+        fluxes["fresh"] = fluxes["fresh"] + zap["dfresh"]
+        fluxes["fsalt"] = fluxes["fsalt"] + zap["dfsalt"]
+        fluxes["fhocn"] = fluxes["fhocn"] + zap["dfhocn"]
 
     for k in ("divu", "shear", "strength", "prs_sig"):
         fluxes[k] = dyn_diag[k]
@@ -461,26 +467,33 @@ def ice_step(model: Model, state: State, grid: Grid, f: Forcing,
     Tf = freezing_temperature(cfg, f.sss)
 
     prep = cfg.radiation.prep_radiation
-    if prep:
-        # coupled ordering (CICE_RunMod.F90 ice_step:164-242): rescale
-        # last step's absorbed SW now, run radiation at the end
-        sw = _prep_radiation(model, state, f)
-    else:
-        sw = _step_radiation(model, state, grid, f, yday, sec, dt)
-    state, fluxes, init = _step_therm1(model, state, grid, f, sw, Tf,
-                                       yday, dt)
-    state, fluxes = _step_therm2(model, state, grid, fluxes, init, Tf, dt)
+    with timers.span("Shortwave"):
+        if prep:
+            # coupled ordering (CICE_RunMod.F90 ice_step:164-242): rescale
+            # last step's absorbed SW now, run radiation at the end
+            sw = _prep_radiation(model, state, f)
+        else:
+            sw = _step_radiation(model, state, grid, f, yday, sec, dt)
+    with timers.span("Thermo"):
+        state, fluxes, init = _step_therm1(model, state, grid, f, sw, Tf,
+                                           yday, dt)
+    with timers.span("CatConv"):
+        state, fluxes = _step_therm2(model, state, grid, fluxes, init, Tf,
+                                     dt)
     # thermodynamic area/volume tendencies (init_history_therm)
     aice_mid = state.aicen.sum(0)
     vice_mid = state.vicen.sum(0)
     fluxes["daidtt"] = (aice_mid - fluxes["aice_init"]) / dt
     fluxes["dvidtt"] = (vice_mid - fluxes["vice_init"]) / dt
-    state, fluxes = _step_dynamics(model, state, grid, f, fluxes, dt)
+    with timers.span("Dynamics"):
+        state, fluxes = _step_dynamics(model, state, grid, f, fluxes, dt)
     # dynamic tendencies (init_history_dyn)
     fluxes["daidtd"] = (state.aicen.sum(0) - aice_mid) / dt
     fluxes["dvidtd"] = (state.vicen.sum(0) - vice_mid) / dt
     if prep:
-        sw = _step_radiation(model, state, grid, f, yday, sec, dt)
-    state, fluxes = _coupling_prep(model, state, grid, f, sw, fluxes,
-                                   Tf, dt)
+        with timers.span("Shortwave"):
+            sw = _step_radiation(model, state, grid, f, yday, sec, dt)
+    with timers.span("Coupling"):
+        state, fluxes = _coupling_prep(model, state, grid, f, sw, fluxes,
+                                       Tf, dt)
     return state, fluxes

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from cice4_tpu_torch import constants as cn
+from cice4_tpu_torch import timers
 from cice4_tpu_torch.config import DynamicsConfig
 from cice4_tpu_torch.ops.itd import TRACER_DEPEND, _compute_tracers
 from cice4_tpu_torch.ops.mechred_strength import Cs, fsnowrdg, ridge_itd_full
@@ -233,6 +234,7 @@ def ridge_ice(state: State, itd: ItdParams, dyn: DynamicsConfig, dt,
         # on a decomposed grid every block leaves the loop together
         done = global_all(ok)
         niter += 1
+    timers.count("ridge_passes", niter)
 
     guard_rec = None
     if guards:
