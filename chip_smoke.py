@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's paths and checks the seven hand-written kernels, one
-for each TPU kernel of the JAX package, against their plain PyTorch
-versions:
+Drives the port's paths and checks its hand-written kernels, one for
+each TPU kernel of the JAX package and two that replace none, against
+their plain PyTorch versions:
 
 * ``therm_newton`` (``csrc/therm_newton.cu``), the Newton temperature
   solve;
@@ -21,7 +21,13 @@ versions:
 * ``evp_rounds`` (``csrc/evp_rounds.cu``), the k-halo rounds of a
   decomposed grid: k gated subcycles and no final one on a padded block,
   doubly cyclic, tile by tile with k-wide aprons in shared memory (the
-  whole-grid TPU kernel's function on the padded block).
+  whole-grid TPU kernel's function on the padded block);
+* ``ridge_column`` and ``cleanup_column`` (``csrc/ridge_column.cu``), the
+  whole ridging loop and the ITD cleanup, a thread a column (the JAX
+  package keeps both in plain ``jnp``).  Every path runs ridging and both
+  cleanups (after the thermodynamics and after ridging) each step, so
+  every path's counts expect ridge_column once and cleanup_column twice a
+  step (a block's on a decomposed grid).
 
 The paths: the default gx1 step (``gx1_config()`` on the spherical
 lat-lon grid without a land-mask file, f32, 320x384, 5 categories, 4 ice
@@ -216,7 +222,17 @@ Phases, each of which ends the run with a non-zero exit on failure:
     lines of the EVP kernel, K0 (f32 and f64), K12, K1 and K2, therm_newton
     at (7, 1) and its generic instance at (4, 1) beside the register (4, 1)
     on seeded inputs, and whether a CUDA graph can capture the EVP kernel's
-    cooperative launch.
+    cooperative launch;
+The column kernels are held against their plain versions
+(``kernel_check.compare_columns``, which leaves out the volume tracers of
+categories holding less than puny of ice, and counts those that differ) at
+the gx1 path's inputs (phase 20) and ACCESS-OM2's (phase 9), each with its
+bound by bytes (``kernel_check.column_bytes`` over 3.35 TB/s), ridging's
+passes and its launch timed without the wrapper's reductions; phase 10
+runs the dEdd path with the level-ice tracers on the column kernels and,
+from the same state, on their plain versions, and logs by field how far
+the two runs part after each step, and how many tracer elements the
+kernel's ridging left apart from the plain version's within the step.
 
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -226,6 +242,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -288,6 +305,11 @@ COUPLED = {"grid.kmt_file": "", "radiation.prep_radiation": True,
            "thermo.kitd": 0}
 DEDD_STEPS = 12
 DEDD_TIMED = 4
+# phase 10's two runs from one state, on the column kernels and on their
+# plain versions, after as many steps on the kernels, with the level-ice
+# tracers beside the ponds' and the ice age
+COLUMN_SPLIT_STEPS = 4
+DEDD_LEVEL = {**DEDD, "tracers.tr_lvl": True}
 COUPLED_STEPS = 4
 # the rest of ROADMAP 1.4 at gx1 (f32, 320x384, from day 80), OPT_STEPS
 # steps a path, then OPT_TIMED timed: the transport options, (a) the
@@ -386,7 +408,8 @@ BENCH_TIMEOUT_S = 300
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
 
-# one entry per TPU kernel: (source of its Hopper kernel, the TPU kernel)
+# one entry per kernel of the port: (its source, the TPU kernel it replaces,
+# None for the column kernels, which replace none)
 KERNELS = {
     "therm_newton": ("cice4_tpu_torch/csrc/therm_newton.cu",
                      "cice4_tpu/ops/therm_vertical.py:632"),
@@ -406,13 +429,18 @@ KERNELS = {
     # cyclic: the whole-grid TPU kernel's function on the padded block
     "evp_rounds": ("cice4_tpu_torch/csrc/evp_rounds.cu",
                    "cice4_tpu/ops/evp_pallas.py:83"),
+    # ridging and the ITD cleanup, a thread a column
+    "ridge_column": ("cice4_tpu_torch/csrc/ridge_column.cu", None),
+    "cleanup_column": ("cice4_tpu_torch/csrc/ridge_column.cu", None),
 }
 LIBRARIES = sorted({Path(src).stem for src, _ in KERNELS.values()})
+COLUMN_KERNELS = ("ridge_column", "cleanup_column")
 # the path whose run gives each kernel's launches and timing inputs
 PATH_OF = {"therm_newton": "gx1", "evp_subcycle": "gx1",
            "evp_wholegrid": "box", "remap_gsh": "gx1", "remap_k12": "gx1",
            "remap_construct": "split", "remap_contract": "split",
-           "evp_rounds": "decomposed"}
+           "evp_rounds": "decomposed", "ridge_column": "gx1",
+           "cleanup_column": "gx1"}
 
 # Operations each kernel's function does, counted from the CUDA sources
 # (one per add, multiply, compare, min/max, division or square root):
@@ -491,7 +519,8 @@ def run_steps(model, state, forcing, nsteps, first=0, check=True,
             raise_on_violation(fluxes["_guards"])
         if on_step is not None:
             on_step(n, fluxes)
-    return state, ridge, fluxes
+    # on the card each step's count is a device tensor, read once here
+    return state, [int(r) for r in ridge], fluxes
 
 
 def state_tensors(state):
@@ -552,7 +581,7 @@ def sites():
     """{name: (module, name of its wrapper there, plain version)}: the
     wrapper of each kernel, and of K0's GA mode (``remap_ga``)."""
     from cice4_tpu_torch.ops import evp as evp_ops
-    from cice4_tpu_torch.ops import evp_cuda, remap_cuda
+    from cice4_tpu_torch.ops import evp_cuda, itd, mechred, remap_cuda
     from cice4_tpu_torch.ops import therm_vertical as tv
     evp = (evp_cuda, "evp_subcycle", evp_ops._evp_subcycle_plain)
     return {"therm_newton": (tv, "temperature_changes",
@@ -568,7 +597,9 @@ def sites():
             "remap_contract": (remap_cuda, "contract",
                                remap_cuda.contract_plain),
             "evp_rounds": (evp_cuda, "evp_rounds",
-                           evp_ops._evp_rounds_plain)}
+                           evp_ops._evp_rounds_plain),
+            "ridge_column": (mechred, "ridge_ice", mechred._ridge_ice_plain),
+            "cleanup_column": (itd, "cleanup_itd", itd._cleanup_itd_plain)}
 
 
 def counter_attr(name):
@@ -587,9 +618,13 @@ def read_counts():
             for name, (mod, attr, _) in sites().items()}
 
 
-def expected(**per_step):
-    """Launch counts of a path: `per_step` kernels at the given counts,
-    every other kernel 0."""
+def expected(steps, **per_step):
+    """Launch counts of a path of `steps` steps (on a decomposed grid, the
+    blocks times the steps): ridge_column once and cleanup_column twice a
+    step (every path ridges and cleans up after ridging and after the
+    thermodynamics), `per_step` kernels at the given counts, every other
+    kernel 0."""
+    per_step = dict(per_step, ridge_column=steps, cleanup_column=2 * steps)
     return {name: per_step.get(name, 0) for name in sites()}
 
 
@@ -858,14 +893,15 @@ def _check_split_refuses(dx, dy, afac, grid, mm, tm, meta):
 
 def plain_sites():
     """(module, name) of each plain version where its wrapper looks it up."""
-    from cice4_tpu_torch.ops import evp_cuda, remap_cuda
+    from cice4_tpu_torch.ops import evp_cuda, itd, mechred, remap_cuda
     from cice4_tpu_torch.ops import therm_vertical as tv
     return ((tv, "_temperature_changes_core"),
             (evp_cuda, "_evp_subcycle_plain"),
             (evp_cuda, "_evp_rounds_plain"),
             (remap_cuda, "ga_gsh_plain"), (remap_cuda, "k12_plain"),
             (remap_cuda, "ga_planes_plain"), (remap_cuda, "construct_plain"),
-            (remap_cuda, "contract_plain"))
+            (remap_cuda, "contract_plain"),
+            (mechred, "_ridge_ice_plain"), (itd, "_cleanup_itd_plain"))
 
 
 @contextlib.contextmanager
@@ -938,7 +974,8 @@ def phase_access(device, card, shape, detail):
     tag = f"ACCESS-OM2 {ny}x{nx}"
     model, state, forcing, _, _ = drive_path(
         tag, cfg, device, ACCESS_STEPS,
-        expected(therm_newton=ACCESS_STEPS, evp_subcycle=ACCESS_STEPS,
+        expected(ACCESS_STEPS, therm_newton=ACCESS_STEPS,
+                 evp_subcycle=ACCESS_STEPS,
                  remap_gsh=ACCESS_STEPS, remap_k12=ACCESS_STEPS),
         moving=True)
     launches = read_counts()
@@ -952,7 +989,8 @@ def phase_access(device, card, shape, detail):
                      nsteps=ACCESS_TIMED)
     if not detail:
         return {}
-    return check_at_path_inputs(tag, model, state, forcing, launches, card)
+    return check_at_path_inputs(tag, model, state, forcing, launches, card,
+                                names=DEFAULT_ROUTE + COLUMN_KERNELS)
 
 
 DEFAULT_ROUTE = ("therm_newton", "evp_subcycle", "remap_gsh", "remap_k12")
@@ -1029,8 +1067,8 @@ def phase_dedd(device, card):
     shortwave closing within CLOSURE_RTOL, snow-layer absorption and
     ponded cells at the last state), ms/step by CUDA events over
     DEDD_TIMED more steps, device time and launches by phase, and each
-    kernel against its plain version at this path's inputs, timed.
-    Returns {kernel: (launches, ms, bound_ms, max |d|)}."""
+    kernel against its plain version at this path's inputs, timed; then
+    `column_split`.  Returns {kernel: (launches, ms, bound_ms, max |d|)}."""
     from cice4_tpu_torch import kernel_check
 
     cfg = make_config(DEDD)
@@ -1038,7 +1076,8 @@ def phase_dedd(device, card):
     tag = f"dEdd path {ny}x{nx}"
     model, state, forcing, _, _ = drive_path(
         tag, cfg, device, DEDD_STEPS,
-        expected(therm_newton=DEDD_STEPS, evp_subcycle=DEDD_STEPS,
+        expected(DEDD_STEPS, therm_newton=DEDD_STEPS,
+                 evp_subcycle=DEDD_STEPS,
                  remap_gsh=DEDD_STEPS, remap_k12=DEDD_STEPS),
         moving=True, prepare=kernel_check.ponded_state)
     launches = read_counts()
@@ -1065,7 +1104,79 @@ def phase_dedd(device, card):
     time_and_profile(tag, model, state, forcing, card, first=DEDD_STEPS,
                      nsteps=DEDD_TIMED)
     compare_dense_passes(tag, model, state, forcing, card)
-    return check_at_path_inputs(tag, model, state, forcing, launches, card)
+    out = check_at_path_inputs(tag, model, state, forcing, launches, card)
+    column_split(device)
+    return out
+
+
+@contextlib.contextmanager
+def plain_columns():
+    """Ridging and the ITD cleanup run their plain versions, on the card,
+    while the block runs."""
+    from cice4_tpu_torch.ops import itd, mechred
+
+    saved = mechred.ridge_ice, itd.cleanup_itd
+    mechred.ridge_ice = mechred._ridge_ice_plain
+    itd.cleanup_itd = itd._cleanup_itd_plain
+    try:
+        yield
+    finally:
+        mechred.ridge_ice, itd.cleanup_itd = saved
+
+
+def column_split(device):
+    """How far a run on the column kernels parts from one on their plain
+    versions: gx1, f32, dEdd with the pond, level-ice and age tracers, from
+    the ponded state after COLUMN_SPLIT_STEPS steps on the kernels, then
+    COLUMN_SPLIT_STEPS steps each way.  Each step logs how many tracer
+    elements ridge_column leaves apart from its plain version at that
+    step's inputs (under a parent below puny), then the fields that differ
+    at the step's end (elements, worst |kernel - plain| of the field's
+    scale) and, for the volume tracers, how many differing elements lie in
+    categories holding less than puny of ice in the plain run, and the
+    largest difference of their content (tracer times volume)."""
+    from cice4_tpu_torch import constants as cn
+    from cice4_tpu_torch import kernel_check
+    from cice4_tpu_torch.ops.itd import TRACER_DEPEND
+
+    cfg = make_config(DEDD_LEVEL)
+    model, state, forcing = make_run(cfg, device, torch.float32)
+    state = kernel_check.ponded_state(state)
+    n = COLUMN_SPLIT_STEPS
+    state, _, _ = run_steps(model, state, forcing, n)
+    kern, plain = state, state
+    log(f"  column kernels against their plain versions, gx1 with tracers "
+        f"{sorted(state.trcrn)}, from step {n}:")
+    for k in range(n, 2 * n):
+        args = capture_kernel_inputs(model, kern, forcing, ["ridge_column"],
+                                     YDAY0 + k * DT / 86400.0)["ridge_column"]
+        kern_fn, plain_fn = kernel_and_plain("ridge_column", args)
+        _, apart = compare_column_call(kern_fn(), plain_fn())
+        kern, kridge, _ = run_steps(model, kern, forcing, 1, first=k)
+        with plain_columns():
+            plain, pridge, _ = run_steps(model, plain, forcing, 1, first=k)
+        ref = dict(state_tensors(plain))
+        parts = []
+        for name, x in state_tensors(kern):
+            y = ref[name]
+            differ = x != y
+            ndiff = int(differ.sum())
+            if not ndiff:
+                continue
+            scale = max(float(y.abs().max()), 1e-30)
+            part = (f"{name} {ndiff} ({float((x - y).abs().max()) / scale:.2e}"
+                    f" of scale")
+            parent = {1: plain.vicen, 2: plain.vsnon}.get(
+                TRACER_DEPEND.get(name))
+            if parent is not None and x.shape == parent.shape:
+                tiny = (parent > 0.0) & (parent < cn.puny)
+                content = float(((x - y) * parent).abs().max())
+                part += (f"; {int((differ & tiny).sum())} under a volume "
+                         f"below puny; content {content:.2e} m")
+            parts.append(part + ")")
+        log(f"    step {k + 1}: ridge passes {kridge[0]} / {pridge[0]}; "
+            f"after ridging {apart} tracer elements apart; at the step's "
+            f"end {'; '.join(parts) or 'every field bit-equal'}")
 
 
 def compare_dense_passes(tag, model, state, forcing, card):
@@ -1128,7 +1239,7 @@ def phase_box_driver(device, workdir):
     run.run(NSTEPS, on_diag=lambda n, d: diags.setdefault(n, d))
     torch.cuda.synchronize()
     counts = read_counts()
-    want = expected(therm_newton=NSTEPS, evp_subcycle=NSTEPS,
+    want = expected(NSTEPS, therm_newton=NSTEPS, evp_subcycle=NSTEPS,
                     evp_wholegrid=NSTEPS, remap_gsh=NSTEPS,
                     remap_k12=NSTEPS)
     log(f"  box path (IceModelRun): launches {counts}")
@@ -1200,7 +1311,8 @@ def phase_split_route(device):
         counts = read_counts()
     finally:
         del os.environ["CICE4_FORCE_PALLAS_REMAP"]
-    want = expected(therm_newton=SPLIT_STEPS, evp_subcycle=SPLIT_STEPS,
+    want = expected(SPLIT_STEPS, therm_newton=SPLIT_STEPS,
+                    evp_subcycle=SPLIT_STEPS,
                     evp_wholegrid=SPLIT_STEPS, remap_ga=SPLIT_STEPS,
                     remap_construct=SPLIT_STEPS,
                     remap_contract=SPLIT_STEPS)
@@ -1316,7 +1428,8 @@ def phase_transport_options(device, card):
                              ["largest"]))
     model, state, forcing, _, _ = drive_path(
         tag, cfg, device, OPT_STEPS,
-        expected(**column, remap_gsh=OPT_STEPS, remap_k12=OPT_STEPS),
+        expected(OPT_STEPS, **column, remap_gsh=OPT_STEPS,
+                 remap_k12=OPT_STEPS),
         moving=True, on_step=conservation)
     launches = read_counts()
     log(f"  {tag}: transport guard records clean at every step; the largest "
@@ -1330,7 +1443,7 @@ def phase_transport_options(device, card):
     tag = f"(b) l_fixed_area, gx1 {ny}x{nx}"
     model, state, forcing, _, _ = drive_path(
         tag, make_config(FIXED_AREA), device, OPT_STEPS,
-        expected(**column, remap_k12=OPT_STEPS), moving=True)
+        expected(OPT_STEPS, **column, remap_k12=OPT_STEPS), moving=True)
     launches = read_counts()
     err, scale = fixed_area_flux_error(model, state)
     if not math.isfinite(err):
@@ -1346,7 +1459,8 @@ def phase_transport_options(device, card):
 
     tag = f"(c) upwind transport, gx1 {ny}x{nx}"
     model, state, forcing, _, _ = drive_path(
-        tag, make_config(UPWIND), device, OPT_STEPS, expected(**column),
+        tag, make_config(UPWIND), device, OPT_STEPS,
+        expected(OPT_STEPS, **column),
         moving=True)
     time_and_profile(tag, model, state, forcing, card)
 
@@ -1357,8 +1471,9 @@ def phase_transport_options(device, card):
         n = SPLIT_MIDPT_STEPS
         drive_path(tag, box_config(**{"transport.l_dp_midpt": True}),
                    device, n,
-                   expected(therm_newton=n, evp_subcycle=n, evp_wholegrid=n,
-                            remap_ga=n, remap_construct=n, remap_contract=n),
+                   expected(n, therm_newton=n, evp_subcycle=n,
+                            evp_wholegrid=n, remap_ga=n, remap_construct=n,
+                            remap_contract=n),
                    moving=True, south=False)
     finally:
         del os.environ["CICE4_FORCE_PALLAS_REMAP"]
@@ -1433,7 +1548,8 @@ def phase_thermo_and_grids(device, card, workdir):
         tag = f"{tag}, gx1 {ny}x{nx}"
         niter = []
         model, state, forcing, _, _ = drive_path(
-            tag, make_config(over), device, VARIANT_STEPS, expected(**dyn),
+            tag, make_config(over), device, VARIANT_STEPS,
+            expected(VARIANT_STEPS, **dyn),
             moving=True,
             on_step=lambda n, fl: niter.append(int(fl["_thermo_niter"])))
         log(f"  {tag}: the temperature solve's iterations, each one host "
@@ -1441,7 +1557,7 @@ def phase_thermo_and_grids(device, card, workdir):
         time_and_profile(tag, model, state, forcing, card,
                          first=VARIANT_STEPS)
 
-    default = expected(therm_newton=VARIANT_STEPS, **dyn)
+    default = expected(VARIANT_STEPS, therm_newton=VARIANT_STEPS, **dyn)
     bc = BoundaryConditions(cfg.domain.ew_boundary_type,
                             cfg.domain.ns_boundary_type)
     src = G.make_latlon_grid(nx, ny, bc, device=torch.device("cpu"),
@@ -1618,7 +1734,8 @@ def phase_file_forced(device, card, workdir):
             run.run(FILE_STEPS)
             torch.cuda.synchronize()
             counts = read_counts()
-        want = expected(**{k: FILE_STEPS for k in DEFAULT_ROUTE})
+        want = expected(FILE_STEPS,
+                        **{k: FILE_STEPS for k in DEFAULT_ROUTE})
         atm = getattr(prov, "atm", prov)
         log(f"  {tag}: {type(prov).__name__} ({type(atm).__name__}); "
             f"launches {counts}; plain versions called "
@@ -1766,7 +1883,7 @@ def phase_coupled(device, card, workdir):
         finally:
             coupling.gfdl_open_water_fluxes = gfdl
         names = DEFAULT_ROUTE if flavor == "om" else DEFAULT_ROUTE[1:]
-        want = expected(**{k: n for k in names})
+        want = expected(n, **{k: n for k in names})
         log(f"  {tag}: launches {counts}; plain versions called "
             f"{plain_calls or 'none'}; last export aice_io in [{lo:.3g}, "
             f"{hi:.6g}], {sum(len(v) for v in export.values())} fields "
@@ -2000,7 +2117,7 @@ def drive_decomposed(tag, model, state, forcing, shape, nsteps, expect,
                 if v - gathered0.get(k, 0)}
     log(f"  {tag}: launches {counts}; plain versions called "
         f"{plain_calls or 'none'}; gathered phases {gathered or 'none'}; "
-        f"ridge iterations of the last step {fluxes[0]['_ridge_niter']}; "
+        f"ridge iterations of the last step {int(fluxes[0]['_ridge_niter'])}; "
         f"worst difference from one device "
         f"{worst[0]:.3e} of the field's scale (limit {rtol}); bit-equal "
         f"at every step: {equal[0]}")
@@ -2207,7 +2324,7 @@ def phase_decomposed(device, card, workdir):
     (mesh, models, states, counts, gathered, worst, equal,
      refs) = drive_decomposed(
         tag, model, state, forcing, DECOMP_MESH, n,
-        expected(therm_newton=nb * n, evp_subcycle=nb * n,
+        expected(nb * n, therm_newton=nb * n, evp_subcycle=nb * n,
                  evp_wholegrid=nb * n, evp_rounds=nb * round_calls * n,
                  remap_gsh=nb * n, remap_k12=nb * n), rtol)
     if gathered:
@@ -2232,7 +2349,7 @@ def phase_decomposed(device, card, workdir):
     m = 2
     pgathered = drive_decomposed(
         ptag, pmodel, pstate, pforce, DECOMP_MESH, m,
-        expected(therm_newton=nb * m, evp_subcycle=nb * m,
+        expected(nb * m, therm_newton=nb * m, evp_subcycle=nb * m,
                  evp_wholegrid=nb * m, evp_rounds=nb * prounds * m,
                  remap_gsh=nb * m, remap_k12=nb * m), rtol)[4]
     if pgathered != {"remap": nb * m}:
@@ -2313,7 +2430,8 @@ def phase_deep(device, card):
     before = tv._temperature_changes_cuda.generic_launches
     model, state, forcing, _, _ = drive_path(
         "deep column", cfg, device, DEEP_STEPS,
-        expected(therm_newton=DEEP_STEPS, evp_subcycle=DEEP_STEPS,
+        expected(DEEP_STEPS, therm_newton=DEEP_STEPS,
+                 evp_subcycle=DEEP_STEPS,
                  remap_gsh=DEEP_STEPS, remap_k12=DEEP_STEPS), moving=True)
     launches = read_counts()
     generic = tv._temperature_changes_cuda.generic_launches - before
@@ -2410,7 +2528,10 @@ def time_path(model, state, forcing, nsteps, first=NSTEPS):
 def capture_kernel_inputs(model, state, forcing, names, yday=None):
     """The arguments one step of a path (at day `yday`, by default the
     one after the main path's steps) passes to the wrappers of the kernels
-    `names` (the step's results are discarded)."""
+    `names` (the first call's, those passed by keyword in their places; the
+    step's results are discarded)."""
+    import inspect
+
     table = sites()
     by_site = {}
     for name in names:
@@ -2420,10 +2541,12 @@ def capture_kernel_inputs(model, state, forcing, names, yday=None):
     seen = {}
 
     def recorder(site):
-        def record(*args):
+        sig = inspect.signature(real[site])
+
+        def record(*args, **kwargs):
             for name in by_site[site]:
-                seen.setdefault(name, args)
-            return real[site](*args)
+                seen.setdefault(name, sig.bind(*args, **kwargs).args)
+            return real[site](*args, **kwargs)
         record.launches = record.ns_cyclic_launches = 0
         return record
 
@@ -2440,9 +2563,13 @@ def capture_kernel_inputs(model, state, forcing, names, yday=None):
 
 
 def kernel_and_plain(name, args):
-    """(kernel call, plain call) on the captured arguments."""
+    """(kernel call, plain call) on the captured arguments; ridging's
+    guard, a check of its result that reads the device on the host, is
+    left out of both."""
     mod, attr, plain = sites()[name]
     kern = getattr(mod, attr)
+    if name == "ridge_column":
+        args = tuple(args[:8]) + (False,)
     return (lambda: kern(*args)), (lambda: plain(*args))
 
 
@@ -2576,6 +2703,15 @@ def bound(name, args, out):
         nbytes = unique_bytes(args[:3]) + unique_bytes(out)
         ops = hm.numel() * mm.shape[0] * recon_ops(meta)
         dtype = hm.dtype
+    elif name in COLUMN_KERNELS:
+        from cice4_tpu_torch.kernel_check import column_bytes
+
+        # ridging's advected open water, aice0, may be None
+        st = args[0]
+        nbytes = column_bytes(st, name, aice0=name == "cleanup_column"
+                              or args[7] is not None)
+        ops = 0.0
+        dtype = st.aicen.dtype
     else:  # remap_contract
         ga, mass, trc, par, meta = args[:5]
         nbytes = unique_bytes(args[:4]) + unique_bytes(out)
@@ -2587,10 +2723,24 @@ def bound(name, args, out):
             "operations", nbytes, ops)
 
 
+def compare_column_call(kern, plain):
+    """``kernel_check.compare_columns``' (report, tracer elements left out
+    that differ) of a column kernel's wrapper's (state, diagnostics)
+    against its plain version's."""
+    from cice4_tpu_torch import kernel_check as kc
+
+    (kst, kx), (pst, px) = kern, plain
+    return kc.compare_columns(kst, kx, pst, px,
+                              kc.COLUMN_RTOL[pst.aicen.dtype])
+
+
 def max_abs_err(name, kern, plain):
     """Largest |kernel - plain| over the outputs of one call."""
     from cice4_tpu_torch import kernel_check as kc
 
+    if name in COLUMN_KERNELS:
+        rep, _ = compare_column_call(kern, plain)
+        return max(v["max_abs"] for v in rep.values())
     if name == "therm_newton":
         return max(float((kern[k] - plain[k]).abs().max())
                    for k in ("Tsf", "Tsn", "Tin"))
@@ -2611,6 +2761,9 @@ def within_tolerance(name, args, kern, plain):
     if name == "therm_newton":
         rep = kc.compare(kern, plain, args[2], args[-1].dtype)
         return rep["ok"], max(v["max_rel"] for v in rep["fields"].values())
+    if name in COLUMN_KERNELS:
+        rep, _ = compare_column_call(kern, plain)
+        return kc.fields_ok(rep), max(v["max_rel"] for v in rep.values())
     if name in ("evp_subcycle", "evp_wholegrid"):
         kern, plain, rtol = kc.evp_named(kern), kc.evp_named(plain), \
             kc.EVP_RTOL
@@ -2623,6 +2776,31 @@ def within_tolerance(name, args, kern, plain):
         kern, plain = dict(enumerate(kern)), dict(enumerate(plain))
     rep = kc.compare_fields(kern, plain, rtol[plain[next(iter(plain))].dtype])
     return kc.fields_ok(rep), max(v["max_rel"] for v in rep.values())
+
+
+def log_columns(name, args, ms):
+    """What a column kernel ran at a path's inputs: the tracer elements
+    that differ from the plain version under a parent below puny (left out
+    of its check); for ridging, the most passes of any column against the
+    plain loop's, the columns of three or more, and the launch's device
+    time without the wrapper's reductions (the pass count's maximum and
+    the guard)."""
+    from cice4_tpu_torch.ops import ridge_cuda
+
+    kern_fn, plain_fn = kernel_and_plain(name, args)
+    kern, plain = kern_fn(), plain_fn()
+    _, left_out = compare_column_call(kern, plain)
+    log(f"    {left_out} tracer elements under a parent below puny differ "
+        f"from the plain version's (left out of the check)")
+    if name == "ridge_column":
+        def launch():
+            return ridge_cuda.ridge_ice_cuda(*args[:8])
+        niter = launch()[3]
+        alone = device_ms(launch, 50)
+        log(f"    passes: {int(niter.max())} (plain {plain[1]['niter']}), "
+            f"columns of 3 or more {int((niter >= 3).sum())}; the launch "
+            f"alone {alone:.4f} ms, the wrapper's reductions "
+            f"{ms - alone:.4f} of the {ms:.4f} ms")
 
 
 def ptxas_lines(library, entry):
@@ -2664,7 +2842,9 @@ def log_design(name, args, ms):
     tracers).  Call it
     right after `measure_kernel`, whose last kernel call was at `args` and
     took `ms`."""
-    if name in ("evp_subcycle", "evp_wholegrid"):
+    if name in COLUMN_KERNELS:
+        log_columns(name, args, ms)
+    elif name in ("evp_subcycle", "evp_wholegrid"):
         from cice4_tpu_torch.ops import evp_cuda
 
         ran = evp_cuda.last_launch()
@@ -3017,6 +3197,9 @@ def phase_device_times(model, state, forcing, yday=None):
         saved.append((M, "_step_dynamics", M._step_dynamics))
 
         def wrap(orig):
+            # functools.wraps copies the launch counter that ridge_ice and
+            # cleanup_itd add to under their module's name
+            @functools.wraps(orig)
             def run(*a, **k):
                 # cleanup: only the dynamics' own call (ITD has another)
                 if phase == "cleanup" and not in_dynamics[0]:
@@ -3108,7 +3291,8 @@ def main() -> int:
         f"{cfg.transport.advection}, f32, {MAIN_STEPS} steps of {DT:.0f} s")
     model, state, forcing, ridge, _ = drive_path(
         "main path", cfg, device, MAIN_STEPS,
-        expected(therm_newton=MAIN_STEPS, evp_subcycle=MAIN_STEPS,
+        expected(MAIN_STEPS, therm_newton=MAIN_STEPS,
+                 evp_subcycle=MAIN_STEPS,
                  remap_gsh=MAIN_STEPS, remap_k12=MAIN_STEPS), moving=True)
     launches = {"gx1": read_counts()}
     log(f"  ridge iterations per step: {ridge} (cap 20; "
@@ -3118,7 +3302,7 @@ def main() -> int:
         f"steps")
     thermo_run = drive_path(
         "thermo-only path", make_config(THERMO_ONLY), device, THERMO_STEPS,
-        expected(therm_newton=THERMO_STEPS), moving=False)
+        expected(THERMO_STEPS, therm_newton=THERMO_STEPS), moving=False)
 
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
@@ -3164,7 +3348,8 @@ def main() -> int:
         f"{COUPLED_STEPS} steps")
     _, cstate, _, _, _ = drive_path(
         "coupled path", make_config(COUPLED), device, COUPLED_STEPS,
-        expected(therm_newton=COUPLED_STEPS, evp_subcycle=COUPLED_STEPS,
+        expected(COUPLED_STEPS, therm_newton=COUPLED_STEPS,
+                 evp_subcycle=COUPLED_STEPS,
                  remap_gsh=COUPLED_STEPS, remap_k12=COUPLED_STEPS),
         moving=True)
     carried = float(cstate.swn["fswsfcn"].max())

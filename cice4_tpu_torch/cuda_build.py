@@ -31,7 +31,8 @@ EXTRA_FLAGS = {"evp_subcycle": ("-fmad=false",),
                "evp_rounds": ("-fmad=false",),
                "remap_gsh": ("-fmad=false",),
                "remap_k12": ("-fmad=false",),
-               "remap_k1k2": ("-fmad=false",)}
+               "remap_k1k2": ("-fmad=false",),
+               "ridge_column": ("-fmad=false",)}
 NVCC_TIMEOUT_S = 600
 
 

@@ -109,10 +109,12 @@ def check_column_conservation(before, after, tmask):
     return record(bad, err)
 
 
-def check_ridge(asum, tmask, done: bool):
+def check_ridge(asum, tmask, done):
     """``ridge_check:1788-1842``: after the ridging iteration the
-    area fractions must sum to 1.  Returns a violation record."""
+    area fractions must sum to 1.  `done`: whether the loop converged, a
+    Python bool (every column) or a boolean tensor (each column's, on the
+    device).  Returns a violation record."""
     eps = 1.0e-10 if _is_f64(asum.dtype) else 1.0e-5
     err = torch.abs(asum - 1.0)
-    bad = tmask & (err > eps) & (not done)
+    bad = tmask & (err > eps) & ~torch.as_tensor(done, device=asum.device)
     return record(bad, err)

@@ -236,6 +236,174 @@ def fields_ok(report: dict, allowed_bad: int = 0) -> bool:
             and sum(v["n_bad"] for v in report.values()) <= allowed_bad)
 
 
+# The column kernels (csrc/ridge_column.cu) against ridge_ice's and
+# cleanup_itd's plain versions, on the card: relative to (|p| + max|p|),
+# as compare_fields reads it.  In float64 the kernels follow the plain
+# operations and their order, so only the skipped zero-closing passes
+# differ (their tracer round trips, a few ulps).  In float32 the same,
+# and a column's test |asum - 1| < puny holds only at asum == 1 exactly, so
+# an ulp of difference can give one column another pass.  One more
+# difference is no rounding: the plain tracer rebuild divides a volume
+# tracer by max(vicen, puny), so each zero-closing pass that the plain loop
+# gives a converged column scales the tracer of a category whose volume
+# lies in (0, puny) by vicen / puny.  Those categories (below 1e-11 m of
+# ice) are left out of the tracers' check and counted.
+COLUMN_RTOL = {torch.float32: 1.0e-5, torch.float64: 1.0e-12}
+COLUMN_STATE = ("aicen", "vicen", "vsnon", "eicen", "esnon", "tsfcn")
+RIDGE_DIAG = ("dardg1dt", "dardg2dt", "dvirdgdt", "opening", "fresh",
+              "fhocn")
+CLEANUP_FLUXES = ("dfresh", "dfsalt", "dfhocn")
+
+
+def column_state(cfg, grid, seed: int):
+    """A seeded state for the column kernels on `grid` (its device and
+    type): in each ocean
+    column 80% of the categories icy, total areas from 0.3 to 1.08 (the
+    cleanup normalises those over 1), thicknesses drawn across and beyond
+    each category's bounds (both rebin sweeps move ice), 3% of the icy
+    categories at half the zap threshold of `dtype`, snow, enthalpies
+    proportional to the volumes, surface temperatures and tracers."""
+    from cice4_tpu_torch.state import init_state, make_itd_params
+
+    itd = make_itd_params(cfg)
+    dtype, device = grid.tarea.dtype, grid.tarea.device
+    st = init_state(cfg, grid, itd, device=device, dtype=dtype)
+    rng = np.random.RandomState(seed)
+    ncat, ny, nx = st.aicen.shape
+    nilyr, nslyr = itd.nilyr, itd.nslyr
+    shape = (ncat, ny, nx)
+    ocean = grid.tmask.cpu().numpy()
+    icy = ocean[None] & (rng.rand(*shape) < 0.8)
+    a = np.where(icy, rng.uniform(0.02, 0.3, shape), 0.0)
+    total = rng.uniform(0.3, 1.08, (ny, nx))
+    a = a * (total / np.maximum(a.sum(0), 1e-3))[None]
+    tiny = icy & (rng.rand(*shape) < 0.03)
+    a = np.where(tiny, 0.5 * cn.a_negligible(dtype), a)
+    h = rng.uniform(0.0, 1.4, shape) * (itd.hin_max[1:, None, None] + 0.5)
+    v = h * a
+    vs = rng.uniform(0.0, 0.4, shape) * a
+    q_ice = rng.uniform(-3.3e8, -2.6e8, (ncat, nilyr, ny, nx))
+    q_snow = rng.uniform(-1.2e8, -1.0e8, (ncat, nslyr, ny, nx))
+    e = q_ice * (v / nilyr)[:, None]
+    es = q_snow * (vs / nslyr)[:, None]
+    tsf = np.where(a > 0, rng.uniform(-25.0, -1.8, shape), cn.Tocnfrz)
+    trc = {k: np.where(a > 0, rng.uniform(0.2, 1.0, shape), 0.0)
+           for k in st.trcrn}
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    return st.replace(aicen=t(a), vicen=t(v), vsnon=t(vs), eicen=t(e),
+                      esnon=t(es), tsfcn=t(tsf),
+                      trcrn={k: t(x) for k, x in trc.items()})
+
+
+def compacted(state, seed: int, most: float = 2.0):
+    """`state` with each column's ice (areas, volumes, enthalpies) scaled
+    by a factor drawn from 1 to `most`, as transport's convergence piles
+    area above 1: ridging then takes several passes in many columns, and in
+    a few hits its rate reductions pass after pass."""
+    rng = np.random.RandomState(seed)
+    f = torch.as_tensor(rng.uniform(1.0, most, state.aicen.shape[1:]),
+                        dtype=state.aicen.dtype, device=state.aicen.device)
+    return state.replace(aicen=state.aicen * f, vicen=state.vicen * f,
+                         vsnon=state.vsnon * f, eicen=state.eicen * f,
+                         esnon=state.esnon * f)
+
+
+def ridge_forcing(state, seed: int, strength: float = 1.0):
+    """(rdg_conv, rdg_shear, aice0) for `ridge_ice` on `state`: closing
+    rates up to `strength` x 4e-5 /s (a share of 0.14 an hour), and an
+    advected open water that leaves the area sum off 1 by -0.1 to 0.05,
+    so that many columns take several passes."""
+    rng = np.random.RandomState(seed)
+    ny, nx = state.aicen.shape[1:]
+    dtype, device = state.aicen.dtype, state.aicen.device
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    aice = state.aicen.sum(0).cpu().double().numpy()
+    conv = rng.uniform(0.0, 4e-5 * strength, (ny, nx))
+    shear = rng.uniform(0.0, 4e-5 * strength, (ny, nx))
+    aice0 = np.maximum(1.0 - aice + rng.uniform(-0.1, 0.05, (ny, nx)), 0.0)
+    return t(conv), t(shear), t(aice0)
+
+
+def column_outputs(state, extra: dict) -> dict:
+    """The fields the column kernels write, by name, the tracers as
+    ``trcrn.<name>``."""
+    out = {k: getattr(state, k) for k in COLUMN_STATE}
+    out.update({f"trcrn.{k}": x for k, x in state.trcrn.items()})
+    out.update({k: extra[k] for k in RIDGE_DIAG + CLEANUP_FLUXES
+                if k in extra})
+    return out
+
+
+def column_bytes(state, kernel: str, aice0: bool = True) -> int:
+    """The bytes `kernel` ("ridge_column" or "cleanup_column") moves at
+    `state`'s shapes, each input read once and each output written once:
+    the state (area, volumes, surface temperature, enthalpy layers,
+    tracers) in and out; ridging also reads the convergence, the shear,
+    the advected open water (`aice0`) and the mask, and writes six rates,
+    the area sum, the pass count (int32) and the converged flag; the
+    cleanup reads the mask and writes three fluxes."""
+    ny, nx = state.aicen.shape[-2:]
+    cells = ny * nx
+    planes = sum(getattr(state, k).numel() for k in COLUMN_STATE) // cells
+    planes += sum(t.numel() for t in state.trcrn.values()) // cells
+    word = state.aicen.element_size()
+    if kernel == "ridge_column":
+        words = 2 * planes + 2 + int(aice0) + len(RIDGE_DIAG) + 1
+        return words * cells * word + cells * (1 + 4 + 1)
+    if kernel == "cleanup_column":
+        return (2 * planes + len(CLEANUP_FLUXES)) * cells * word + cells
+    raise ValueError(f"unknown column kernel {kernel!r}")
+
+
+def cleanup_triggers(state, itd, tmask) -> dict:
+    """How many category cells of `state` take each branch of the
+    cleanup: the category-1 minimum thickness (delta-function ITD only),
+    an upward and a downward rebin move, a zap, and columns whose total
+    area exceeds 1."""
+    a, v = state.aicen, state.vicen
+    icy = a > cn.puny
+    h = torch.where(icy, v / a.clamp(min=cn.puny), 0.0)
+    hin = torch.as_tensor(itd.hin_max, dtype=a.dtype,
+                          device=a.device)[:, None, None]
+    small = (a.abs() > 0.0) & (a.abs() <= cn.a_negligible(a.dtype)) & tmask
+    return dict(
+        cat1=int((icy[0] & (h[0] <= hin[0])).sum())
+        if itd.hin_max[0] > 0.0 else 0,
+        up=int((icy[:-1] & (h[:-1] > hin[1:-1])).sum()),
+        down=int((icy[1:] & (h[1:] <= hin[1:-1])).sum()),
+        zap=int(small.sum()), excess=int((a.sum(0) > 1.0).sum()))
+
+
+def compare_columns(kstate, kextra: dict, pstate, pextra: dict,
+                    rtol: float):
+    """(compare_fields' report, tracer elements left out that differ):
+    the column kernels' outputs against the plain versions', each tracer
+    checked where its parent field is 0 or at least puny in both
+    results."""
+    from cice4_tpu_torch.ops.itd import TRACER_DEPEND
+
+    kern = column_outputs(kstate, kextra)
+    plain = column_outputs(pstate, pextra)
+    left_out = 0
+    for name in pstate.trcrn:
+        parent = ("aicen", "vicen", "vsnon")[TRACER_DEPEND[name]]
+        tiny = torch.zeros_like(pstate.aicen, dtype=torch.bool)
+        for st in (kstate, pstate):
+            w = getattr(st, parent)
+            tiny |= (w > 0.0) & (w < cn.puny)
+        key = f"trcrn.{name}"
+        left_out += int((tiny & (kern[key] != plain[key])).sum())
+        for out in (kern, plain):
+            out[key] = torch.where(tiny, 0.0, out[key])
+    return compare_fields(kern, plain, rtol), left_out
+
+
 ICE_PATTERNS = ("bands", "none", "seams", "all")
 
 

@@ -459,7 +459,8 @@ def ice_step(model: Model, state: State, grid: Grid, f: Forcing,
     Returns (new_state, fluxes) where fluxes holds every merged
     coupler/diagnostic field of the step, the guard records under
     ``"_guards"``, and the thermo and ridging iteration counts under
-    ``"_thermo_niter"`` (device tensor) and ``"_ridge_niter"`` (int).
+    ``"_thermo_niter"`` (device tensor) and ``"_ridge_niter"`` (an int on
+    the CPU, a 0-d device tensor on a card).
     """
     cfg = model.cfg
     if dt is None:

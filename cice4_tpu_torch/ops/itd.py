@@ -270,7 +270,31 @@ def zap_small_areas(state: State, tmask, dt) -> tuple[State, dict]:
 def cleanup_itd(state: State, itd: ItdParams, tmask, dt,
                 limit_aice: bool = True) -> tuple[State, dict]:
     """Rebin + zap small areas (``ice_itd.F90 cleanup_itd:1600-1835``).
-    Returns (state, ocean-flux corrections)."""
+    Returns (state, ocean-flux corrections).
+
+    On CUDA tensors this launches the cleanup_column kernel
+    (``csrc/ridge_column.cu``, or raises); on CPU tensors it runs the
+    plain version :func:`_cleanup_itd_plain`.  `cleanup_itd.launches`
+    counts the kernel's launches."""
+    if state.aicen.device.type == "cpu":
+        return _cleanup_itd_plain(state, itd, tmask, dt, limit_aice)
+    if state.aicen.device.type != "cuda":
+        raise NotImplementedError(
+            f"cleanup_itd has no path for device {state.aicen.device}")
+    from cice4_tpu_torch.ops import ridge_cuda
+
+    new, fluxes = ridge_cuda.cleanup_itd_cuda(state, itd, tmask, dt,
+                                              limit_aice)
+    cleanup_itd.launches += 1
+    return state.replace(**new), fluxes
+
+
+cleanup_itd.launches = 0
+
+
+def _cleanup_itd_plain(state: State, itd: ItdParams, tmask, dt,
+                       limit_aice: bool = True) -> tuple[State, dict]:
+    """:func:`cleanup_itd` as eager PyTorch operations."""
     state = rebin(state, itd)
     if limit_aice:
         return zap_small_areas(state, tmask, dt)

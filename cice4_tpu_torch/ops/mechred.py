@@ -5,8 +5,14 @@ Port of :mod:`cice4_tpu.ops.mechred` (``source/ice_mechred.F90``
 `ridge_check:1788-1842`) with the participation/redistribution ITD of
 `ridge_itd` and the conservative category transfer of
 `ridge_shift:1099-1773`, until the total area sums to 1 (at most 20
-iterations).  The convergence test reads one boolean from the device
-per iteration (a host synchronisation).
+iterations).
+
+On CUDA tensors the whole loop is one launch of the column kernel
+``csrc/ridge_column.cu`` (:mod:`cice4_tpu_torch.ops.ridge_cuda`), whose
+columns each leave the loop when their own area sums to 1, with no host
+synchronisation.  On CPU tensors the plain version runs: the loop leaves
+when every column (of every block) is done, and its test reads one
+boolean from the device a pass.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ from cice4_tpu_torch import timers
 from cice4_tpu_torch.config import DynamicsConfig
 from cice4_tpu_torch.ops.itd import TRACER_DEPEND, _compute_tracers
 from cice4_tpu_torch.ops.mechred_strength import Cs, fsnowrdg, ridge_itd_full
-from cice4_tpu_torch.parallel.halo import global_all
+from cice4_tpu_torch.parallel.halo import global_all, global_max
 from cice4_tpu_torch.state import ItdParams, State
 
 nitermax_ridge = 20
@@ -197,13 +203,44 @@ def ridge_ice(state: State, itd: ItdParams, dyn: DynamicsConfig, dt,
     Returns (state, diag) where diag carries dardg1dt, dardg2dt,
     dvirdgdt, opening (1/s or m/s), fresh/fhocn corrections from snow
     lost to the ocean during ridging, and `niter`, the number of ridging
-    iterations (a Python int).
+    passes: a Python int on the CPU, a 0-d device tensor (the most passes
+    of any column, of any block) on a card.
+
+    On CUDA tensors this launches the ridge_column kernel (or raises); on
+    CPU tensors it runs the plain version :func:`_ridge_ice_plain`.
+    `ridge_ice.launches` counts the kernel's launches.
     """
+    if state.aicen.device.type == "cpu":
+        return _ridge_ice_plain(state, itd, dyn, dt, rdg_conv, rdg_shear,
+                                tmask, aice0, guards)
+    if state.aicen.device.type != "cuda":
+        raise NotImplementedError(
+            f"ridge_ice has no path for device {state.aicen.device}")
+    from cice4_tpu_torch.ops import ridge_cuda
+
+    new, diag, asum, niter_cells, converged = ridge_cuda.ridge_ice_cuda(
+        state, itd, dyn, dt, rdg_conv, rdg_shear, tmask, aice0,
+        nitermax_ridge)
+    ridge_ice.launches += 1
+    # every block of a decomposed grid reports the same count
+    niter = global_max(niter_cells.amax())
+    timers.count("ridge_passes", niter)
+    if guards:
+        from cice4_tpu_torch.guards import check_ridge
+        diag["_guard"] = check_ridge(asum, tmask, converged)
+    diag["niter"] = niter
+    return state.replace(**new), diag
+
+
+ridge_ice.launches = 0
+
+
+def _initial_carry(state: State, aice0):
+    """The ridging loop's carry before its first pass."""
     zero = torch.zeros_like(state.sst)
     if aice0 is None:
         aice0 = torch.clamp(1.0 - state.aicen.sum(0), min=0.0)
-
-    carry = dict(
+    return dict(
         aicen=state.aicen, vicen=state.vicen, vsnon=state.vsnon,
         eicen=state.eicen, esnon=state.esnon, aice0=aice0,
         tsfcn=state.tsfcn, trcrn=dict(state.trcrn),
@@ -214,6 +251,14 @@ def ridge_ice(state: State, itd: ItdParams, dyn: DynamicsConfig, dt,
         msnow_mlt=zero, esnow_mlt=zero,
         ardg1=zero, ardg2=zero, virdg=zero, aopen=zero,
     )
+
+
+def _ridge_ice_plain(state: State, itd: ItdParams, dyn: DynamicsConfig, dt,
+                     rdg_conv, rdg_shear, tmask, aice0=None, guards=False):
+    """:func:`ridge_ice` as eager PyTorch operations, the loop's exit a
+    host decision taken when every column of every block is done."""
+    carry = _initial_carry(state, aice0)
+    aice0 = carry["aice0"]
 
     asum = aice0 + state.aicen.sum(0)
     closing_net, _divu_adv, opning = _ridge_prep(dt, rdg_conv, rdg_shear,

@@ -11,7 +11,9 @@ A region is named by its path: a region opened inside "Step" as
 spans with :func:`span`, which times them on the `Timers` whose
 outermost region is open on this thread, and does nothing where none is
 (a bare `Model`, a block thread of a decomposed run); :func:`count` adds
-to that `Timers`' counters alike.
+to that `Timers`' counters alike, a Python int or a 0-d device tensor
+(the ridging passes on a card), which is kept on the device and read
+only when `counters` or `report()` is.
 
 Nothing here waits for the device while regions run.  On a CUDA device
 an outermost region (Init, Forcing, Step, History, Diags, ReadWrite; the
@@ -52,25 +54,31 @@ def span(name: str):
     return _NULL if t is None else _Region(t, name)
 
 
-def count(name: str, n: int = 1):
-    """Add `n` to counter `name` of the `Timers` active on this thread."""
+def count(name: str, n=1):
+    """Add `n` (an int or a 0-d tensor) to counter `name` of the `Timers`
+    active on this thread."""
     t = getattr(_local, "timers", None)
     if t is not None:
-        t.counters[name] += n
+        t.count(name, n)
 
 
 class Timers:
     """The regions and counters of one model run.
 
     host_ns[path]: host nanoseconds of each region; counts[path]: its
-    entries; counters[name]: what `count` added; `totals`: seconds by
-    path, an outermost region's including its device work on a CUDA
-    device (see the module's docstring)."""
+    entries; `counters`: what `count` added by name (reading it waits for
+    the device counts added); `totals`: seconds by path, an outermost
+    region's including its device work on a CUDA device (see the module's
+    docstring)."""
+
+    # device counts kept apart before they are summed on the device
+    FOLD = 256
 
     def __init__(self, device=None):
         self.host_ns = collections.defaultdict(int)
         self.counts = collections.defaultdict(int)
-        self.counters = collections.defaultdict(int)
+        self._counters = collections.defaultdict(int)
+        self._device_counts = collections.defaultdict(list)
         self._cuda = (device is not None
                       and torch.device(device).type == "cuda")
         self._device_s = collections.defaultdict(float)
@@ -82,8 +90,23 @@ class Timers:
     def __call__(self, name: str):
         return _Region(self, name)
 
-    def count(self, name: str, n: int = 1):
-        self.counters[name] += n
+    def count(self, name: str, n=1):
+        if isinstance(n, torch.Tensor):
+            pending = self._device_counts[name]
+            pending.append(n)
+            if len(pending) >= self.FOLD:
+                pending[:] = [torch.stack(pending).sum()]
+        else:
+            self._counters[name] += n
+
+    @property
+    def counters(self) -> dict:
+        """The counters by name (reads the device counts added)."""
+        for name, pending in self._device_counts.items():
+            if pending:
+                self._counters[name] += int(torch.stack(pending).sum())
+                pending.clear()
+        return dict(self._counters)
 
     def _event(self):
         ev = self._free.pop() if self._free else self._new_event()
@@ -132,9 +155,10 @@ class Timers:
                              f"({self.counts[path]}x)")
                 walk(path, depth + 1)
         walk("", 0)
-        if self.counters:
+        counters = self.counters
+        if counters:
             lines.append("Counters:")
-            for name, n in sorted(self.counters.items()):
+            for name, n in sorted(counters.items()):
                 lines.append(f"  {name:28s} {n:12d}")
         return "\n".join(lines)
 

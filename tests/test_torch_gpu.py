@@ -505,10 +505,12 @@ def test_remap_split_tiles_fit_every_table(cuda_device, dtype, ntracers, n1,
 @pytest.mark.gpu
 def test_default_step_launches_every_kernel(cuda_device):
     """Two default steps at 24x32 on the card: each of the four kernels
-    once per step, finite state, moving ice."""
+    once per step, ridge_column once and cleanup_column twice (the
+    thermodynamics' cleanup and the ridging's), the ridging passes a
+    device count, finite state, moving ice."""
     from cice4_tpu_torch.io.forcing_data import AnalyticForcing
     from cice4_tpu_torch.model import Model
-    from cice4_tpu_torch.ops import evp_cuda, remap_cuda
+    from cice4_tpu_torch.ops import evp_cuda, itd, mechred, remap_cuda
     from cice4_tpu_torch.state import init_state
 
     cfg = gx1_config().with_values(**{"grid.kmt_file": "",
@@ -520,13 +522,18 @@ def test_default_step_launches_every_kernel(cuda_device):
     forcing = AnalyticForcing(cfg, model.grid, device=cuda_device,
                               dtype=torch.float32)
     wrappers = (tv.temperature_changes, evp_cuda.evp_subcycle,
-                remap_cuda.ga_gsh, remap_cuda.k12_divergence)
+                remap_cuda.ga_gsh, remap_cuda.k12_divergence,
+                mechred.ridge_ice, itd.cleanup_itd)
     before = [w.launches for w in wrappers]
     for n in range(2):
         yday = 80.0 + n / 24.0
-        state, _ = model(state, forcing(yday, 0.0), yday, 0.0)
+        state, fluxes = model(state, forcing(yday, 0.0), yday, 0.0)
     torch.cuda.synchronize()
-    assert [w.launches - b for w, b in zip(wrappers, before)] == [2] * 4
+    assert [w.launches - b for w, b in zip(wrappers, before)] == \
+        [2] * 5 + [4]
+    niter = fluxes["_ridge_niter"]
+    assert niter.device.type == "cuda" and niter.dim() == 0
+    assert 1 <= int(niter) <= mechred.nitermax_ridge
     assert bool(torch.isfinite(state.aicen).all())
     assert 0.0 < float(state.uvel.abs().max()) < 2.0
 
@@ -609,11 +616,12 @@ TRIPOLE_SMALL = {**BOX_SMALL, "domain.ns_boundary_type": "tripole",
 def test_tripole_step_launches_every_kernel(cuda_device, case):
     """Two steps on a tripole grid at 24x32 (all ocean) or 40x32 (ACCESS-OM2's
     lat-lon grid) on the card: each of the four kernels of the default
-    route once per step, finite state, moving ice."""
+    route once per step, the column kernels once and twice, finite state,
+    moving ice."""
     from cice4_tpu_torch.config import Config, access_om_config
     from cice4_tpu_torch.io.forcing_data import AnalyticForcing
     from cice4_tpu_torch.model import Model
-    from cice4_tpu_torch.ops import evp_cuda, remap_cuda
+    from cice4_tpu_torch.ops import evp_cuda, itd, mechred, remap_cuda
     from cice4_tpu_torch.state import init_state
 
     cfg = (Config().with_values(**TRIPOLE_SMALL)
@@ -626,13 +634,18 @@ def test_tripole_step_launches_every_kernel(cuda_device, case):
     forcing = AnalyticForcing(cfg, model.grid, device=cuda_device,
                               dtype=torch.float32)
     wrappers = (tv.temperature_changes, evp_cuda.evp_subcycle,
-                remap_cuda.ga_gsh, remap_cuda.k12_divergence)
+                remap_cuda.ga_gsh, remap_cuda.k12_divergence,
+                mechred.ridge_ice, itd.cleanup_itd)
     before = [w.launches for w in wrappers]
     for n in range(2):
         yday = 80.0 + n / 24.0
-        state, _ = model(state, forcing(yday, 0.0), yday, 0.0)
+        state, fluxes = model(state, forcing(yday, 0.0), yday, 0.0)
     torch.cuda.synchronize()
-    assert [w.launches - b for w, b in zip(wrappers, before)] == [2] * 4
+    assert [w.launches - b for w, b in zip(wrappers, before)] == \
+        [2] * 5 + [4]
+    niter = fluxes["_ridge_niter"]
+    assert niter.device.type == "cuda" and niter.dim() == 0
+    assert 1 <= int(niter) <= mechred.nitermax_ridge
     assert bool(torch.isfinite(state.aicen).all())
     assert 0.0 < float(state.uvel.abs().max()) < 2.0
 
@@ -745,14 +758,7 @@ def test_option_step_launches_its_kernels(cuda_device, name, monkeypatch):
     from cice4_tpu_torch.ops import evp_cuda, remap_cuda
     from cice4_tpu_torch.state import init_state
 
-    def refuse(*a, **k):
-        raise AssertionError("a plain version ran on the card's path")
-
-    for mod, attr in ((tv, "_temperature_changes_core"),
-                      (evp_cuda, "_evp_subcycle_plain"),
-                      (remap_cuda, "ga_gsh_plain"),
-                      (remap_cuda, "k12_plain")):
-        monkeypatch.setattr(mod, attr, refuse)
+    _refuse_plain_versions(monkeypatch)
     over, per_step = OPTION_LAUNCHES[name]
     cfg = gx1_config().with_values(**{"grid.kmt_file": "",
                                       "domain.ny_global": 24,
@@ -778,7 +784,7 @@ def test_option_step_launches_its_kernels(cuda_device, name, monkeypatch):
 
 
 def _refuse_plain_versions(monkeypatch):
-    from cice4_tpu_torch.ops import evp_cuda, remap_cuda
+    from cice4_tpu_torch.ops import evp_cuda, itd, mechred, remap_cuda
 
     def refuse(*a, **k):
         raise AssertionError("a plain version ran on the card's path")
@@ -786,7 +792,9 @@ def _refuse_plain_versions(monkeypatch):
     for mod, attr in ((tv, "_temperature_changes_core"),
                       (evp_cuda, "_evp_subcycle_plain"),
                       (remap_cuda, "ga_gsh_plain"),
-                      (remap_cuda, "k12_plain")):
+                      (remap_cuda, "k12_plain"),
+                      (mechred, "_ridge_ice_plain"),
+                      (itd, "_cleanup_itd_plain")):
         monkeypatch.setattr(mod, attr, refuse)
 
 
@@ -918,3 +926,212 @@ def test_regrid_runoff_matches_the_cpu(cuda_device, dtype, rtol):
     want = regrid_runoff(runof, mask)
     got = regrid_runoff(runof.to(cuda_device), mask.to(cuda_device)).cpu()
     assert float((got - want).abs().max()) <= rtol * float(want.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the column kernels: ridge_column and cleanup_column
+# (csrc/ridge_column.cu), against ridge_ice's and cleanup_itd's plain
+# versions with kernel_check.COLUMN_RTOL; on the card they agree bit for
+# bit but where a plain pass without closing rescales a tracer whose parent
+# lies below puny (kernel_check.compare_columns leaves those out)
+# ---------------------------------------------------------------------------
+
+RIDGE_OPTIONS = [(0, 0), (0, 1), (1, 0), (1, 1)]
+CLEANUP_CASES = {
+    "iage": {},
+    "iage+lvl+pond": {"tracers.tr_lvl": True, "tracers.tr_pond": True},
+    "nilyr10": {"tracers.tr_lvl": True, "tracers.tr_pond": True,
+                "domain.nilyr": 10},
+    # the delta-function ITD: the category-1 minimum thickness
+    "kitd0": {"thermo.kitd": 0},
+}
+
+
+def _column_case(size, over, device, dtype, seed=11):
+    """(cfg, itd, tmask, state): the seeded state of
+    `kernel_check.column_state` on a cut of gx1, six ocean columns
+    masked."""
+    from cice4_tpu_torch.grid import make_grid
+
+    cfg = gx1_config().with_values(**{
+        "grid.kmt_file": "", "domain.ny_global": size[0],
+        "domain.nx_global": size[1], **over})
+    grid = make_grid(cfg, device=device, dtype=dtype)
+    tmask = grid.tmask.clone()
+    tmask[5, 3:9] = False
+    return (cfg, make_itd_params(cfg), tmask,
+            kernel_check.column_state(cfg, grid, seed))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("size", [(24, 32), (384, 320)],
+                         ids=["24x32", "gx1"])
+@pytest.mark.parametrize("partic,redist", RIDGE_OPTIONS)
+def test_ridge_column_matches_plain(cuda_device, dtype, size, partic,
+                                    redist):
+    """The whole ridging loop in one launch, on compacted columns (three
+    passes and more in some): the state, the ridging rates and the snow's
+    fluxes as the plain loop gives them, the most passes of any column the
+    plain loop's count, as a device tensor, and the same guard record."""
+    from cice4_tpu_torch.ops import mechred
+
+    cfg, itd, tmask, st = _column_case(
+        size, {"dynamics.krdg_partic": partic,
+               "dynamics.krdg_redist": redist}, cuda_device, dtype)
+    st = kernel_check.compacted(st, seed=13)
+    conv, shear, aice0 = kernel_check.ridge_forcing(st, seed=12)
+    before = mechred.ridge_ice.launches
+    kst, kd = mechred.ridge_ice(st, itd, cfg.dynamics, 3600.0, conv, shear,
+                                tmask, aice0, guards=True)
+    assert mechred.ridge_ice.launches == before + 1
+    pst, pd = mechred._ridge_ice_plain(st, itd, cfg.dynamics, 3600.0, conv,
+                                       shear, tmask, aice0, guards=True)
+    report, _ = kernel_check.compare_columns(
+        kst, kd, pst, pd, kernel_check.COLUMN_RTOL[dtype])
+    assert kernel_check.fields_ok(report), report
+    assert kd["niter"].device.type == "cuda"
+    assert int(kd["niter"]) == pd["niter"] >= 3
+    assert int(kd["_guard"]["count"]) == int(pd["_guard"]["count"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", list(CLEANUP_CASES))
+@pytest.mark.parametrize("limit_aice", [True, False])
+def test_cleanup_column_matches_plain(cuda_device, dtype, case, limit_aice):
+    """Rebin and zap in one launch, on states that move ice up and down
+    the categories, zap small areas, hold total areas over 1 and (kitd 0)
+    fix category 1's thickness: as the plain version, with the tracer
+    sets and layer counts of CLEANUP_CASES."""
+    from cice4_tpu_torch.ops import itd as itd_ops
+
+    cfg, itd, tmask, st = _column_case((24, 32), CLEANUP_CASES[case],
+                                       cuda_device, dtype)
+    took = kernel_check.cleanup_triggers(st, itd, tmask)
+    assert took["up"] and took["down"] and took["zap"] and took["excess"]
+    assert bool(took["cat1"]) == (case == "kitd0")
+    before = itd_ops.cleanup_itd.launches
+    kst, kf = itd_ops.cleanup_itd(st, itd, tmask, 3600.0, limit_aice)
+    assert itd_ops.cleanup_itd.launches == before + 1
+    pst, pf = itd_ops._cleanup_itd_plain(st, itd, tmask, 3600.0, limit_aice)
+    report, _ = kernel_check.compare_columns(
+        kst, kf, pst, pf, kernel_check.COLUMN_RTOL[dtype])
+    assert kernel_check.fields_ok(report), report
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_column_kernels_at_twelve_categories(cuda_device, dtype):
+    """ncat 12: in f32 a block's work slots fill 210 KB of shared memory,
+    in f64 they would not fit and live in the global scratch tensor; both
+    as the plain versions."""
+    from cice4_tpu_torch.ops import itd as itd_ops
+    from cice4_tpu_torch.ops import mechred, ridge_cuda
+
+    cfg, itd, tmask, st = _column_case((24, 32), {"domain.ncat": 12},
+                                       cuda_device, dtype)
+    st = kernel_check.compacted(st, seed=13)
+    in_shared = ridge_cuda._scratch("ridge_column", st.aicen, 1) is None
+    assert in_shared == (dtype == torch.float32)
+    conv, shear, aice0 = kernel_check.ridge_forcing(st, seed=12)
+    kst, kd = mechred.ridge_ice(st, itd, cfg.dynamics, 3600.0, conv, shear,
+                                tmask, aice0)
+    pst, pd = mechred._ridge_ice_plain(st, itd, cfg.dynamics, 3600.0, conv,
+                                       shear, tmask, aice0)
+    rtol = kernel_check.COLUMN_RTOL[dtype]
+    report, _ = kernel_check.compare_columns(kst, kd, pst, pd, rtol)
+    assert kernel_check.fields_ok(report), report
+    kst, kf = itd_ops.cleanup_itd(st, itd, tmask, 3600.0)
+    pst, pf = itd_ops._cleanup_itd_plain(st, itd, tmask, 3600.0)
+    report, _ = kernel_check.compare_columns(kst, kf, pst, pf, rtol)
+    assert kernel_check.fields_ok(report), report
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_column_kernels_on_the_blocks_of_a_decomposed_grid(cuda_device,
+                                                           dtype):
+    """On a 2x2 mesh of blocks of a 48x64 cut, each block's launches give
+    its columns what the whole grid's give, bit for bit, every block
+    reports the whole grid's most passes and guard count; a masked column
+    ridges nothing and keeps its area."""
+    from cice4_tpu_torch import convert
+    from cice4_tpu_torch.ops import itd as itd_ops
+    from cice4_tpu_torch.ops import mechred
+    from cice4_tpu_torch.parallel.mesh import Mesh
+
+    cfg, itd, tmask, st = _column_case((48, 64), {}, cuda_device, dtype)
+    st = kernel_check.compacted(st, seed=13)
+    conv, shear, aice0 = kernel_check.ridge_forcing(st, seed=12)
+
+    def both(state, cut):
+        rs, rd = mechred.ridge_ice(state, itd, cfg.dynamics, 3600.0,
+                                   cut(conv), cut(shear), cut(tmask),
+                                   cut(aice0), guards=True)
+        cs, cf = itd_ops.cleanup_itd(rs, itd, cut(tmask), 3600.0)
+        return rs, rd, cs, cf
+
+    whole = both(st, lambda t: t)
+    mesh = Mesh(2, 2)
+    parts = convert.scatter_blocks(st, mesh)
+    blocks = mesh.run(lambda b: both(parts[b],
+                                     lambda t: mesh.scatter(t, b)))
+    for k in (0, 2):
+        got = kernel_check.column_outputs(
+            convert.gather_blocks([o[k] for o in blocks], mesh), {})
+        want = kernel_check.column_outputs(whole[k], {})
+        for name in want:
+            assert torch.equal(got[name], want[name]), (k, name)
+    for k, names in ((1, kernel_check.RIDGE_DIAG),
+                     (3, kernel_check.CLEANUP_FLUXES)):
+        for name in names:
+            got = mesh.assemble([o[k][name] for o in blocks])
+            assert torch.equal(got, whole[k][name]), name
+    for o in blocks:
+        assert int(o[1]["niter"]) == int(whole[1]["niter"]) >= 3
+        assert int(o[1]["_guard"]["count"]) == \
+            int(whole[1]["_guard"]["count"])
+    # the masked columns: one pass without closing or opening
+    rs, rd = whole[0], whole[1]
+    assert torch.equal(rs.aicen[:, 5, 3:9], st.aicen[:, 5, 3:9])
+    assert not bool(rd["dardg1dt"][5, 3:9].any())
+    assert not bool(rd["opening"][5, 3:9].any())
+
+
+@pytest.mark.gpu
+def test_gx1_cut_in_f64_on_the_card_matches_the_cpu(cuda_device):
+    """Three default steps of the 24x32 gx1 cut with the level-ice tracers
+    in f64: the card (the kernels) against the CPU (the plain versions),
+    every state field within 1e-9 of its scale, as chip_smoke.py's phase
+    16 holds its parities."""
+    from cice4_tpu_torch.io.forcing_data import AnalyticForcing
+    from cice4_tpu_torch.model import Model
+    from cice4_tpu_torch.state import STATE_FIELDS, init_state
+
+    cfg = gx1_config().with_values(**{"grid.kmt_file": "",
+                                      "domain.ny_global": 24,
+                                      "domain.nx_global": 32,
+                                      "tracers.tr_lvl": True})
+    out = []
+    for device in (cuda_device, torch.device("cpu")):
+        model = Model.create(cfg, device=device, dtype=torch.float64)
+        state = init_state(cfg, model.grid, model.itd, device=device,
+                           dtype=torch.float64)
+        forcing = AnalyticForcing(cfg, model.grid, device=device,
+                                  dtype=torch.float64)
+        for n in range(3):
+            yday = 80.0 + n / 24.0
+            state, _ = model(state, forcing(yday, 0.0), yday, 0.0)
+        out.append(state)
+    for name in STATE_FIELDS:
+        got, want = getattr(out[0], name), getattr(out[1], name)
+        pairs = ([(f"{name}.{k}", got[k], want[k]) for k in want]
+                 if isinstance(want, dict) else [(name, got, want)])
+        for tag, a, b in pairs:
+            a = a.cpu()
+            if not b.is_floating_point():
+                assert torch.equal(a, b), tag
+                continue
+            scale = max(float(b.abs().max()), 1e-300)
+            assert float((a - b).abs().max()) <= 1e-9 * scale, tag

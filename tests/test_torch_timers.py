@@ -55,6 +55,25 @@ def test_regions_nest_and_count():
     assert timers.span("Step") is timers.span("Other")
 
 
+def test_device_counts_are_read_when_the_counters_are():
+    """A count given as a 0-d tensor (the ridging passes on a card) stays
+    a tensor until `counters` or the report is read; past `FOLD` of them
+    they are summed into one."""
+    t = Timers()
+    with t("Step"):
+        timers.count("ridge_passes", torch.tensor(3, dtype=torch.int32))
+        timers.count("ridge_passes", 2)
+    assert len(t._device_counts["ridge_passes"]) == 1
+    for _ in range(Timers.FOLD - 1):
+        t.count("ridge_passes", torch.tensor(1, dtype=torch.int32))
+    assert len(t._device_counts["ridge_passes"]) == 1
+    assert t.counters == {"ridge_passes": 4 + Timers.FOLD}
+    assert not t._device_counts["ridge_passes"]
+    t.count("ridge_passes", torch.tensor(4))
+    assert t.report().splitlines()[-1].split() == [
+        "ridge_passes", str(8 + Timers.FOLD)]
+
+
 def test_span_without_active_timers_does_nothing():
     null = timers.span("Thermo")
     assert null is timers.span("Dynamics")

@@ -3,7 +3,8 @@
     python tools/rehearse_cuda_on_cpu.py [--out build/cpu_rehearsal]
 
 Compiles ``evp_subcycle.cu``, ``evp_rounds.cu``, ``remap_gsh.cu``,
-``remap_k12.cu`` and ``therm_newton.cu`` (with the headers they include)
+``remap_k12.cu``, ``therm_newton.cu`` and ``ridge_column.cu`` (with the
+headers they include)
 with ``g++ -std=c++20 -ffp-contract=off`` against a stand-in CUDA
 runtime written into ``--out``: each block's
 threads run as ``std::thread``s meeting at a ``std::barrier``, blocks one
@@ -17,8 +18,14 @@ ragged shapes and every boundary pair the kernels take, the tripole and
 tripoleT folds on the all-ocean grid included, in f32 and f64;
 ``therm_newton`` through its wrapper (the runtime's stream and device
 calls stood in), its generic instance at several layer counts and bit for
-bit against the register instance at (4, 1).  The stand-in's ``exp`` of a
-float is the double one's, so f32 Newton results agree within tolerance.
+bit against the register instance at (4, 1); ``ridge_column`` and
+``cleanup_column`` through their wrappers against ``ridge_ice``'s and
+``cleanup_itd``'s plain versions, for both ridging options each, three
+tracer sets, ten ice layers, the delta-function ITD's category-1 bound
+and twelve categories (whose work slots exceed shared memory in f64).  The stand-in's ``exp`` of a float is the double one's, so f32
+Newton results agree within tolerance; the CPU's plain versions divide by
+a Python number where the card's multiply by its reciprocal, and sum in
+another order, so the column kernels agree with them within tolerance.
 
 What it shows: that the kernels' index arithmetic, masking, staging and
 synchronisation compute the plain version's function.  What it cannot
@@ -218,7 +225,7 @@ inline grid_group this_grid() { return {}; }
 """
 
 LIBRARIES = ("evp_subcycle", "evp_rounds", "remap_gsh", "remap_k12",
-             "therm_newton")
+             "therm_newton", "ridge_column")
 
 
 def translate(name: str, src: str) -> str:
@@ -248,7 +255,7 @@ def translate(name: str, src: str) -> str:
                   src, flags=re.S)
 
 
-def build(out: Path) -> dict:
+def build(out: Path, names=LIBRARIES) -> dict:
     src = out / "src"
     src.mkdir(parents=True, exist_ok=True)
     (out / "cuda_runtime.h").write_text(RUNTIME)
@@ -259,12 +266,12 @@ def build(out: Path) -> dict:
         ["g++", "-x", "c++", "-std=c++20", "-O1", "-ffp-contract=off",
          "-fPIC", "-shared", f"-I{out}", f"-I{src}", "-o",
          str(out / f"lib{name}.so"), str(src / f"{name}.cu"), "-lpthread"])
-        for name in LIBRARIES}
+        for name in names}
     for name, p in procs.items():
         if p.wait() != 0:
             raise SystemExit(f"g++ failed on {name}.cu")
     return {name: ctypes.CDLL(str(out / f"lib{name}.so"))
-            for name in LIBRARIES}
+            for name in names}
 
 
 def _sym(lib, name, dtype, argtypes):
@@ -365,24 +372,104 @@ def rounds_kernel(lib, p, grid, *args, tile):
     return state
 
 
+def _stand_in(name, lib):
+    """Load `lib` as the card's library `name` and stand in the runtime's
+    device and stream calls that the wrappers make."""
+    import contextlib
+    from types import SimpleNamespace
+
+    from cice4_tpu_torch import cuda_build
+
+    cuda_build._loaded[name] = cuda_build.Library(
+        lib=lib, path=Path(lib._name), built=True, seconds=0.0, log="")
+    torch.cuda.device = lambda _d: contextlib.nullcontext()
+    torch.cuda.current_stream = lambda _d=None: SimpleNamespace(
+        cuda_stream=None)
+
+
+BOTH = (torch.float64, torch.float32)
+COLUMN_CASES = (
+    # (name, configuration settings, krdg_partic, krdg_redist, types)
+    ("gx1", {}, 1, 1, BOTH),
+    ("gx1 Thorndike Hibler", {}, 0, 0, BOTH),
+    ("lvl+pond nilyr 10", {"tracers.tr_lvl": True, "tracers.tr_pond": True,
+                           "domain.nilyr": 10}, 0, 1, BOTH),
+    ("kitd 0, no tracers", {"thermo.kitd": 0, "tracers.tr_iage": False},
+     1, 0, BOTH),
+    # a block's ridging slots exceed shared memory: the global scratch
+    ("ncat 12", {"domain.ncat": 12}, 1, 1, (torch.float64,)),
+)
+
+
+def check_columns(lib) -> list[str]:
+    """ridge_column and cleanup_column through their wrappers on CPU
+    tensors and the stand-in, against the plain versions, on a 13 x 37
+    cut of gx1 (a ragged last block) with masked columns."""
+    from cice4_tpu_torch.config import gx1_config
+    from cice4_tpu_torch.ops import itd as itd_ops
+    from cice4_tpu_torch.ops import mechred, ridge_cuda
+    from cice4_tpu_torch.state import make_itd_params
+
+    _stand_in("ridge_column", lib)
+    failed = []
+    for name, over, partic, redist, dtypes in COLUMN_CASES:
+        cfg = gx1_config().with_values(**{
+            "grid.kmt_file": "", "domain.ny_global": 13,
+            "domain.nx_global": 37, "dynamics.krdg_partic": partic,
+            "dynamics.krdg_redist": redist, **over})
+        itd = make_itd_params(cfg)
+        for dtype in dtypes:
+            grid = make_grid(cfg, device="cpu", dtype=dtype)
+            tmask = grid.tmask.clone()
+            tmask[5, 3:9] = False
+            st = kc.column_state(cfg, grid, seed=11)
+            conv, shear, aice0 = kc.ridge_forcing(st, seed=12)
+            new, kd, _, niter, _ = ridge_cuda.ridge_ice_cuda(
+                st, itd, cfg.dynamics, 3600.0, conv, shear, tmask, aice0)
+            pst, pd = mechred._ridge_ice_plain(st, itd, cfg.dynamics,
+                                               3600.0, conv, shear, tmask,
+                                               aice0)
+            rtol = kc.COLUMN_RTOL[dtype]
+            # in f32 an ulp can flip a category's test against puny, or a
+            # column's |asum - 1| < puny: a few elements of 1e-3
+            allowed = 0 if dtype == torch.float64 else st.aicen.numel() // 1000
+            rep, left_out = kc.compare_columns(st.replace(**new), kd, pst,
+                                               pd, rtol)
+            tag = f"{name} {dtype}"
+            print(f"ridge_column {tag}: passes {int(niter.max())} "
+                  f"(plain {pd['niter']}), worst "
+                  f"{max(v['max_rel'] for v in rep.values()):.2e}, "
+                  f"beyond {sum(v['n_bad'] for v in rep.values())}, tracer "
+                  f"elements under a parent below puny that differ "
+                  f"{left_out}", flush=True)
+            if not kc.fields_ok(rep, allowed) or (
+                    dtype == torch.float64 and int(niter.max()) != pd["niter"]):
+                failed.append(f"ridge_column {tag}: {rep}")
+            for limit in (True, False):
+                new, kf = ridge_cuda.cleanup_itd_cuda(st, itd, tmask, 3600.0,
+                                                      limit)
+                pst, pf = itd_ops._cleanup_itd_plain(st, itd, tmask, 3600.0,
+                                                     limit)
+                rep, _ = kc.compare_columns(st.replace(**new), kf, pst, pf,
+                                            rtol)
+                print(f"cleanup_column {tag} limit_aice={limit}: worst "
+                      f"{max(v['max_rel'] for v in rep.values()):.2e}",
+                      flush=True)
+                if not kc.fields_ok(rep, allowed):
+                    failed.append(f"cleanup_column {tag} {limit}: {rep}")
+    return failed
+
+
 def check_newton(lib) -> list[str]:
     """therm_newton through its wrapper on CPU tensors, the stand-in
     library loaded in place of the card's: the generic instance against the
     plain version at counts past the register instances, and against the
     register instance at (4, 1) bit for bit."""
-    import contextlib
-    from types import SimpleNamespace
-
-    from cice4_tpu_torch import cuda_build
     from cice4_tpu_torch.config import gx1_config
     from cice4_tpu_torch.ops import therm_vertical as tv
     from cice4_tpu_torch.state import make_itd_params
 
-    cuda_build._loaded["therm_newton"] = cuda_build.Library(
-        lib=lib, path=Path(lib._name), built=True, seconds=0.0, log="")
-    torch.cuda.device = lambda _d: contextlib.nullcontext()
-    torch.cuda.current_stream = lambda _d=None: SimpleNamespace(
-        cuda_stream=None)
+    _stand_in("therm_newton", lib)
     failed = []
     for layers in ((4, 1), (9, 1), (10, 1), (16, 2)):
         cfg = gx1_config().with_values(**{"domain.nilyr": layers[0],
@@ -419,9 +506,18 @@ def grid_of(shape, ew, ns, dtype):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "build" / "cpu_rehearsal"))
-    out = Path(ap.parse_args().out)
-    libs = build(out)
+    ap.add_argument("--columns", action="store_true",
+                    help="build and check only the column kernels")
+    args = ap.parse_args()
+    out = Path(args.out)
     torch.set_num_threads(2)
+    if args.columns:
+        failed = check_columns(build(out, ("ridge_column",))["ridge_column"])
+        for line in failed:
+            print(line)
+        print(f"{len(failed)} case(s) disagree")
+        return 1 if failed else 0
+    libs = build(out)
     meta = _tracer_meta(["iage"], 4, 1)
     bcs = [(ew, ns) for ew in ("cyclic", "closed")
            for ns in ("closed", "cyclic", "tripole", "tripoleT")]
@@ -495,6 +591,7 @@ def main() -> int:
                 print(f"{tag}: {'ok' if not failed else 'FAILED'}",
                       flush=True)
     failed += check_newton(libs["therm_newton"])
+    failed += check_columns(libs["ridge_column"])
     for line in failed:
         print(line)
     print(f"{len(failed)} case(s) disagree")
