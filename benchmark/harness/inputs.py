@@ -178,12 +178,15 @@ class ImportBank:
     of the analytic atmosphere at the start date and the grid's latitudes.
     The ocean sits at the freezing point of its salinity, `sst_i` being
     the offset from it.  Interval `k` is recomputed from the pattern
-    parameters on demand, in float64."""
+    parameters on demand, in float64.  With `block` = (j0, j1, i0, i1)
+    every interval is that block of the whole grid's, and nothing of the
+    rest of the grid is computed."""
 
-    def __init__(self, seed: int, spec: dict, tlat, *, device):
+    def __init__(self, seed: int, spec: dict, tlat, *, device, block=None):
         self.spec = spec
         self.size = int(spec["size"])
         ny, nx = tlat.shape
+        j0, j1, i0, i1 = block or (0, ny, 0, nx)
         names = A2I + O2I
         g = generator(seed, 300, device)
         waves = 3
@@ -197,11 +200,12 @@ class ImportBank:
                                    generator=g, device=device,
                                    dtype=torch.int64).to(torch.float64)
         self.names = names
-        self.y = torch.arange(ny, device=device,
+        self.y = torch.arange(j0, j1, device=device,
                               dtype=torch.float64)[:, None] / ny
-        self.x = torch.arange(nx, device=device,
+        self.x = torch.arange(i0, i1, device=device,
                               dtype=torch.float64)[None, :] / nx
-        self.base = analytic_atmosphere(tlat, spec["start_yday"])
+        self.base = analytic_atmosphere(tlat[j0:j1, i0:i1],
+                                        spec["start_yday"])
 
     def pattern(self, i: int, k: int):
         """Field `i`'s pattern at interval `k`, in [-1, 1]."""

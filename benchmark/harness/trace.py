@@ -28,6 +28,9 @@ class TraceRecord:
     steps' host-clock times, each ending in a device synchronisation);
     step_s: the median host-clock time of the window's steps, which run
     before the profiler is attached (it slows a step's host work);
+    wait_s: on a run of several ranks, this rank's mean time a window
+    step in the all-reduce that ends it, the wait for the other ranks
+    (None on one process);
     device_rows: [(name, device seconds, launches)] of every device
     operation; busy_s: the union of the device's busy intervals;
     syncs: synchronising operations PyTorch reported; forcing_s: the
@@ -47,6 +50,7 @@ class TraceRecord:
     kernel_bound_ms: dict
     step_bound_ms: float
     breakdown: dict
+    wait_s: float | None = None
 
 
 class Tracer:

@@ -84,17 +84,38 @@ class Reference:
                 state = state.replace(sst=sst0)
         return to_fields(state)
 
-    def step(self, fields: dict, istep: int, start: dict | None = None):
+    def steps(self, state: State, forcing, cal: Calendar, n_steps: int,
+              bands=None):
+        """`n_steps` model steps of `state` under `forcing` from the time
+        of `cal`, which advances.  `bands`, where given, runs them in its
+        own way (the harness's full-width bands): ``bands(self, state,
+        forcing, times)`` with the steps' (yday, sec), returning the new
+        state and the last step's fluxes as the whole grid's."""
+        if bands is not None:
+            times = []
+            for _ in range(n_steps):
+                times.append((cal.yday, cal.sec))
+                cal.advance()
+            return bands(self, state, forcing, times)
+        fluxes = None
+        for _ in range(n_steps):
+            state, fluxes = self.model(state, forcing, cal.yday, cal.sec)
+            cal.advance()
+        return state, fluxes
+
+    def step(self, fields: dict, istep: int, start: dict | None = None,
+             bands=None):
         """The standalone driver's step `istep` (0-based) from `fields`:
         the forcing, the ocean update, the model step and the ice
         restoring toward `start`.  Returns (the new state's dict, {"fluxes":
-        the step's fluxes, "forcing": its forcing})."""
+        the step's fluxes, "forcing": its forcing}).  `bands`: see
+        :meth:`steps`."""
         dt = float(self.cfg.run.dt)
         cal = self.calendar(istep)
         state = to_state(fields, device=self.device, dtype=self.dtype)
         f = self.provider(cal.yday, cal.sec, cal=cal, state=state)
         state = self.provider.ocean_update(state, cal, dt)
-        state, fluxes = self.model(state, f, cal.yday, cal.sec)
+        state, fluxes = self.steps(state, f, cal, 1, bands)
         if self.cfg.forcing.restore_ice:
             ref = to_state(start, device=self.device, dtype=self.dtype)
             state = restore_ice(state, ref, boundary_band_mask(self.grid),
@@ -103,14 +124,15 @@ class Reference:
 
     def interval(self, fields: dict, istep: int, imports: dict, *,
                  flavor: str, gfdl: bool, u_star=None, n_steps: int = 1,
-                 start: dict | None = None):
+                 start: dict | None = None, bands=None):
         """One coupling interval of the ACCESS component from `fields` at
         step `istep`: the initial boundary forcing, the imports folded in,
         `n_steps` model steps and the exports.  `u_star` is the friction
         velocity carried from the previous interval; `flavor` is ``om``,
         the ACCESS-OM2 exchange (the only one the cells drive).  Returns (state dict,
         exports {"i2o": {...}, "i2a": {...}}, u_star, {"fluxes": the last
-        step's fluxes, "forcing": the boundary forcing})."""
+        step's fluxes, "forcing": the boundary forcing}).  `bands`: see
+        :meth:`steps`."""
         if flavor != "om":
             raise ValueError(f"the reference has no {flavor!r} exchange")
         cal0 = self.calendar(0)
@@ -131,11 +153,8 @@ class Reference:
         if o2i:
             bnd.recv_ocn(o2i)
             state = bnd.apply_ocean_state(state)
-        cal = self.calendar(istep)
-        fluxes = None
-        for _ in range(n_steps):
-            state, fluxes = self.model(state, bnd.forcing, cal.yday, cal.sec)
-            cal.advance()
+        state, fluxes = self.steps(state, bnd.forcing, self.calendar(istep),
+                                   n_steps, bands)
         exports = {"i2o": bnd.send_ocn(fluxes, state),
                    "i2a": bnd.send_atm(fluxes, state)}
         return to_fields(state), exports, bnd.u_star, {

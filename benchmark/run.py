@@ -9,13 +9,15 @@ JSON object: ``correct``, ``attempted``, ``failed``, ``metrics`` (the
 cell's end-to-end metrics, or with ``--trace 1`` its per-layer metrics),
 ``device`` and, traced, ``breakdown``; then ``checks``, each number
 compared beside its limit, which also end standard error.  Without a
-CUDA card the run exits with code 2 and prints no result.
+CUDA card, or with fewer cards than the cell's ``chips``, the run exits
+with code 2 and prints no result.  A cell on several chips runs one
+process a card (``harness/ranks.py``); this process prints the result
+once every rank has ended well.
 """
 
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import sys
 from pathlib import Path
@@ -23,10 +25,6 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 # the benchmark's own packages, then the checkout's root for the program
 sys.path[:0] = [str(HERE), str(HERE.parent)]
-
-# top-level module names the program must not load (the JAX package it
-# was ported from, and JAX itself)
-FORBIDDEN = ("jax", "jaxlib", "flax", "cice4_tpu")
 
 
 def main(argv=None) -> int:
@@ -53,20 +51,21 @@ def main(argv=None) -> int:
 
     from harness import cell
 
+    chips = int(cell.cell_pieces(args.workload)[0]["chips"])
+    if torch.cuda.device_count() < chips:
+        print(f"cell {args.workload} asks for {chips} cards and this "
+              f"machine has {torch.cuda.device_count()}", file=sys.stderr)
+        return 2
     cell.cache_dirs()
+    if chips > 1:
+        from harness import ranks
+
+        return ranks.launch({"name": args.workload, "seed": args.seed,
+                             "seconds": args.seconds,
+                             "trace": bool(args.trace)}, chips)
     out = cell.run_cell(args.workload, args.seed, args.seconds,
                         bool(args.trace))
-    loaded = sorted({m.split(".", 1)[0] for m in sys.modules}
-                    & set(FORBIDDEN))
-    if loaded:
-        print(f"forbidden modules loaded: {', '.join(loaded)}",
-              file=sys.stderr)
-        return 3
-    for name, c in out["checks"].items():
-        print(f"check {name}: {c['value']} (limit {c['limit']})",
-              file=sys.stderr)
-    print(json.dumps(out, allow_nan=False), flush=True)
-    return 0
+    return cell.emit(out, cell.forbidden_loaded())
 
 
 if __name__ == "__main__":
