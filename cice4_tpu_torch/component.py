@@ -22,6 +22,17 @@ Two field-set flavors:
   the UM supplies per-category top/bottom melt fluxes; the ice runs the
   prescribed-flux thermo (`calc_Tsfc=F`), see
   :mod:`cice4_tpu_torch.coupling_cm`.
+
+On several processes (the ACCESS drivers' one MPI task a block) the
+component holds one block of a :class:`~cice4_tpu_torch.parallel.mesh.
+Mesh`: given one, or made (:func:`~cice4_tpu_torch.parallel.mesh.
+make_mesh`, one block a process) when :func:`~cice4_tpu_torch.parallel.
+mesh.init_distributed` finds the process group.  Its grid, state,
+boundary forcing, imports and exports are then the block's (ny_b, nx_b)
+fields, as the coupler exchanges each task's part; the only
+communication of an interval is the model step's neighbour exchanges.
+A process that holds several blocks of a mesh runs one component a block,
+their intervals together inside ``mesh.run``.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ import torch
 from cice4_tpu_torch import coupling, coupling_cm
 from cice4_tpu_torch.config import Config
 from cice4_tpu_torch.driver import IceModelRun
+from cice4_tpu_torch.parallel.mesh import init_distributed, make_mesh
 
 
 class IceComponent:
@@ -46,7 +58,8 @@ class IceComponent:
 
     def __init__(self, cfg: Config, flavor: str = "om",
                  dtype=torch.float32, log=print,
-                 gfdl_surface_flux: bool = False, *, device="cuda"):
+                 gfdl_surface_flux: bool = False, *, device="cuda",
+                 mesh=None, block: int | None = None):
         if flavor not in ("om", "cm"):
             raise ValueError(f"unknown coupling flavor {flavor!r}")
         if flavor == "cm" and cfg.thermo.calc_Tsfc:
@@ -62,6 +75,10 @@ class IceComponent:
         # Monin-Obukhov package (default .true. in the reference OM)
         self.gfdl_surface_flux = gfdl_surface_flux
         self.log = log
+        if mesh is None and init_distributed(device=self.device):
+            mesh = make_mesh()
+        self.mesh = mesh
+        self.block = block
         self.runner: IceModelRun | None = None
         self._boundary = None
 
@@ -79,7 +96,8 @@ class IceComponent:
         grid/state/model; the initial Forcing comes from the configured
         provider and is then overwritten by coupler imports."""
         self.runner = IceModelRun(self.cfg, dtype=self.dtype, log=self.log,
-                                  device=self.device).initialize(state=state)
+                                  device=self.device, mesh=self.mesh,
+                                  block=self.block).initialize(state=state)
         cal = self.runner.calendar
         with self.runner.timers("Init"):
             f0 = self.runner.forcing_provider(cal.yday, cal.sec, cal=cal,
@@ -131,7 +149,11 @@ class IceComponent:
         into the forcing, advance `n_steps` model steps, and return the
         export state (``drivers/esmf/CICE_RunMod.F90 CICE_Run`` + the
         from_atm/from_ocn/into_ocn/into_atm exchange of
-        ``cpl_interface.F90``)."""
+        ``cpl_interface.F90``).  On a mesh, the block's interval."""
+        return self.runner.on_block(
+            lambda: self._interval(import_state, n_steps))
+
+    def _interval(self, import_state, n_steps):
         r = self.runner
         timer = r.timers
         with timer("Receive"):

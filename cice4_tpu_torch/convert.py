@@ -9,10 +9,11 @@ fields stay ``None``.
 
 :func:`scatter_blocks` cuts a port grid, state or forcing into the blocks
 of a mesh (:mod:`cice4_tpu_torch.parallel.mesh`; a grid's blocks carry a
-:class:`~cice4_tpu_torch.parallel.halo.BlockBC`), :func:`gather_blocks`
-puts every block's pieces back together, and :func:`allgather_blocks`
-does so inside a decomposed run, where each process holds only its own
-blocks.
+:class:`~cice4_tpu_torch.parallel.halo.BlockBC`), :func:`block_grid`
+makes one block's grid with no whole-grid field on the device,
+:func:`gather_blocks` puts every block's pieces back together, and
+:func:`allgather_blocks` does so inside a decomposed run, where each
+process holds only its own blocks.
 """
 
 from __future__ import annotations
@@ -106,6 +107,24 @@ def scatter_blocks(obj, mesh, blocks=None) -> list:
             piece = dataclasses.replace(piece, bc=bcb, ny=bcb.by, nx=bcb.bx)
         out.append(piece)
     return out
+
+
+def block_grid(cfg, mesh, block: int, *, device,
+               dtype=torch.float32) -> Grid:
+    """The grid of `block` of `mesh` on `device`: the config's grid made
+    on the host, where its metrics are derived, cut to the block, and
+    the block alone moved.  Its BlockBC makes the global grid on `device`
+    only if a gathered phase asks for it."""
+    from cice4_tpu_torch.grid import make_grid
+
+    host = make_grid(cfg, device="cpu", dtype=dtype)
+    piece = _map(scatter_blocks(host, mesh, [block])[0],
+                 lambda t: t.to(device))
+    del host
+    bcb = BlockBC(piece.bc.bc, mesh, block, piece.bc.ny, piece.bc.nx,
+                  global_grid=lambda: make_grid(cfg, device=device,
+                                                dtype=dtype))
+    return dataclasses.replace(piece, bc=bcb)
 
 
 def _gather(parts, join):

@@ -11,6 +11,15 @@ Forcing, Step, History, Diags, ReadWrite; the step's phases below Step).
 A run with ``run.runtype="continue"`` resumes from the restart the
 pointer file names, which may come from either package.  With an ocean
 climatology the initial SST is the climatology's.
+
+Given a `mesh` (:mod:`cice4_tpu_torch.parallel.mesh`) a run holds one
+block of it: the block's grid (:func:`cice4_tpu_torch.convert.
+block_grid`: no whole-grid field reaches the device), state and forcing,
+stepped inside :meth:`~cice4_tpu_torch.parallel.mesh.Mesh.run` where the
+calling thread is not running the block already (:meth:`IceModelRun.
+on_block`).  Its guard records are the block's, so the block that holds a
+violation raises.  Restarts and ice restoring are not written for a
+block.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from cice4_tpu_torch.io.forcing_data import make_forcing_provider
 from cice4_tpu_torch.io.history import History
 from cice4_tpu_torch.io.restart import dump_restart, load_restart, read_pointer
 from cice4_tpu_torch.model import Model
+from cice4_tpu_torch.parallel.mesh import current_block
 from cice4_tpu_torch.state import State, init_state
 from cice4_tpu_torch.timers import Timers
 
@@ -40,10 +50,25 @@ class IceModelRun:
     ``drivers/cice4/CICE.F90:80-92``)."""
 
     def __init__(self, cfg: Config, dtype=torch.float32, log=print, *,
-                 device="cuda"):
+                 device="cuda", mesh=None, block: int | None = None):
         self.cfg = cfg
         self.dtype = dtype
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.block = None
+        if mesh is not None:
+            if block is None:
+                if len(mesh.local_blocks) != 1:
+                    raise ValueError(f"{mesh} holds several blocks in this "
+                                     f"process: give the run's block")
+                block = mesh.local_blocks[0]
+            if block not in mesh.local_blocks:
+                raise ValueError(f"block {block} is not one of {mesh}'s")
+            if cfg.forcing.restore_ice or cfg.run.runtype == "continue":
+                raise NotImplementedError(
+                    "ice restoring and restarts of a run on one block of a "
+                    "mesh (parallel.launch writes sharded restarts)")
+            self.block = block
         self.log = log
         self.timers = Timers(self.device)
         self.grid = None
@@ -60,7 +85,12 @@ class IceModelRun:
         cfg = self.cfg
         dev, dtype = self.device, self.dtype
         with self.timers("Init"):
-            self.model = Model.create(cfg, device=dev, dtype=dtype)
+            if self.mesh is None:
+                self.model = Model.create(cfg, device=dev, dtype=dtype)
+            else:
+                from cice4_tpu_torch.convert import block_grid
+                self.model = Model(cfg, block_grid(
+                    cfg, self.mesh, self.block, device=dev, dtype=dtype))
             self.grid = self.model.grid
             self.calendar = Calendar(dt=cfg.run.dt,
                                      year_init=cfg.run.year_init,
@@ -110,6 +140,28 @@ class IceModelRun:
 
     # -- run ----------------------------------------------------------------
 
+    def on_block(self, fn):
+        """`fn()` on this run's block of its mesh: inside `Mesh.run`, or
+        directly where the calling thread runs the block already (a
+        process of several blocks steps them together in `Mesh.run`);
+        `fn()` itself without a mesh."""
+        if self.mesh is None:
+            return fn()
+        cur = current_block()
+        if cur is not None:
+            if cur != (self.mesh, self.block):
+                raise RuntimeError(f"block {self.block} of {self.mesh} "
+                                   f"stepped from block {cur[1]}'s thread")
+            return fn()
+        if self.mesh.local_blocks != (self.block,):
+            raise RuntimeError(f"{self.mesh} holds several blocks in this "
+                               f"process: step them together in Mesh.run")
+        return self.mesh.run(lambda _b: fn())[0]
+
+    def step_model(self, state, forcing, yday, sec):
+        """One model step of the run's state (of its block on a mesh)."""
+        return self.on_block(lambda: self.model(state, forcing, yday, sec))
+
     def run(self, npt: int | None = None, on_diag=None):
         """Run npt steps (default cfg.run.npt).
 
@@ -137,10 +189,11 @@ class IceModelRun:
                 # start-of-step totals for the budget-closure errors
                 # (init_mass_diags, ice_diagnostics.F90:853-927)
                 with self.timers("Diags"):
-                    init_diag = init_mass_diags(self.state, self.grid)
+                    init_diag = self.on_block(
+                        lambda: init_mass_diags(self.state, self.grid))
             with self.timers("Step"):
-                self.state, fluxes = self.model(self.state, f, cal.yday,
-                                                cal.sec)
+                self.state, fluxes = self.step_model(self.state, f,
+                                                     cal.yday, cal.sec)
                 # abort-with-coordinates (guards.py): inspect the PREVIOUS
                 # step's violation records, then queue this step's
                 if self._pending_guards:
@@ -156,11 +209,11 @@ class IceModelRun:
                     self.log(f"wrote history {p}")
             if diag_step:
                 with self.timers("Diags"):
-                    d = runtime_diags(
+                    d = self.on_block(lambda: runtime_diags(
                         self.state, self.grid, fluxes=fluxes, forcing=f,
                         init_diag=init_diag, dt=dt,
                         update_ocn_f=bool(cfg.thermo.update_ocn_f),
-                        calc_Tsfc=bool(cfg.thermo.calc_Tsfc))
+                        calc_Tsfc=bool(cfg.thermo.calc_Tsfc)))
                     self.log(format_diags(cal.istep, d))
                     if on_diag is not None:
                         on_diag(cal.istep,
@@ -186,6 +239,10 @@ class IceModelRun:
     # -- finalize -----------------------------------------------------------
 
     def write_restart(self):
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "a restart of a run on one block of a mesh (parallel.launch "
+                "writes sharded restarts)")
         cfg = self.cfg
         cal = self.calendar
         path = os.path.join(cfg.run.restart_dir,

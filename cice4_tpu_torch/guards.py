@@ -8,8 +8,9 @@ small record that rides the step's flux dict (``fluxes["_guards"]``).
 Building a record does not synchronise with the device;
 :func:`raise_on_violation` reads the records on the host and raises
 :class:`ConservationError` with the cell coordinates.  On a block of a
-decomposed grid a record holds the global count and the worst cell of
-every block, at its global (j, i).
+decomposed grid a record is the block's own: its count and its worst
+cell, at the cell's global (j, i), so that the block holding a violation
+raises and names the cell, and no block waits for another to check.
 """
 
 from __future__ import annotations
@@ -46,21 +47,16 @@ def record(bad, err=None):
     rec = dict(count=bad.sum(), j=flat // nx, i=flat % nx,
                worst=masked.reshape(-1)[flat])
     cur = current_block()
-    if cur is None:
-        return rec
-    # a block of a decomposed grid: the global count and the worst cell of
-    # all blocks, at its global (j, i)
-    mesh, block = cur
-    yi, xi = mesh.coords(block)
-    by, bx = bad.shape[-2:]
-    mine = torch.stack([rec["count"].double(), rec["worst"].double(),
-                        (rec["j"] + yi * by).double(),
-                        (rec["i"] + xi * bx).double()])
-    every = torch.stack(mesh.allgather_blocks(mine))
-    k = torch.argmax(every[:, 1])
-    return dict(count=every[:, 0].sum().to(torch.int64),
-                j=every[k, 2].to(torch.int64), i=every[k, 3].to(torch.int64),
-                worst=every[k, 1].to(err.dtype))
+    if cur is not None:
+        # a block of a decomposed grid: the block's own count and worst
+        # cell, at its global (j, i); no other block takes part, and the
+        # block that holds the cell raises
+        mesh, block = cur
+        yi, xi = mesh.coords(block)
+        by, bx = bad.shape[-2:]
+        rec["j"] = rec["j"] + yi * by
+        rec["i"] = rec["i"] + xi * bx
+    return rec
 
 
 def raise_on_violation(guards: dict):

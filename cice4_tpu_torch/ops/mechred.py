@@ -24,7 +24,7 @@ from cice4_tpu_torch import timers
 from cice4_tpu_torch.config import DynamicsConfig
 from cice4_tpu_torch.ops.itd import TRACER_DEPEND, _compute_tracers
 from cice4_tpu_torch.ops.mechred_strength import Cs, fsnowrdg, ridge_itd_full
-from cice4_tpu_torch.parallel.halo import global_all, global_max
+from cice4_tpu_torch.parallel.halo import global_all
 from cice4_tpu_torch.state import ItdParams, State
 
 nitermax_ridge = 20
@@ -204,7 +204,7 @@ def ridge_ice(state: State, itd: ItdParams, dyn: DynamicsConfig, dt,
     dvirdgdt, opening (1/s or m/s), fresh/fhocn corrections from snow
     lost to the ocean during ridging, and `niter`, the number of ridging
     passes: a Python int on the CPU, a 0-d device tensor (the most passes
-    of any column, of any block) on a card.
+    of any column, of the block on a decomposed grid) on a card.
 
     On CUDA tensors this launches the ridge_column kernel (or raises); on
     CPU tensors it runs the plain version :func:`_ridge_ice_plain`.
@@ -222,8 +222,9 @@ def ridge_ice(state: State, itd: ItdParams, dyn: DynamicsConfig, dt,
         state, itd, dyn, dt, rdg_conv, rdg_shear, tmask, aice0,
         nitermax_ridge)
     ridge_ice.launches += 1
-    # every block of a decomposed grid reports the same count
-    niter = global_max(niter_cells.amax())
+    # the most passes of this block's columns: on a decomposed grid the
+    # block's own count, which no other block waits for
+    niter = niter_cells.amax()
     timers.count("ridge_passes", niter)
     if guards:
         from cice4_tpu_torch.guards import check_ridge

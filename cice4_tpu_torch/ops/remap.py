@@ -45,16 +45,19 @@ divergences as the GA branch.
 On a decomposed grid (:func:`transport_remap_decomposed`) a block runs
 the k-halo remap of :func:`transport_remap_sharded`: one batched 6-ring
 exchange of every input plane, the whole remap on the padded block (its
-kernels included, as on the doubly periodic box) and the core kept.
-Where :func:`remap_sharded_eligible` refuses (the tripole folds, whose
-folded intermediate planes a ghost computation does not reproduce, the
-global checks, small blocks, a one-block mesh) the block takes the
-gathered path: it gathers the inputs and runs the one-device remap.
+kernels included, as on the doubly periodic box) and the core kept;
+under the U-fold the top row of blocks also remaps the full-width strip
+of the fold's top rows, whose folded intermediate planes a ghost ring
+does not reproduce, and keeps its top rows.  Where
+:func:`remap_sharded_eligible` refuses (the T-fold, the global checks,
+small blocks, a one-block mesh) the block takes the gathered path: it
+gathers the inputs and runs the one-device remap.
 """
 
 from __future__ import annotations
 
 import os
+from types import SimpleNamespace
 
 import torch
 
@@ -679,15 +682,28 @@ def geometry_gsh(dx, dy, afac, bc, order=2, ea_e=None, ea_n=None):
         for off in ALL_OFFSETS])
 
 
+_INDEX = {}
+
+
+def _index_on(rows: tuple, device):
+    """`rows` as an index tensor on `device`, made once: an index list
+    copied to the card at each use would wait for the card each time."""
+    key = (rows, str(device))
+    if key not in _INDEX:
+        _INDEX[key] = torch.tensor(rows, dtype=torch.long, device=device)
+    return _INDEX[key]
+
+
 def _update_category(mm, tm, div, divt, tmask_land, tarear, meta):
     """``update_fields:3642-3868`` for a batch of categories given the
     flux divergences: new mass/tracers + the unclamped mid-transport
     fields.  mm, div: (ncat, ny, nx); tm, divt: (ncat, T, ny, nx)."""
     n1 = _n_type1(meta)
-    par2 = [meta[k][2] for k in range(n1, len(meta))]
+    par2 = _index_on(tuple(meta[k][2] for k in range(n1, len(meta))),
+                     mm.device)
 
     def pick(s):
-        return s[:, par2]
+        return s.index_select(1, par2)
 
     mmT = mm.unsqueeze(1)
     mtold1 = mmT * tm[:, :n1]
@@ -866,14 +882,20 @@ def transport_remap(state: State, grid: Grid, dt,
 # ---------------------------------------------------------------------------
 
 REMAP_HALO = 6
+# the rows of the full-width strip a top block remaps under the U-fold:
+# the REMAP_HALO rows it keeps and as many below them, so that nothing
+# of the strip's southern edge reaches a kept row
+FOLD_STRIP = 2 * REMAP_HALO
 _REMAPPED = ("aicen", "vicen", "vsnon", "eicen", "esnon", "tsfcn")
 
 
 def remap_sharded_eligible(grid, mesh, transport_cfg=None) -> bool:
     """Whether the k-halo remap takes a grid (global `ny`, `nx`, `bc`) on
     `mesh`: more than one block, blocks that divide the grid and hold the
-    6-ring halo, no tripole fold and no global check (with the
-    ``CICE4_NO_SHARDED_REMAP`` switch of the JAX package)."""
+    6-ring halo, no global check (with the ``CICE4_NO_SHARDED_REMAP``
+    switch of the JAX package); under the U-fold (``tripole``) an east-west
+    cyclic grid whose blocks hold the fold's strip of `FOLD_STRIP` rows.
+    The T-fold (``tripoleT``) is refused."""
     if os.environ.get("CICE4_NO_SHARDED_REMAP"):
         return False
     if mesh is None:
@@ -881,7 +903,10 @@ def remap_sharded_eligible(grid, mesh, transport_cfg=None) -> bool:
     py, px = mesh.shape
     if py * px <= 1:
         return False
-    if grid.bc.ns in FOLDS:
+    if grid.bc.ns == "tripoleT":
+        return False
+    if grid.bc.ns == "tripole" and (grid.bc.ew != "cyclic"
+                                    or grid.ny // py < FOLD_STRIP):
         return False
     if transport_cfg is not None and (transport_cfg.conservation_check
                                       or transport_cfg.monotonicity_check):
@@ -896,8 +921,6 @@ def transport_remap_decomposed(state: State, grid: Grid, dt, tr):
     the k-halo remap where :func:`remap_sharded_eligible` takes the grid,
     else the gathered path.  Returns what `transport_remap` returns, on
     the block."""
-    from types import SimpleNamespace
-
     from cice4_tpu_torch.parallel.mesh import get_active_mesh
 
     bcb = grid.bc
@@ -941,11 +964,23 @@ def transport_remap_sharded(state: State, grid: Grid, dt,
     `transport_remap` on the 6-ring padded block with a local doubly
     cyclic boundary, and the core kept.  Bit-equal to the one-device
     remap: every ghost value is the global neighbour's, so every core
-    cell sees the same arithmetic.  The ring budget is 4 (geometry 2,
+    cell sees the same arithmetic.  At a global edge that does not wrap
+    the block takes no ring and keeps the edge's boundary, zeros beyond
+    it, on that axis.  The ring budget is 4 (geometry 2,
     GSH 1, the divergence's shift 1) plus 1 each for the midpoint
-    correction and the fixed-area edge velocities."""
-    from types import SimpleNamespace
+    correction and the fixed-area edge velocities.
 
+    Under the U-fold the one-device remap folds every north shift of
+    every intermediate plane with the scalar row map (the JAX package's
+    XLA path, which the fold kernels follow), which a ghost ring of
+    folded inputs does not reproduce: a gradient computed in a folded
+    ghost cell is the mirror cell's with its directions swapped.  So the
+    top row of blocks also swaps the top `FOLD_STRIP` rows of its inputs
+    with one another (the fold pairs column i with nx-1-i: on 2x2 blocks
+    the north-west block's partner is the north-east one), remaps that
+    full-width strip under the global boundary, fold included, and takes
+    its top `REMAP_HALO` rows: the rows within the ring budget of the
+    fold.  Below them the padded block's rows are the one-device ones."""
     from cice4_tpu_torch.parallel import halo as h
 
     H = REMAP_HALO
@@ -963,38 +998,85 @@ def transport_remap_sharded(state: State, grid: Grid, dt,
     flat = [v.reshape((-1,) + v.shape[-2:]).to(dtype)
             for v in fields.values()]
     sizes = [f.shape[0] for f in flat]
-    a = torch.nn.functional.pad(torch.cat(flat, dim=0), (H, H, H, H))
-    a = h.exchange_padded(a, H, bcb)
-    parts = dict(zip(fields, torch.split(a, sizes, dim=0)))
+    stack = torch.cat(flat, dim=0)
+    a = h.exchange_padded(torch.nn.functional.pad(stack, (H, H, H, H)), H,
+                          bcb)
+    strip = _fold_strip(stack, bcb) if bcb.ns == "tripole" else None
+    # at an edge of the global grid that does not wrap, the ring beyond
+    # it is cut off and the edge's own boundary (zeros beyond it) stands,
+    # as on one device: a ghost ring of zero inputs would make 0/0 of the
+    # departure displacements there
+    py, px = bcb.mesh.shape
+    ew_edge = bcb.ew != "cyclic"
+    ns_edge = bcb.ns != "cyclic"
+    cut = (H if ew_edge and bcb.xi == 0 else 0,
+           H if ew_edge and bcb.xi == px - 1 else 0,
+           H if ns_edge and bcb.yi == 0 else 0,
+           H if ns_edge and bcb.yi == py - 1 else 0)
+    a = a[..., cut[2]:a.shape[-2] - cut[3], cut[0]:a.shape[-1] - cut[1]]
+    local_bc = h.BoundaryConditions(
+        ew="closed" if cut[0] or cut[1] else "cyclic",
+        ns="open" if cut[2] or cut[3] else "cyclic")
 
-    def take(name):
-        v = parts[name]
-        lead = fields[name].shape[:-2]
-        return v[0] if lead == (1,) else v.reshape(lead + v.shape[-2:])
+    def remap_planes(planes, bc):
+        """`transport_remap` of the stacked input `planes` under `bc`:
+        the new state's remapped fields and aice0."""
+        parts = dict(zip(fields, torch.split(planes, sizes, dim=0)))
 
-    hm = take("hm")
-    zero = torch.zeros_like(hm)
-    z4 = torch.zeros((4,) + hm.shape, dtype=dtype, device=hm.device)
-    local = SimpleNamespace(
-        bc=h.BoundaryConditions(ew="cyclic", ns="cyclic"),
-        dxu=take("dxu"), dyu=take("dyu"), hm=hm, tmask=take("tmask") > 0.5,
-        tarear=take("tarear"), tarea=take("tarea"), hte=take("hte"),
-        htn=take("htn"), ny=hm.shape[-2], nx=hm.shape[-1])
-    # the fields the remap does not read are block-local stand-ins
-    st = State(
-        aicen=take("aicen"), vicen=take("vicen"), vsnon=take("vsnon"),
-        eicen=take("eicen"), esnon=take("esnon"), tsfcn=take("tsfcn"),
-        trcrn={n: take(f"trc_{n}") for n in tracer_names},
-        uvel=take("uvel"), vvel=take("vvel"),
-        stressp=z4, stressm=z4, stress12=z4, iceumask=hm > 2.0, sst=zero,
-        frzmlt=zero, scale_factor=zero, strocnxT=zero, strocnyT=zero)
-    out, aice0 = transport_remap(st, local, dt, integral_order, dp_midpt,
-                                 fixed_area)
+        def take(name):
+            v = parts[name]
+            lead = fields[name].shape[:-2]
+            return v[0] if lead == (1,) else v.reshape(lead + v.shape[-2:])
 
-    def core(v):
-        return v[..., H:-H, H:-H]
+        hm = take("hm")
+        zero = torch.zeros_like(hm)
+        z4 = torch.zeros((4,) + hm.shape, dtype=dtype, device=hm.device)
+        local = SimpleNamespace(
+            bc=bc, dxu=take("dxu"), dyu=take("dyu"), hm=hm,
+            tmask=take("tmask") > 0.5, tarear=take("tarear"),
+            tarea=take("tarea"), hte=take("hte"), htn=take("htn"),
+            ny=hm.shape[-2], nx=hm.shape[-1])
+        # the fields the remap does not read are stand-ins
+        st = State(
+            aicen=take("aicen"), vicen=take("vicen"), vsnon=take("vsnon"),
+            eicen=take("eicen"), esnon=take("esnon"), tsfcn=take("tsfcn"),
+            trcrn={n: take(f"trc_{n}") for n in tracer_names},
+            uvel=take("uvel"), vvel=take("vvel"),
+            stressp=z4, stressm=z4, stress12=z4, iceumask=hm > 2.0,
+            sst=zero, frzmlt=zero, scale_factor=zero, strocnxT=zero,
+            strocnyT=zero)
+        out, aice0 = transport_remap(st, local, dt, integral_order,
+                                     dp_midpt, fixed_area)
+        return dict(aice0=aice0, **{f"trc_{n}": out.trcrn[n]
+                                    for n in tracer_names},
+                    **{n: getattr(out, n) for n in _REMAPPED})
 
+    new = {k: v[..., H - cut[2]:v.shape[-2] - H + cut[3],
+                H - cut[0]:v.shape[-1] - H + cut[1]]
+           for k, v in remap_planes(a, local_bc).items()}
+    if strip is not None:
+        # the strip's top H rows, in this block's columns, over the
+        # padded block's
+        top = remap_planes(strip, bcb.bc)
+        cols = slice(bcb.x0, bcb.x0 + bcb.bx)
+        new = {k: torch.cat([v[..., :-H, :], top[k][..., -H:, cols]],
+                            dim=-2) for k, v in new.items()}
     state = state.replace(
-        trcrn={n: core(out.trcrn[n]) for n in tracer_names},
-        **{n: core(getattr(out, n)) for n in _REMAPPED})
-    return state, core(aice0)
+        trcrn={n: new[f"trc_{n}"] for n in tracer_names},
+        **{n: new[n] for n in _REMAPPED})
+    return state, new["aice0"]
+
+
+def _fold_strip(stack, bcb):
+    """The global top `FOLD_STRIP` rows of the stacked planes `stack`
+    (P, by, bx), the grid's full width, on each block of the top mesh
+    row, from the top rows of every block of that row; None elsewhere.
+    Every block of the mesh calls it together."""
+    mesh = bcb.mesh
+    py, px = mesh.shape
+    top = bcb.yi == py - 1
+    row = [mesh.block_at(py - 1, k) for k in range(px)] if top else []
+    slab = stack[..., -FOLD_STRIP:, :]
+    got = mesh.transfer([(b, "strip", slab) for b in row],
+                        [(b, "strip", slab.shape) for b in row], stack)
+    return torch.cat(got, dim=-1) if top else None

@@ -249,7 +249,8 @@ class BlockBC:
     boundary conditions (`ew`, `ns`, as :class:`BoundaryConditions`) and
     where the block lies.  A grid holding one in place of its `bc` is a
     block grid: its shifts exchange with the neighbouring blocks.
-    `global_grid` is the undecomposed grid, for the gathered phases."""
+    `global_grid` is the undecomposed grid, for the gathered phases, or a
+    function that makes it when a gathered phase first asks for it."""
 
     def __init__(self, bc: BoundaryConditions, mesh, block: int, ny: int,
                  nx: int, global_grid=None):
@@ -260,7 +261,13 @@ class BlockBC:
         self.y0, self.x0 = sy.start, sx.start
         self.by, self.bx = sy.stop - sy.start, sx.stop - sx.start
         self.yi, self.xi = mesh.coords(block)
-        self.global_grid = global_grid
+        self._global_grid = global_grid
+
+    @property
+    def global_grid(self):
+        if callable(self._global_grid):
+            self._global_grid = self._global_grid()
+        return self._global_grid
 
     @property
     def north_edge(self) -> bool:
@@ -417,14 +424,27 @@ def exchange_padded(a, H: int, bcb: BlockBC, fold_specs=None):
     center_rows = torch.flip(slab[..., H - g, :], dims=(-1,))
     nec_rows = torch.roll(torch.flip(slab[..., H - 1 - g, :], dims=(-1,)),
                           -1, dims=-1)
-    src, is_center, sign = fold_specs
-    srci = torch.as_tensor(src, device=a.device)
-    isc = torch.as_tensor(is_center, device=a.device)[:, None, None]
-    sgn = torch.as_tensor(sign, dtype=a.dtype, device=a.device)[:, None,
-                                                                None]
+    srci, isc, sgn = _fold_laws(fold_specs, a.device, a.dtype)
     a[..., -H:, :] = sgn * torch.where(isc, center_rows[srci],
                                        nec_rows[srci])
     return a
+
+
+_FOLD_LAWS = {}
+
+
+def _fold_laws(fold_specs, device, dtype):
+    """The per-plane fold laws of `fold_specs` as tensors on `device`,
+    made once: lists copied to the card at each exchange would wait for
+    the card each time."""
+    src, is_center, sign = fold_specs
+    key = (tuple(src), tuple(is_center), tuple(sign), str(device), dtype)
+    if key not in _FOLD_LAWS:
+        _FOLD_LAWS[key] = (
+            torch.as_tensor(src, device=device),
+            torch.as_tensor(is_center, device=device)[:, None, None],
+            torch.as_tensor(sign, dtype=dtype, device=device)[:, None, None])
+    return _FOLD_LAWS[key]
 
 
 # ---------------------------------------------------------------------------

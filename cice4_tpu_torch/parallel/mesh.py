@@ -31,6 +31,12 @@ Every block of the mesh must make the same sequence of communication
 calls (:meth:`Mesh.transfer`, :meth:`Mesh.allgather_blocks`); loops
 whose exit is decided on the host decide it with a reduction
 (:func:`cice4_tpu_torch.parallel.halo.global_all`) so that they agree.
+Where those loops run inside their kernels (the column physics on the
+card) a model step makes no reduction: its only communication is the
+neighbour exchanges of :meth:`Mesh.transfer`, each timed as the span
+``Exchange`` under the phase that calls it and counted as
+``exchanges``; every all-gather counts as ``collectives``
+(:mod:`cice4_tpu_torch.timers`).
 """
 
 from __future__ import annotations
@@ -41,6 +47,8 @@ import threading
 
 import torch
 import torch.distributed as dist
+
+from cice4_tpu_torch import timers
 
 
 def init_distributed(backend: str | None = None, device="cuda") -> bool:
@@ -320,6 +328,11 @@ class Mesh:
         is matched by (source, destination, tag); every tensor of a call
         has the dtype and device of `like`.  Every block of the mesh calls
         this together, each with the messages it sends and expects."""
+        timers.count("exchanges")
+        with timers.span("Exchange"):
+            return self._transfer(sends, recvs, like)
+
+    def _transfer(self, sends, recvs, like):
         ctx = self._ctx()
         b, gen = ctx.block, ctx.gen
         remote_out, remote_in = [], []
@@ -383,6 +396,7 @@ class Mesh:
         """Every block's `t` (same shape and dtype on each), in block
         order, on every block.  Every block of the mesh calls this
         together."""
+        timers.count("collectives")
         ctx = self._ctx()
         b, gen = ctx.block, ctx.gen
         self._mail[(gen, "ag", b)] = t.detach().clone()

@@ -27,6 +27,12 @@ are resolved, waiting for the device, only when `totals` or `report()`
 is read.  Inner regions count host time only.  On the CPU everything is
 host time.
 
+On a decomposed grid every neighbour exchange of the mesh is a region
+``Exchange`` under the phase that makes it (``Step/Dynamics/Exchange``,
+``Step/Dynamics/Advection/Exchange``), and the counters ``exchanges``
+and ``collectives`` count a run's exchanges and its all-gathers
+(:mod:`cice4_tpu_torch.parallel.mesh`).
+
 While a ``torch.profiler`` records, each region also opens a
 ``torch.profiler.record_function`` span of its path, so that the
 program's spans sit on the trace's own clock beside the device's

@@ -39,7 +39,7 @@ from cice4_tpu_torch.forcing import default_forcing
 from cice4_tpu_torch.grid import make_grid
 from cice4_tpu_torch.ops import evp_sharded, itd as itd_ops
 from cice4_tpu_torch.ops.evp import _evp_rounds_plain, evp, make_evp_params
-from cice4_tpu_torch.ops.remap import (remap_sharded_eligible,
+from cice4_tpu_torch.ops.remap import (FOLD_STRIP, remap_sharded_eligible,
                                        transport_remap,
                                        transport_remap_sharded)
 from cice4_tpu_torch.parallel import halo as h
@@ -283,8 +283,18 @@ def test_eligibility_gates_match_jax():
                 assert (evp_sharded.sharded_eligible(g, tmesh)
                         == j_evp_ok(g, jmesh)), (n, ny, nx, ns)
                 for t in (None, tr, trc):
+                    want = j_remap_ok(g, jmesh, t)
+                    if ns == "tripole":
+                        # the port also takes the U-fold, with its fold
+                        # strip: JAX's answer for the grid without the
+                        # fold, given blocks of the strip's rows
+                        flat = SimpleNamespace(
+                            ny=ny, nx=nx,
+                            bc=SimpleNamespace(ns="open", ew="cyclic"))
+                        want = (j_remap_ok(flat, jmesh, t) and ny
+                                // jmesh.devices.shape[0] >= FOLD_STRIP)
                     assert (remap_sharded_eligible(g, tmesh, t)
-                            == j_remap_ok(g, jmesh, t)), (n, ny, nx, ns)
+                            == want), (n, ny, nx, ns)
     g = SimpleNamespace(ny=16, nx=32, bc=SimpleNamespace(ns="open",
                                                          ew="cyclic"))
     assert not evp_sharded.sharded_eligible(g, None)
