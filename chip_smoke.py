@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Drives the port's paths and checks its hand-written kernels, one for
-each TPU kernel of the JAX package and two that replace none, against
+each TPU kernel of the JAX package and three that replace none, against
 their plain PyTorch versions:
 
 * ``therm_newton`` (``csrc/therm_newton.cu``), the Newton temperature
@@ -27,7 +27,11 @@ their plain PyTorch versions:
   package keeps both in plain ``jnp``).  Every path runs ridging and both
   cleanups (after the thermodynamics and after ridging) each step, so
   every path's counts expect ridge_column once and cleanup_column twice a
-  step (a block's on a decomposed grid).
+  step (a block's on a decomposed grid);
+* ``gfdl_column`` (``csrc/gfdl_column.cu``), the coupler's GFDL open-water
+  fluxes, a thread a cell (the JAX package leaves them to XLA): once a
+  coupling interval on the ACCESS-OM component's path (m), never on
+  another path.
 
 The paths: the default gx1 step (``gx1_config()`` on the spherical
 lat-lon grid without a land-mask file, f32, 320x384, 5 categories, 4 ice
@@ -175,8 +179,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
     kernel held against its plain version at (o)'s first round and timed
     there with its tile, recompute share, registers and launches; (p)
     ACCESS-OM2 at 360x300 on 2x2 blocks, 2 steps: the U-fold exchanged
-    into the EVP rounds, the remap gathered on every block and counted,
-    against one device; (q) ``python -m
+    into the EVP rounds and the remap (the northern blocks remap the
+    fold's 12-row strip once more), no phase gathered, against one device; (q) ``python -m
     cice4_tpu_torch.parallel.launch`` as 2 processes over gloo (1x2
     blocks, the strips staged through pinned host buffers), 2 gx1 steps,
     the gathered state against the one-device steps and the sharded
@@ -382,7 +386,7 @@ SPLIT_RTOL = 1.0e-5  # split vs default remap route, f32, to field max
 # process (blocks of 192x160; the EVP rounds pad them to 214x182, the
 # remap to 204x172), DECOMP_STEPS steps against the one-device steps, then
 # DECOMP_TIMED timed; (p) ACCESS-OM2 at 1 degree on 2x2 blocks, the U-fold
-# crossing the EVP rounds and the remap gathered; (q) the multi-process
+# crossing the EVP rounds and the remap; (q) the multi-process
 # entry as two processes over gloo (1x2 blocks, LAUNCH_STEPS steps, the
 # sharded restart read back) and as one over nccl (one block); (r) 24x32
 # f64 cuts on 2x2 blocks, the card against the CPU, 3 steps
@@ -432,6 +436,8 @@ KERNELS = {
     # ridging and the ITD cleanup, a thread a column
     "ridge_column": ("cice4_tpu_torch/csrc/ridge_column.cu", None),
     "cleanup_column": ("cice4_tpu_torch/csrc/ridge_column.cu", None),
+    # the coupler's GFDL open-water fluxes, a thread a cell
+    "gfdl_column": ("cice4_tpu_torch/csrc/gfdl_column.cu", None),
 }
 LIBRARIES = sorted({Path(src).stem for src, _ in KERNELS.values()})
 COLUMN_KERNELS = ("ridge_column", "cleanup_column")
@@ -440,7 +446,7 @@ PATH_OF = {"therm_newton": "gx1", "evp_subcycle": "gx1",
            "evp_wholegrid": "box", "remap_gsh": "gx1", "remap_k12": "gx1",
            "remap_construct": "split", "remap_contract": "split",
            "evp_rounds": "decomposed", "ridge_column": "gx1",
-           "cleanup_column": "gx1"}
+           "cleanup_column": "gx1", "gfdl_column": "om025"}
 
 # Operations each kernel's function does, counted from the CUDA sources
 # (one per add, multiply, compare, min/max, division or square root):
@@ -581,7 +587,8 @@ def sites():
     """{name: (module, name of its wrapper there, plain version)}: the
     wrapper of each kernel, and of K0's GA mode (``remap_ga``)."""
     from cice4_tpu_torch.ops import evp as evp_ops
-    from cice4_tpu_torch.ops import evp_cuda, itd, mechred, remap_cuda
+    from cice4_tpu_torch.ops import evp_cuda, gfdl_flux, itd, mechred
+    from cice4_tpu_torch.ops import remap_cuda
     from cice4_tpu_torch.ops import therm_vertical as tv
     evp = (evp_cuda, "evp_subcycle", evp_ops._evp_subcycle_plain)
     return {"therm_newton": (tv, "temperature_changes",
@@ -599,7 +606,9 @@ def sites():
             "evp_rounds": (evp_cuda, "evp_rounds",
                            evp_ops._evp_rounds_plain),
             "ridge_column": (mechred, "ridge_ice", mechred._ridge_ice_plain),
-            "cleanup_column": (itd, "cleanup_itd", itd._cleanup_itd_plain)}
+            "cleanup_column": (itd, "cleanup_itd", itd._cleanup_itd_plain),
+            "gfdl_column": (gfdl_flux, "gfdl_ocean_fluxes",
+                            gfdl_flux._gfdl_ocean_fluxes_plain)}
 
 
 def counter_attr(name):
@@ -893,7 +902,8 @@ def _check_split_refuses(dx, dy, afac, grid, mm, tm, meta):
 
 def plain_sites():
     """(module, name) of each plain version where its wrapper looks it up."""
-    from cice4_tpu_torch.ops import evp_cuda, itd, mechred, remap_cuda
+    from cice4_tpu_torch.ops import evp_cuda, gfdl_flux, itd, mechred
+    from cice4_tpu_torch.ops import remap_cuda
     from cice4_tpu_torch.ops import therm_vertical as tv
     return ((tv, "_temperature_changes_core"),
             (evp_cuda, "_evp_subcycle_plain"),
@@ -901,7 +911,8 @@ def plain_sites():
             (remap_cuda, "ga_gsh_plain"), (remap_cuda, "k12_plain"),
             (remap_cuda, "ga_planes_plain"), (remap_cuda, "construct_plain"),
             (remap_cuda, "contract_plain"),
-            (mechred, "_ridge_ice_plain"), (itd, "_cleanup_itd_plain"))
+            (mechred, "_ridge_ice_plain"), (itd, "_cleanup_itd_plain"),
+            (gfdl_flux, "_gfdl_ocean_fluxes_plain"))
 
 
 @contextlib.contextmanager
@@ -1003,32 +1014,36 @@ def check_at_path_inputs(tag, model, state, forcing, launches, card,
     `yday`), within its ``kernel_check`` tolerance, and its device time per
     launch.  Returns {kernel: (launches, ms, bound_ms, max |kernel -
     plain|)}."""
-    out = {}
     seen = capture_kernel_inputs(model, state, forcing, names, yday)
-    for name in names:
-        args = seen[name]
-        kern_fn, plain_fn = kernel_and_plain(name, args)
-        kern, plain = kern_fn(), plain_fn()
-        torch.cuda.synchronize()
-        err = max_abs_err(name, kern, plain)
-        ok, worst = within_tolerance(name, args, kern, plain)
-        if not ok:
-            raise AssertionError(f"{name} disagrees with its plain version "
-                                 f"at the {tag} inputs: worst {worst:.3e}")
-        ms = min(device_ms(kern_fn, 20) for _ in range(2))
-        bound_ms, bound_by, nbytes, ops = bound(name, args, kern)
-        log(f"  {name} at the {tag} inputs: {ms:.4f} ms device time per "
-            f"launch; bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f}"
-            f" MB, {ops / 1e9:.4g} G operations), {100 * bound_ms / ms:.1f}% "
-            f"of it; max |kernel - plain| {err:.3e}, {worst:.3e} of the "
-            f"field's scale (within tolerance); card: {card}")
-        if name == "therm_newton":
-            sabs, iabs = args[12], args[13]
-            log(f"    its inputs: Sswabs max {float(sabs.max()):.4g} W/m^2 on "
-                f"{int((sabs > 0).sum())} category cells, Iswabs max "
-                f"{float(iabs.max()):.4g} W/m^2")
-        out[name] = (launches[name], ms, bound_ms, err)
-    return out
+    return {name: hold_at_inputs(tag, name, seen[name], launches, card)
+            for name in names}
+
+
+def hold_at_inputs(tag, name, args, launches, card):
+    """Kernel `name` against its plain version at `args`, a path's inputs,
+    within its ``kernel_check`` tolerance, and its device time per launch:
+    (launches, ms, bound_ms, max |kernel - plain|)."""
+    kern_fn, plain_fn = kernel_and_plain(name, args)
+    kern, plain = kern_fn(), plain_fn()
+    torch.cuda.synchronize()
+    err = max_abs_err(name, kern, plain)
+    ok, worst = within_tolerance(name, args, kern, plain)
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version "
+                             f"at the {tag} inputs: worst {worst:.3e}")
+    ms = min(device_ms(kern_fn, 20) for _ in range(2))
+    bound_ms, bound_by, nbytes, ops = bound(name, args, kern)
+    log(f"  {name} at the {tag} inputs: {ms:.4f} ms device time per "
+        f"launch; bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f}"
+        f" MB, {ops / 1e9:.4g} G operations), {100 * bound_ms / ms:.1f}% "
+        f"of it; max |kernel - plain| {err:.3e}, {worst:.3e} of the "
+        f"field's scale (within tolerance); card: {card}")
+    if name == "therm_newton":
+        sabs, iabs = args[12], args[13]
+        log(f"    its inputs: Sswabs max {float(sabs.max()):.4g} W/m^2 on "
+            f"{int((sabs > 0).sum())} category cells, Iswabs max "
+            f"{float(iabs.max()):.4g} W/m^2")
+    return (launches[name], ms, bound_ms, err)
 
 
 def shortwave_closure(model, state, forcing, yday):
@@ -1831,7 +1846,10 @@ def phase_coupled(device, card, workdir):
     prescribed stress in the EVP each step.  Then ms/step by CUDA events
     over one more interval, host syncs of a step, device time by phase
     with the coupler's exchange beside it, and each kernel against its
-    plain version at the path's inputs.  Returns {path: {kernel: ...}}."""
+    plain version at the path's inputs; on (m) gfdl_column once an interval,
+    held against its plain version at the inputs of one more interval.
+    Returns {path: {kernel: ...}}, and under "gfdl_args" and
+    "om025_launches" gfdl_column's inputs and (m)'s launch counts."""
     from cice4_tpu_torch import coupling, kernel_check
     from cice4_tpu_torch.component import IceComponent
     from cice4_tpu_torch.config import access_om_config
@@ -1884,6 +1902,8 @@ def phase_coupled(device, card, workdir):
             coupling.gfdl_open_water_fluxes = gfdl
         names = DEFAULT_ROUTE if flavor == "om" else DEFAULT_ROUTE[1:]
         want = expected(n, **{k: n for k in names})
+        if flavor == "om":
+            want["gfdl_column"] = COUPLED_INTERVALS
         log(f"  {tag}: launches {counts}; plain versions called "
             f"{plain_calls or 'none'}; last export aice_io in [{lo:.3g}, "
             f"{hi:.6g}], {sum(len(v) for v in export.values())} fields "
@@ -1961,6 +1981,13 @@ def phase_coupled(device, card, workdir):
         out[key] = check_at_path_inputs(tag, r.model, r.state, forcing,
                                         launches, card, names=names,
                                         yday=yday)
+        if flavor == "om":
+            with recording(["gfdl_column"]) as seen:
+                comp.run(imports, n_steps=1)
+            args = seen["gfdl_column"]
+            out[key]["gfdl_column"] = hold_at_inputs(
+                tag, "gfdl_column", args, launches, card)
+            out["gfdl_args"], out["om025_launches"] = args, launches
     return out
 
 
@@ -2337,8 +2364,8 @@ def phase_decomposed(device, card, workdir):
                                            where="(o)'s first round's")
     log_design("evp_rounds", rounds_args, rounds_ms)
 
-    # (p) ACCESS-OM2 at 1 degree: the U-fold into the EVP rounds, the
-    # remap gathered
+    # (p) ACCESS-OM2 at 1 degree: the U-fold into the EVP rounds and the
+    # remap, whose northern blocks remap the fold's strip once more a step
     pcfg = access_om_config(nx=ACCESS1[1], ny=ACCESS1[0])
     pmodel, pstate, pforce = make_run(pcfg, device, torch.float32)
     pby, pbx = ACCESS1[0] // DECOMP_MESH[0], ACCESS1[1] // DECOMP_MESH[1]
@@ -2347,14 +2374,15 @@ def phase_decomposed(device, card, workdir):
     ptag = (f"(p) ACCESS-OM2 {ACCESS1[0]}x{ACCESS1[1]} (tripole) on "
             f"{DECOMP_MESH[0]}x{DECOMP_MESH[1]} blocks")
     m = 2
+    remaps = (nb + DECOMP_MESH[1]) * m
     pgathered = drive_decomposed(
         ptag, pmodel, pstate, pforce, DECOMP_MESH, m,
         expected(nb * m, therm_newton=nb * m, evp_subcycle=nb * m,
                  evp_wholegrid=nb * m, evp_rounds=nb * prounds * m,
-                 remap_gsh=nb * m, remap_k12=nb * m), rtol)[4]
-    if pgathered != {"remap": nb * m}:
-        raise AssertionError(f"{ptag}: gathered phases {pgathered}, "
-                             f"expected the remap on each block each step")
+                 remap_gsh=remaps, remap_k12=remaps), rtol)[4]
+    if pgathered:
+        raise AssertionError(f"{ptag}: gathered phases {pgathered} where the "
+                             f"k-halo paths should run")
 
     # (q) the multi-process entry: two processes over gloo, then one over
     # nccl
@@ -2528,8 +2556,19 @@ def time_path(model, state, forcing, nsteps, first=NSTEPS):
 def capture_kernel_inputs(model, state, forcing, names, yday=None):
     """The arguments one step of a path (at day `yday`, by default the
     one after the main path's steps) passes to the wrappers of the kernels
-    `names` (the first call's, those passed by keyword in their places; the
-    step's results are discarded)."""
+    `names` (the step's results are discarded)."""
+    with recording(names) as seen:
+        if yday is None:
+            yday = YDAY0 + NSTEPS * DT / 86400.0
+        model(state, forcing(yday, 0.0), yday, 0.0)
+    return seen
+
+
+@contextlib.contextmanager
+def recording(names):
+    """{kernel: the arguments of the first call of its wrapper} for the
+    kernels `names`, filled while the block runs (those passed by keyword
+    in their places)."""
     import inspect
 
     table = sites()
@@ -2553,13 +2592,10 @@ def capture_kernel_inputs(model, state, forcing, names, yday=None):
     for site in by_site:
         setattr(*site, recorder(site))
     try:
-        if yday is None:
-            yday = YDAY0 + NSTEPS * DT / 86400.0
-        model(state, forcing(yday, 0.0), yday, 0.0)
+        yield seen
     finally:
         for site, fn in real.items():
             setattr(*site, fn)
-    return seen
 
 
 def kernel_and_plain(name, args):
@@ -2703,6 +2739,11 @@ def bound(name, args, out):
         nbytes = unique_bytes(args[:3]) + unique_bytes(out)
         ops = hm.numel() * mm.shape[0] * recon_ops(meta)
         dtype = hm.dtype
+    elif name == "gfdl_column":
+        # the ten inputs read once, the nine outputs written once
+        nbytes = unique_bytes(args) + unique_bytes(out)
+        ops = 0.0
+        dtype = args[0].dtype
     elif name in COLUMN_KERNELS:
         from cice4_tpu_torch.kernel_check import column_bytes
 
@@ -2741,6 +2782,8 @@ def max_abs_err(name, kern, plain):
     if name in COLUMN_KERNELS:
         rep, _ = compare_column_call(kern, plain)
         return max(v["max_abs"] for v in rep.values())
+    if name == "gfdl_column":
+        return max(float((kern[k] - plain[k]).abs().max()) for k in plain)
     if name == "therm_newton":
         return max(float((kern[k] - plain[k]).abs().max())
                    for k in ("Tsf", "Tsn", "Tin"))
@@ -2764,6 +2807,10 @@ def within_tolerance(name, args, kern, plain):
     if name in COLUMN_KERNELS:
         rep, _ = compare_column_call(kern, plain)
         return kc.fields_ok(rep), max(v["max_rel"] for v in rep.values())
+    if name == "gfdl_column":
+        rep = kc.compare_gfdl(kern, plain)
+        return (kc.gfdl_ok(rep, args[0].dtype),
+                max(v["point_gap"] for v in rep.values()))
     if name in ("evp_subcycle", "evp_wholegrid"):
         kern, plain, rtol = kc.evp_named(kern), kc.evp_named(plain), \
             kc.EVP_RTOL
@@ -2844,6 +2891,18 @@ def log_design(name, args, ms):
     took `ms`."""
     if name in COLUMN_KERNELS:
         log_columns(name, args, ms)
+    elif name == "gfdl_column":
+        from cice4_tpu_torch.ops import gfdl_cuda, gfdl_flux
+
+        passes = gfdl_cuda.mo_passes(args[0].device)
+        passes.zero_()
+        gfdl_flux.gfdl_ocean_fluxes(*args)
+        entry = "gfdl_columnIf" if args[0].dtype == torch.float32 \
+            else "gfdl_columnId"
+        log(f"    the most Newton passes of a cell {int(passes)} (cap "
+            f"{gfdl_flux.MO_MAX_ITER}), {int(args[9].sum())} open-water "
+            f"cells of {args[9].numel()}; ptxas: "
+            f"{ptxas_lines('gfdl_column', entry)}")
     elif name in ("evp_subcycle", "evp_wholegrid"):
         from cice4_tpu_torch.ops import evp_cuda
 
@@ -3511,6 +3570,8 @@ def main() -> int:
 
     seen["evp_rounds"] = decomposed["rounds_args"]
     launches["decomposed"] = decomposed["counts"]
+    seen["gfdl_column"] = coupled["gfdl_args"]
+    launches["om025"] = coupled["om025_launches"]
 
     record = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():

@@ -32,7 +32,8 @@ EXTRA_FLAGS = {"evp_subcycle": ("-fmad=false",),
                "remap_gsh": ("-fmad=false",),
                "remap_k12": ("-fmad=false",),
                "remap_k1k2": ("-fmad=false",),
-               "ridge_column": ("-fmad=false",)}
+               "ridge_column": ("-fmad=false",),
+               "gfdl_column": ("-fmad=false",)}
 NVCC_TIMEOUT_S = 600
 
 

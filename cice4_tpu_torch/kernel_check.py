@@ -3,7 +3,8 @@ CUDA kernels, shared by ``chip_smoke.py`` and the GPU tests: the Newton
 temperature solve first, the dynamics kernels (EVP, remap K0 in both
 modes, K12, K1 and K2) after it, and at the end of the module writers of
 grid and forcing files in the reference's layouts, which the grid loaders
-and the forcing readers read, and the coupler's seeded import fields.
+and the forcing readers read, the coupler's seeded import fields and the
+GFDL open-water fluxes' seeded inputs.
 
 The inputs follow the JAX package's own kernel test
 (``tests/test_thermo.py::test_pallas_thermo_matches_jnp``): ice only in
@@ -711,6 +712,71 @@ def coupler_fields(names, ny: int, nx: int, seed: int, *, device,
         v = _smooth(rng, "field", (1, ny, nx), {"field": (lo, hi)})[0]
         out[name] = torch.from_numpy(v).to(device=device, dtype=dtype)
     return out
+
+
+# The GFDL column kernel (csrc/gfdl_column.cu) against
+# gfdl_flux._gfdl_ocean_fluxes_plain, per output: the relative 2-norm gap
+# ||k - p|| / ||p|| within GFDL_RTOL, and no point beyond GFDL_POINT_RTOL
+# of (|p| + 1e-6 max|p|).  On the card the kernel follows the plain
+# operations, so the gaps are rounding; a Newton exit flipped by an ulp
+# moves a point by at most MO_ERROR's share.
+GFDL_RTOL = {torch.float32: 1.0e-5, torch.float64: 1.0e-12}
+GFDL_POINT_RTOL = 1.0e-3
+
+
+def gfdl_inputs(ny: int, nx: int, seed: int, *, device, dtype=torch.float64,
+                celsius: bool = True) -> dict:
+    """Seeded winter inputs of `gfdl_ocean_fluxes` over an (ny, nx) plane
+    with continents (30% of the cells, and 2% of the rest at random):
+    cold air over open water, and warm air over cold
+    water in calm spells (the stable branch, and Richardson numbers past
+    the critical one); large-scale patterns (`_smooth`) with 5% of the
+    cells near calm and 5% with a zero lagged u_star.  The SST in Celsius
+    (shifted by the wrapper) or in Kelvin."""
+    rng = np.random.default_rng(seed)
+    ranges = {"tair": (235.0, 290.0), "qair": (2.0e-4, 6.0e-3),
+              "uwnd": (-14.0, 14.0), "vwnd": (-14.0, 14.0),
+              "press": (0.97e5, 1.04e5), "sst": (-1.8, 4.0),
+              "ssu": (-0.3, 0.3), "ssv": (-0.3, 0.3),
+              "u_star_prev": (0.0, 0.8), "land": (0.0, 1.0)}
+    f = {k: _smooth(rng, k, (1, ny, nx), ranges)[0] for k in ranges}
+    calm = rng.random((ny, nx)) < 0.05
+    f["uwnd"] = np.where(calm, 0.02 * f["uwnd"], f["uwnd"])
+    f["vwnd"] = np.where(calm, 0.02 * f["vwnd"], f["vwnd"])
+    f["u_star_prev"] = np.where(rng.random((ny, nx)) < 0.05, 0.0,
+                                f["u_star_prev"])
+    if not celsius:
+        f["sst"] = f["sst"] + cn.Tffresh
+    land = f.pop("land")
+    tmask = (land < np.quantile(land, 0.7)) & (rng.random((ny, nx)) > 0.02)
+    out = {k: torch.from_numpy(v).to(device=device, dtype=dtype)
+           for k, v in f.items()}
+    out["tmask"] = torch.from_numpy(tmask).to(device=device)
+    return out
+
+
+def compare_gfdl(kern: dict, plain: dict) -> dict:
+    """Per output: the relative 2-norm gap, the largest point gap relative
+    to (|p| + 1e-6 max|p|), and finiteness."""
+    out = {}
+    for k, b in plain.items():
+        a = kern[k]
+        diff = (a - b).abs()
+        norm = float(torch.linalg.vector_norm(b))
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        den = (b.abs() + 1.0e-6 * scale).clamp(min=torch.finfo(b.dtype).tiny)
+        out[k] = dict(
+            norm_gap=float(torch.linalg.vector_norm(diff)) / norm
+            if norm > 0 else float(diff.max()) if b.numel() else 0.0,
+            point_gap=float((diff / den).max()) if b.numel() else 0.0,
+            finite=bool(torch.isfinite(a).all()))
+    return out
+
+
+def gfdl_ok(report: dict, dtype) -> bool:
+    return all(v["finite"] and v["norm_gap"] <= GFDL_RTOL[dtype]
+               and v["point_gap"] <= GFDL_POINT_RTOL
+               for v in report.values())
 
 
 @contextlib.contextmanager

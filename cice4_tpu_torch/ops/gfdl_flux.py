@@ -22,8 +22,10 @@ gfdl_ocean_fluxes:925-1056``):
   u_star -> roughness -> MO drag -> fluxes, sign-flipped for MOM.
 
 Every function works on dense (ny, nx) tensors with masks, on the device
-of its inputs; the JAX package leaves this code to XLA and it has no
-kernel of its own.
+of its inputs.  The JAX package leaves this code to XLA; here
+``gfdl_ocean_fluxes`` on CUDA tensors is one launch of the column kernel
+of ``csrc/gfdl_column.cu`` (:mod:`cice4_tpu_torch.ops.gfdl_cuda`), and
+:func:`_gfdl_ocean_fluxes_plain`, which the CPU runs, is its oracle.
 """
 
 from __future__ import annotations
@@ -427,7 +429,39 @@ def gfdl_ocean_fluxes(tair, qair, uwnd, vwnd, press, sst, ssu, ssv,
     the reference does).  Returns the fluxes sign-flipped for the ocean
     (sh, lh, lwo, taox, taoy), zero on land, plus the new u_star and the
     roughness fields to carry to the next coupling interval.
+
+    On CUDA tensors this launches the gfdl_column kernel (or raises); on
+    CPU tensors it runs the plain version :func:`_gfdl_ocean_fluxes_plain`.
+    `gfdl_ocean_fluxes.launches` counts the kernel's launches (on this
+    function, whatever wraps it later), and ``gfdl_cuda.mo_passes(device)``
+    keeps their most Newton passes of any cell.
     """
+    args = (tair, qair, uwnd, vwnd, press, sst, ssu, ssv, u_star_prev,
+            tmask)
+    if tair.device.type == "cpu":
+        return _gfdl_ocean_fluxes_plain(*args, zlvl=zlvl,
+                                        rough_scheme=rough_scheme,
+                                        use_ncar=use_ncar)
+    if tair.device.type != "cuda":
+        raise NotImplementedError(
+            f"gfdl_ocean_fluxes has no path for device {tair.device}")
+    from cice4_tpu_torch.ops import gfdl_cuda
+
+    out = gfdl_cuda.gfdl_ocean_fluxes_cuda(
+        *args, zlvl=zlvl, rough_scheme=rough_scheme, use_ncar=use_ncar)
+    _counted.launches += 1
+    return out
+
+
+gfdl_ocean_fluxes.launches = 0
+_counted = gfdl_ocean_fluxes
+
+
+def _gfdl_ocean_fluxes_plain(tair, qair, uwnd, vwnd, press, sst, ssu, ssv,
+                             u_star_prev, tmask, *, zlvl=10.0,
+                             rough_scheme="beljaars", use_ncar=False):
+    """:func:`gfdl_ocean_fluxes` in plain PyTorch, on any device; the
+    kernel's oracle."""
     mask = tmask
     t_surf = torch.where(sst < 250.0, sst + cn.Tffresh, sst)
     tv_atm = tair * (1.0 + d608 * qair)

@@ -224,6 +224,59 @@ def test_gfdl_ocean_fluxes_match_jax(rough_scheme, use_ncar, celsius):
         assert float(to[k][land].abs().max()) == 0.0, k
 
 
+@pytest.mark.parametrize("rough_scheme,use_ncar,celsius",
+                         [("beljaars", False, True), ("charnock", True, False),
+                          ("fixed", False, False)])
+def test_gfdl_ocean_fluxes_on_the_cpu_run_the_plain_path(
+        monkeypatch, rough_scheme, use_ncar, celsius):
+    """On CPU tensors the dispatcher runs the plain version, bit for bit,
+    and never loads a CUDA library or counts a kernel launch."""
+    from cice4_tpu_torch import cuda_build
+
+    def refuse(name):
+        raise AssertionError(f"a CUDA library ({name}) was loaded on the CPU")
+
+    monkeypatch.setattr(cuda_build, "load", refuse)
+    x = kernel_check.gfdl_inputs(13, 21, seed=4, device=CPU, dtype=F64,
+                                 celsius=celsius)
+    kw = dict(rough_scheme=rough_scheme, use_ncar=use_ncar)
+    before = tgf.gfdl_ocean_fluxes.launches
+    got = tgf.gfdl_ocean_fluxes(**x, **kw)
+    want = tgf._gfdl_ocean_fluxes_plain(**x, **kw)
+    assert tgf.gfdl_ocean_fluxes.launches == before
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_gfdl_ocean_fluxes_refuse_a_device_without_a_path():
+    """A device that is neither the CPU nor CUDA raises, before any work."""
+    x = kernel_check.gfdl_inputs(4, 5, seed=4, device="meta", dtype=F64)
+    with pytest.raises(NotImplementedError, match="meta"):
+        tgf.gfdl_ocean_fluxes(**x)
+
+
+def test_gfdl_column_parameters_follow_the_kernel():
+    """The launcher's parameter list has one number for each field of the
+    kernel's ``GfdlParams`` struct, and the plain version's roughness
+    schemes in the kernel's order, so that a field added to one side only
+    is caught without a card."""
+    import re
+
+    from cice4_tpu_torch.cuda_build import CSRC, EXTRA_FLAGS
+    from cice4_tpu_torch.ops import gfdl_cuda
+
+    src = (CSRC / "gfdl_column.cu").read_text()
+    body = re.search(r"struct GfdlParams \{\s*double(.*?);\s*\};", src,
+                     re.S).group(1)
+    fields = [f.strip() for f in body.split(",")]
+    assert len(fields) == len(gfdl_cuda._params(10.0))
+    assert gfdl_cuda._params(10.0)[0] == 10.0 and fields[0] == "zlvl"
+    assert re.search(r"kBeljaars = 0, kCharnock = 1, kFixed = 2", src)
+    assert gfdl_cuda.ROUGH_SCHEMES == ("beljaars", "charnock", "fixed")
+    assert EXTRA_FLAGS["gfdl_column"] == ("-fmad=false",)
+
+
 # ---------------------------------------------------------------------------
 # runoff filter
 # ---------------------------------------------------------------------------

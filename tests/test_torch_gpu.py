@@ -784,7 +784,8 @@ def test_option_step_launches_its_kernels(cuda_device, name, monkeypatch):
 
 
 def _refuse_plain_versions(monkeypatch):
-    from cice4_tpu_torch.ops import evp_cuda, itd, mechred, remap_cuda
+    from cice4_tpu_torch.ops import evp_cuda, gfdl_flux, itd, mechred
+    from cice4_tpu_torch.ops import remap_cuda
 
     def refuse(*a, **k):
         raise AssertionError("a plain version ran on the card's path")
@@ -794,7 +795,8 @@ def _refuse_plain_versions(monkeypatch):
                       (remap_cuda, "ga_gsh_plain"),
                       (remap_cuda, "k12_plain"),
                       (mechred, "_ridge_ice_plain"),
-                      (itd, "_cleanup_itd_plain")):
+                      (itd, "_cleanup_itd_plain"),
+                      (gfdl_flux, "_gfdl_ocean_fluxes_plain")):
         monkeypatch.setattr(mod, attr, refuse)
 
 
@@ -866,12 +868,14 @@ def test_file_forced_run_launches_every_kernel(cuda_device, name,
 def test_component_launches_its_kernels(cuda_device, flavor, monkeypatch):
     """Two coupling intervals of one step of `IceComponent` on the 24x32
     ACCESS grid from seeded imports: ACCESS-OM (GFDL open-water fluxes)
-    launches the four kernels of the default route once a step, ACCESS-CM
-    (calc_Tsfc=False) all but therm_newton; no plain version; the exports
+    launches the four kernels of the default route once a step and the
+    GFDL column kernel once an interval, ACCESS-CM (calc_Tsfc=False) all
+    but therm_newton and gfdl_column; no plain version; the exports
     finite; under ACCESS-CM the EVP reads the UM's stress."""
     from cice4_tpu_torch import coupling, coupling_cm
     from cice4_tpu_torch.component import IceComponent
     from cice4_tpu_torch.config import access_om_config
+    from cice4_tpu_torch.ops import gfdl_flux
 
     _refuse_plain_versions(monkeypatch)
     over = {} if flavor == "om" else {"thermo.calc_Tsfc": False,
@@ -881,7 +885,7 @@ def test_component_launches_its_kernels(cuda_device, flavor, monkeypatch):
                         device=cuda_device, log=lambda *a: None).initialize()
     a2i = coupling.A2I_FIELDS if flavor == "om" \
         else coupling_cm.a2i_cm_fields(comp.runner.state.aicen.shape[0])
-    wrappers = _wrappers()
+    wrappers = dict(_wrappers(), gfdl=gfdl_flux.gfdl_ocean_fluxes)
     before = {k: w.launches for k, w in wrappers.items()}
     with kernel_check.evp_stress_reads() as reads:
         for n in range(2):
@@ -898,7 +902,7 @@ def test_component_launches_its_kernels(cuda_device, flavor, monkeypatch):
     torch.cuda.synchronize()
     want = {k: 2 for k in wrappers}
     if flavor == "cm":
-        want["therm_newton"] = 0
+        want["therm_newton"] = want["gfdl"] = 0
         for f, sx, sy in reads:
             assert torch.equal(sx, f.strax) and torch.equal(sy, f.stray)
     else:
@@ -926,6 +930,128 @@ def test_regrid_runoff_matches_the_cpu(cuda_device, dtype, rtol):
     want = regrid_runoff(runof, mask)
     got = regrid_runoff(runof.to(cuda_device), mask.to(cuda_device)).cpu()
     assert float((got - want).abs().max()) <= rtol * float(want.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the GFDL column kernel (csrc/gfdl_column.cu) against
+# gfdl_flux._gfdl_ocean_fluxes_plain with kernel_check.GFDL_RTOL, on
+# kernel_check.gfdl_inputs: at ACCESS-OM2-025's plane and at an odd one
+# ---------------------------------------------------------------------------
+
+GFDL_SHAPES = {"1080x1440": (1080, 1440), "37x53": (37, 53)}
+
+
+def _gfdl_pair(x, **kw):
+    """(kernel's outputs, its mo_passes, the plain version's outputs) on
+    the same inputs."""
+    from cice4_tpu_torch.ops import gfdl_cuda
+    from cice4_tpu_torch.ops import gfdl_flux as gf
+
+    passes = gfdl_cuda.mo_passes(x["tair"].device)
+    passes.zero_()
+    got = gfdl_cuda.gfdl_ocean_fluxes_cuda(**x, **kw)
+    want = gf._gfdl_ocean_fluxes_plain(**x, **kw)
+    return got, int(passes), want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", list(GFDL_SHAPES))
+@pytest.mark.parametrize("celsius", [True, False], ids=["C", "K"])
+@pytest.mark.parametrize("use_ncar", [False, True], ids=["mo", "ncar"])
+@pytest.mark.parametrize("rough_scheme", ["beljaars", "charnock", "fixed"])
+def test_gfdl_column_matches_plain(cuda_device, dtype, shape, celsius,
+                                   use_ncar, rough_scheme):
+    """Each output within GFDL_RTOL of the plain version by its 2-norm and
+    no point beyond GFDL_POINT_RTOL; land cells exactly the plain
+    version's (zero fluxes, ROUGHNESS_MIN); the Newton's passes in [1,
+    MO_MAX_ITER], or 0 under use_ncar."""
+    from cice4_tpu_torch.ops import gfdl_flux as gf
+
+    x = kernel_check.gfdl_inputs(*GFDL_SHAPES[shape], seed=9,
+                                 device=cuda_device, dtype=dtype,
+                                 celsius=celsius)
+    before = gf.gfdl_ocean_fluxes.launches
+    got = gf.gfdl_ocean_fluxes(**x, rough_scheme=rough_scheme,
+                               use_ncar=use_ncar)
+    assert gf.gfdl_ocean_fluxes.launches == before + 1
+    kern, passes, want = _gfdl_pair(x, rough_scheme=rough_scheme,
+                                    use_ncar=use_ncar)
+    for k in want:
+        assert torch.equal(got[k], kern[k]), k
+    report = kernel_check.compare_gfdl(kern, want)
+    assert kernel_check.gfdl_ok(report, dtype), report
+    land = ~x["tmask"]
+    for k in want:
+        assert torch.equal(kern[k][land], want[k][land]), k
+        fill = gf.ROUGHNESS_MIN if k.startswith("rough") else 0.0
+        assert bool((kern[k][land] == fill).all()), k
+    if use_ncar:
+        assert passes == 0
+    else:
+        assert 1 <= passes <= gf.MO_MAX_ITER
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gfdl_column_carries_u_star(cuda_device, dtype):
+    """Three coupling intervals at 1080x1440, each taking the last one's
+    u_star as the coupler does, on the kernel and on the plain version:
+    within the tolerances at every interval."""
+    from cice4_tpu_torch.ops import gfdl_flux as gf
+
+    x = kernel_check.gfdl_inputs(1080, 1440, seed=21, device=cuda_device,
+                                 dtype=dtype)
+    x["u_star_prev"] = torch.full_like(x["tair"], 0.1)
+    ku = pu = x["u_star_prev"]
+    for n in range(3):
+        kern = gf.gfdl_ocean_fluxes(**dict(x, u_star_prev=ku))
+        want = gf._gfdl_ocean_fluxes_plain(**dict(x, u_star_prev=pu))
+        report = kernel_check.compare_gfdl(kern, want)
+        assert kernel_check.gfdl_ok(report, dtype), (n, report)
+        ku, pu = kern["u_star"], want["u_star"]
+        x["tair"] = x["tair"] + 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gfdl_column_is_one_launch_without_sync(cuda_device, dtype):
+    """A call is one kernel launch as the profiler sees it, with no host
+    synchronisation (`set_sync_debug_mode("error")`), and counts on the
+    function even while a wrapper stands in the module's name; the
+    device's mo_passes holds the most passes of the calls since it was
+    zeroed, in [1, MO_MAX_ITER]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cice4_tpu_torch.ops import gfdl_cuda
+    from cice4_tpu_torch.ops import gfdl_flux as gf
+
+    x = kernel_check.gfdl_inputs(300, 360, seed=2, device=cuda_device,
+                                 dtype=dtype)
+    gf.gfdl_ocean_fluxes(**x)         # builds the library and the counter
+    torch.cuda.synchronize()
+    real = gf.gfdl_ocean_fluxes
+    passes = gfdl_cuda.mo_passes(x["tair"].device)
+    passes.zero_()
+    before = real.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            gf.gfdl_ocean_fluxes(**x)
+            gf.gfdl_ocean_fluxes = lambda **kw: real(**kw)
+            gf.gfdl_ocean_fluxes(**x)
+        finally:
+            gf.gfdl_ocean_fluxes = real
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    # the device's operations as the benchmark's tracer reads them (a
+    # ctypes launch has no CPU operator for key_averages to put it under)
+    ops = [e.name() for e in prof.profiler.kineto_results.events()
+           if str(e.device_type()).endswith("CUDA")]
+    assert len(ops) == 2 and all("gfdl_column" in n for n in ops), ops
+    assert real.launches == before + 2
+    assert passes.device.type == "cuda" and passes.dim() == 0
+    assert 1 <= int(passes) <= gf.MO_MAX_ITER
 
 
 # ---------------------------------------------------------------------------
@@ -1053,9 +1179,10 @@ def test_column_kernels_at_twelve_categories(cuda_device, dtype):
 def test_column_kernels_on_the_blocks_of_a_decomposed_grid(cuda_device,
                                                            dtype):
     """On a 2x2 mesh of blocks of a 48x64 cut, each block's launches give
-    its columns what the whole grid's give, bit for bit, every block
-    reports the whole grid's most passes and guard count; a masked column
-    ridges nothing and keeps its area."""
+    its columns what the whole grid's give, bit for bit; each block
+    reports its own most passes and guard count, whose largest and whose
+    sum are the whole grid's; a masked column ridges nothing and keeps
+    its area."""
     from cice4_tpu_torch import convert
     from cice4_tpu_torch.ops import itd as itd_ops
     from cice4_tpu_torch.ops import mechred
@@ -1088,10 +1215,12 @@ def test_column_kernels_on_the_blocks_of_a_decomposed_grid(cuda_device,
         for name in names:
             got = mesh.assemble([o[k][name] for o in blocks])
             assert torch.equal(got, whole[k][name]), name
-    for o in blocks:
-        assert int(o[1]["niter"]) == int(whole[1]["niter"]) >= 3
-        assert int(o[1]["_guard"]["count"]) == \
-            int(whole[1]["_guard"]["count"])
+    # each block counts its own columns: the most passes of the blocks is
+    # the whole grid's, their guard counts sum to its count
+    niter = [int(o[1]["niter"]) for o in blocks]
+    assert max(niter) == int(whole[1]["niter"]) >= 3, niter
+    assert sum(int(o[1]["_guard"]["count"]) for o in blocks) == \
+        int(whole[1]["_guard"]["count"])
     # the masked columns: one pass without closing or opening
     rs, rd = whole[0], whole[1]
     assert torch.equal(rs.aicen[:, 5, 3:9], st.aicen[:, 5, 3:9])

@@ -3,8 +3,8 @@
     python tools/rehearse_cuda_on_cpu.py [--out build/cpu_rehearsal]
 
 Compiles ``evp_subcycle.cu``, ``evp_rounds.cu``, ``remap_gsh.cu``,
-``remap_k12.cu``, ``therm_newton.cu`` and ``ridge_column.cu`` (with the
-headers they include)
+``remap_k12.cu``, ``therm_newton.cu``, ``ridge_column.cu`` and
+``gfdl_column.cu`` (with the headers they include)
 with ``g++ -std=c++20 -ffp-contract=off`` against a stand-in CUDA
 runtime written into ``--out``: each block's
 threads run as ``std::thread``s meeting at a ``std::barrier``, blocks one
@@ -22,7 +22,9 @@ bit against the register instance at (4, 1); ``ridge_column`` and
 ``cleanup_column`` through their wrappers against ``ridge_ice``'s and
 ``cleanup_itd``'s plain versions, for both ridging options each, three
 tracer sets, ten ice layers, the delta-function ITD's category-1 bound
-and twelve categories (whose work slots exceed shared memory in f64).  The stand-in's ``exp`` of a float is the double one's, so f32
+and twelve categories (whose work slots exceed shared memory in f64);
+``gfdl_column`` through its wrapper against the plain GFDL fluxes under
+each option (``--gfdl`` alone: ~1 min).  The stand-in's ``exp`` of a float is the double one's, so f32
 Newton results agree within tolerance; the CPU's plain versions divide by
 a Python number where the card's multiply by its reciprocal, and sum in
 another order, so the column kernels agree with them within tolerance.
@@ -128,6 +130,15 @@ inline int __shfl_down_sync(unsigned, int x, int d) {
   return v;
 }
 inline int __popc(unsigned m) { return __builtin_popcount(m); }
+inline int atomicMax(int* a, int v) {
+  int old = __atomic_load_n(a, __ATOMIC_SEQ_CST);
+  while (old < v && !__atomic_compare_exchange_n(
+                        a, &old, v, false, __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST)) {
+  }
+  return old;
+}
+inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+inline double rsqrt(double x) { return 1.0 / std::sqrt(x); }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
@@ -225,7 +236,7 @@ inline grid_group this_grid() { return {}; }
 """
 
 LIBRARIES = ("evp_subcycle", "evp_rounds", "remap_gsh", "remap_k12",
-             "therm_newton", "ridge_column")
+             "therm_newton", "ridge_column", "gfdl_column")
 
 
 def translate(name: str, src: str) -> str:
@@ -460,6 +471,52 @@ def check_columns(lib) -> list[str]:
     return failed
 
 
+GFDL_CASES = [(scheme, ncar, celsius)
+              for scheme in ("beljaars", "charnock", "fixed")
+              for ncar in (False, True) for celsius in (True, False)]
+
+
+def check_gfdl(lib) -> list[str]:
+    """gfdl_column through its wrapper on CPU tensors and the stand-in,
+    against `_gfdl_ocean_fluxes_plain`, on a 13 x 37 plane with land in
+    two blocks (so the grid-stride loop takes a cell a thread more than
+    once), for each roughness scheme, NCAR or Monin-Obukhov and Celsius or
+    Kelvin SST; the most Newton passes in [1, MO_MAX_ITER], 0 under
+    NCAR."""
+    from cice4_tpu_torch.ops import gfdl_cuda
+    from cice4_tpu_torch.ops import gfdl_flux as gf
+
+    _stand_in("gfdl_column", lib)
+    gfdl_cuda._most_blocks = lambda _device: 2
+    failed = []
+    for dtype in BOTH:
+        for scheme, ncar, celsius in GFDL_CASES:
+            x = kc.gfdl_inputs(13, 37, seed=5, device="cpu", dtype=dtype,
+                               celsius=celsius)
+            kw = dict(rough_scheme=scheme, use_ncar=ncar)
+            passes = gfdl_cuda.mo_passes(torch.device("cpu"))
+            passes.zero_()
+            got = gfdl_cuda.gfdl_ocean_fluxes_cuda(**x, **kw)
+            want = gf._gfdl_ocean_fluxes_plain(**x, **kw)
+            rep = kc.compare_gfdl(got, want)
+            land = ~x["tmask"]
+            tag = f"gfdl_column {scheme} ncar={ncar} celsius={celsius} " \
+                  f"{dtype}"
+            worst = max(v["norm_gap"] for v in rep.values())
+            print(f"{tag}: mo_passes {int(passes)}, worst norm gap "
+                  f"{worst:.2e}, worst point gap "
+                  f"{max(v['point_gap'] for v in rep.values()):.2e}",
+                  flush=True)
+            ok = (kc.gfdl_ok(rep, dtype)
+                  and all(torch.equal(got[k][land], want[k][land])
+                          for k in want)
+                  and (int(passes) == 0 if ncar
+                       else 1 <= int(passes) <= gf.MO_MAX_ITER))
+            if not ok:
+                failed.append(f"{tag}: passes {int(passes)}, {rep}")
+    return failed
+
+
 def check_newton(lib) -> list[str]:
     """therm_newton through its wrapper on CPU tensors, the stand-in
     library loaded in place of the card's: the generic instance against the
@@ -508,11 +565,18 @@ def main() -> int:
     ap.add_argument("--out", default=str(ROOT / "build" / "cpu_rehearsal"))
     ap.add_argument("--columns", action="store_true",
                     help="build and check only the column kernels")
+    ap.add_argument("--gfdl", action="store_true",
+                    help="build and check only the GFDL column kernel")
     args = ap.parse_args()
     out = Path(args.out)
     torch.set_num_threads(2)
-    if args.columns:
-        failed = check_columns(build(out, ("ridge_column",))["ridge_column"])
+    if args.columns or args.gfdl:
+        failed = []
+        if args.columns:
+            failed += check_columns(
+                build(out, ("ridge_column",))["ridge_column"])
+        if args.gfdl:
+            failed += check_gfdl(build(out, ("gfdl_column",))["gfdl_column"])
         for line in failed:
             print(line)
         print(f"{len(failed)} case(s) disagree")
@@ -592,6 +656,7 @@ def main() -> int:
                       flush=True)
     failed += check_newton(libs["therm_newton"])
     failed += check_columns(libs["ridge_column"])
+    failed += check_gfdl(libs["gfdl_column"])
     for line in failed:
         print(line)
     print(f"{len(failed)} case(s) disagree")
